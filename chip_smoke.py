@@ -14,6 +14,13 @@ exit code is not 0:
      scene (short tile lists) and the arguments of phase 4's first train step
      at 1M Gaussians (tile lists of thousands of entries, so K1 walks many
      staged batches and its early exit);
+  2b. the blend probes K3/K4 (ops/blend_probe.py): every variant on phase
+     2's two inputs, held against K1/K2's outputs of phase 2 where it keeps
+     their numerics, and against its own plain version (every variant on the
+     20k scene, the others at 1M); then the probes' own path, the run()
+     of tools/probe_torch_kernel.py and tools/probe_torch_bwd.py on the probe
+     scene (1M Gaussians, camera 0), with the probe launch counters zeroed
+     just before and read just after: every variant must show;
   3. the slice: MappingEngine.add_frame over a 40-frame synthetic stream at
      the fastlivo rig (640x512, SH 3, 16 tile slots, capacity 262144); the
      launch counters are zeroed just before the stream and read just after,
@@ -32,11 +39,12 @@ above), so their control flow can be rehearsed on a CPU at a tiny size.
 
 from __future__ import annotations
 
+import functools
 import gc
+import importlib.util
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
@@ -49,52 +57,34 @@ PSNR_FLOOR = 17.0          # phase 3 train PSNR floor: first H100 run 18.86 dB
 IMG_ATOL = 1e-5            # K1 image and final_T vs plain
 GRAD_RTOL = 1e-4           # K2 per-entry grads vs plain, relative to the max
 SMALL_LOSS_RTOL = 1e-4     # phase 3 small stream: card vs CPU per-keyframe loss
+NOBLEND_RTOL = 1e-5        # K3 noblend vs plain, relative to the max: sums of ~1e4 powers
+NORED_RTOL = 1e-4          # K4 nored vs plain, relative to the max: 4-pixel sums
+# K4 variants vs K2 (fused: vs K2 + index_add_), relative to the max; base and
+# dbuf2 keep K2's arithmetic and order, smematomic and fused sum in any order
+BWD_RTOL_VS_K2 = {"base": 1e-6, "dbuf2": 1e-6, "smematomic": GRAD_RTOL, "fused": GRAD_RTOL}
+FWD_K1_NUMERICS = ("base", "batch512", "direct")   # K3 variants held to K1 bit for bit
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+def timed(fn):
+    """(fn(), the ms of that one call between two CUDA events)."""
     import torch
 
-    for _ in range(warmup):
-        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return out, start.elapsed_time(end)
 
 
 # ---------------------------------------------------------------------------
 # phase 2: kernels vs plain
 # ---------------------------------------------------------------------------
-
-def splat_args(xyz, scale, quat, opacity, cam, **kw) -> dict:
-    """The gathered splat list and tile ranges that render_tiled hands K1 and
-    K2; `kw` as `ops.rasterize.splat_inputs` takes them."""
-    import torch
-
-    from gaussian_lic_tpu_torch.ops.rasterize import _gather_splats, splat_inputs
-
-    with torch.no_grad():
-        grid, rows, b, _ = splat_inputs(xyz, scale, quat, opacity, cam, **kw)
-        splats = _gather_splats(rows, b.sorted_gauss)
-    return dict(splats=splats.contiguous(), starts=b.tile_starts, lens=b.tile_lens,
-                grid=grid, live=int(b.num_valid), lost=int(b.overflow))
-
 
 def kernel_scene(dev, n: int = 20000, seed: int = 1) -> dict:
     """Seeded 640x512 scene of `n` Gaussians, with a random seeded dL/dpix."""
@@ -102,6 +92,7 @@ def kernel_scene(dev, n: int = 20000, seed: int = 1) -> dict:
 
     from gaussian_lic_tpu_torch.camera import Intrinsics, look_at, make_camera
     from gaussian_lic_tpu_torch.config import load_params
+    from gaussian_lic_tpu_torch.utils.synthetic import splat_args
 
     cfg = load_params(CONFIG, skybox_points_num=0)
     intr = Intrinsics(cfg.width, cfg.height, cfg.fx, cfg.fy, cfg.cx, cfg.cy)
@@ -134,6 +125,7 @@ def step_scene(state: dict, idx: int = 1) -> dict:
 
     from gaussian_lic_tpu_torch.engine.trainer import _render_kw
     from gaussian_lic_tpu_torch.ops import blend, losses
+    from gaussian_lic_tpu_torch.utils.synthetic import splat_args
 
     cfg, intr, gm, kf = state["cfg"], state["intr"], state["gm"], state["kf"]
     sc = splat_args(gm.xyz, gm.scaling, gm.rotation, gm.opacity, kf.camera(intr, idx),
@@ -149,24 +141,27 @@ def step_scene(state: dict, idx: int = 1) -> dict:
     return sc
 
 
-def tie_pixels(blend, sc, kw):
+def tie_pixels(plain, sc, kw):
     """Pixels where some T*(1-alpha) lies within 1 ulp of 1e-4: the plain
-    forward decides them differently with the threshold moved 1 ulp down or up."""
-    eps32 = np.float32(blend.T_EPS)
+    forward `plain` decides them differently with the threshold moved 1 ulp
+    down or up."""
+    eps32 = np.float32(1e-4)
     lo = float(np.nextafter(eps32, np.float32(0)))
     hi = float(np.nextafter(eps32, np.float32(1)))
-    _, ft_lo, nc_lo = blend.blend_forward_plain(sc["splats"], sc["starts"], sc["lens"], t_eps=lo, **kw)
-    _, ft_hi, nc_hi = blend.blend_forward_plain(sc["splats"], sc["starts"], sc["lens"], t_eps=hi, **kw)
+    _, ft_lo, nc_lo = plain(sc["splats"], sc["starts"], sc["lens"], t_eps=lo, **kw)
+    _, ft_hi, nc_hi = plain(sc["splats"], sc["starts"], sc["lens"], t_eps=hi, **kw)
     return (nc_lo != nc_hi) | (ft_lo != ft_hi)
 
 
 def compare_kernels(sc: dict, tag: str) -> dict:
     """K1 (color, no_color) and K2 against their plain versions on one
     scene; raises beyond the tolerances. Returns each kernel's max abs error
-    and its and its plain version's time (ms)."""
+    and its and its plain version's time (ms), and keeps K1's and K2's
+    outputs, the tie pixels and the times in `sc` for phase 2b."""
     import torch
 
     from gaussian_lic_tpu_torch.ops import blend
+    from gaussian_lic_tpu_torch.utils.cuda_timing import cuda_ms
 
     g = sc["grid"]
     kw = dict(n_tx=g.n_tx, n_ty=g.n_ty, tile_h=g.tile_h, tile_w=g.tile_w)
@@ -178,7 +173,7 @@ def compare_kernels(sc: dict, tag: str) -> dict:
     out_k = blend.blend_forward(*args, **kw)
     out_p = blend.blend_forward_plain(*args, **kw)
     torch.cuda.synchronize()
-    ties = tie_pixels(blend, sc, kw)
+    ties = tie_pixels(blend.blend_forward_plain, sc, kw)
     nc_bad = out_k[2] != out_p[2]
     if bool((nc_bad & ~ties).any()):
         raise AssertionError(f"{tag}: K1 n_contrib differs at {int((nc_bad & ~ties).sum())} "
@@ -227,15 +222,18 @@ def compare_kernels(sc: dict, tag: str) -> dict:
     }
     for k, (_, tk, tp) in res.items():
         log(f"[2] {tag} time {k}: kernel {tk:.4f} ms  plain {tp:.4f} ms")
+    sc.update(k1=out_k, ties=ties, k2=gk, k2_in=bargs[3:], times=res)
     return res
 
 
-def phase_kernels(dev, state: dict, n: int = 20000) -> list:
+def phase_kernels(dev, state: dict, n: int = 20000):
     """Compares the kernels on the seeded n-Gaussian scene and on the
     arguments of phase 4's first train step. The JSON line reports the
-    larger error of the two and the times at the train step's shapes."""
-    light = compare_kernels(kernel_scene(dev, n), f"{n}-Gaussian scene")
-    step = compare_kernels(step_scene(state), f"{state['n']}-Gaussian train step")
+    larger error of the two and the times at the train step's shapes.
+    Returns those rows and the two scenes."""
+    light_sc, step_sc = kernel_scene(dev, n), step_scene(state)
+    light = compare_kernels(light_sc, f"{n}-Gaussian scene")
+    step = compare_kernels(step_sc, f"{state['n']}-Gaussian train step")
     src = "gaussian_lic_tpu_torch/csrc/"
     pallas = "gaussian_lic_tpu/ops/blend_pallas.py:"
     rows = [("blend_forward", "blend_forward.cu", "278", "forward"),
@@ -244,7 +242,150 @@ def phase_kernels(dev, state: dict, n: int = 20000) -> list:
     return [dict(name=name, route="cuda", source=src + cu, replaces=pallas + line,
                  counter=key, max_abs_err=max(light[key][0], step[key][0]),
                  ms=step[key][1], plain_ms=step[key][2])
-            for name, cu, line, key in rows]
+            for name, cu, line, key in rows], (light_sc, step_sc)
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the blend probes K3/K4
+# ---------------------------------------------------------------------------
+
+def check_probe_forward(tag, v, against, out, ref, tol, ties) -> float:
+    """Max abs error of K3 variant `v`'s outputs against `ref` (named
+    `against`), outside the pixels that `ties()` names (asked for only when
+    some pixel disagrees); raises beyond `tol` or on an n_contrib mismatch
+    outside them."""
+    import torch
+
+    if v == "noblend":
+        err = float((out[0] - ref[0]).abs().max())
+        rel = err / max(float(ref[0].abs().max()), 1e-30)
+        log(f"[2b] {tag} K3 {v} vs {against}: max|d image| {err:.3e}  relative to max "
+            f"{rel:.3e}")
+        if not (rel <= NOBLEND_RTOL and bool((out[1] == 1.0).all())
+                and int(out[2].abs().max()) == 0):
+            raise AssertionError(f"{tag}: K3 {v} disagrees with {against} beyond "
+                                 f"{NOBLEND_RTOL} relative")
+        return err
+    px_err = torch.maximum((out[0] - ref[0]).abs().amax(0), (out[1] - ref[1]).abs())
+    nc_bad = out[2] != ref[2]
+    bad = nc_bad | (px_err > tol)
+    excused = ties() if bool(bad.any()) else torch.zeros_like(bad)
+    err = float(px_err[~excused].max())
+    log(f"[2b] {tag} K3 {v} vs {against}: max|d image|,|d final_T| {err:.3e}  n_contrib mismatches "
+        f"{int(nc_bad.sum())} (tie pixels excused {int(excused.sum())})")
+    if bool((bad & ~excused).any()):
+        raise AssertionError(f"{tag}: K3 {v} disagrees with {against} beyond {tol} at "
+                             f"{int((bad & ~excused).sum())} pixels that are not ties")
+    return err
+
+
+def check_probe_backward(tag, v, against, out, ref, tol) -> float:
+    """Max abs error of K4 variant `v`'s grads against `ref` (named
+    `against`); raises beyond `tol` relative to the max of `ref`."""
+    err = float((out - ref).abs().max())
+    rel = err / max(float(ref.abs().max()), 1e-30)
+    log(f"[2b] {tag} K4 {v} vs {against}: max|d grad| {err:.3e}  relative to max {rel:.3e}")
+    if not rel <= tol:
+        raise AssertionError(f"{tag}: K4 {v} disagrees with {against} beyond {tol} relative")
+    return err
+
+
+def compare_probes(sc: dict, tag: str, full: bool) -> dict:
+    """Every K3/K4 variant on scene `sc` of phase 2. The variants that keep
+    K1/K2's numerics are held against phase 2's K1/K2 outputs; with `full`,
+    every variant is also held against its plain version, and otherwise only
+    the others run their plain version, once (the rest take phase 2's plain
+    time). Returns {(direction, variant): (max abs err, ms, plain ms)}."""
+    import torch
+
+    from gaussian_lic_tpu_torch.ops import blend_probe as bp
+    from gaussian_lic_tpu_torch.utils.cuda_timing import cuda_ms
+
+    g = sc["grid"]
+    kw = dict(n_tx=g.n_tx, n_ty=g.n_ty, tile_h=g.tile_h, tile_w=g.tile_w)
+    args = (sc["splats"], sc["starts"], sc["lens"])
+    res = {}
+    for v in bp.FORWARD_VARIANTS:
+        plain = functools.partial(bp.probe_forward_plain, v)
+        out = bp.probe_forward(v, *args, **kw)
+        errs, plain_ms = [], sc["times"]["forward"][2]
+        if full or v not in FWD_K1_NUMERICS:
+            ref, plain_ms = timed(lambda: plain(*args, **kw))
+            errs.append(check_probe_forward(tag, v, "plain", out, ref, IMG_ATOL,
+                                            lambda: tie_pixels(plain, sc, kw)))
+        if v in FWD_K1_NUMERICS:
+            errs.append(check_probe_forward(tag, v, "K1", out, sc["k1"], 0.0,
+                                            lambda: sc["ties"]))
+        res[("forward", v)] = (max(errs), cuda_ms(lambda: bp.probe_forward(v, *args, **kw), 20),
+                               plain_ms)
+
+    bargs = args + sc["k2_in"]   # phase 2's dL/dpix, final_T and n_contrib
+    fkw = dict(kw, sorted_gauss=sc["sorted_gauss"], n_gauss=sc["n_gauss"])
+    sg = sc["sorted_gauss"].long()
+    k2_sum = sc["k2"].new_zeros((sc["n_gauss"] + 1, sc["k2"].shape[1])).index_add_(
+        0, sg, sc["k2"])
+    for v in bp.BACKWARD_VARIANTS:
+        out = bp.probe_backward(v, *bargs, **fkw)
+        errs, plain_ms = [], sc["times"]["backward"][2]
+        if full or v == "nored":
+            ref, plain_ms = timed(lambda: bp.probe_backward_plain(v, *bargs, **fkw))
+            errs.append(check_probe_backward(tag, v, "plain", out, ref,
+                                             NORED_RTOL if v == "nored" else GRAD_RTOL))
+        elif v == "fused":
+            plain_ms += cuda_ms(lambda: torch.zeros_like(k2_sum).index_add_(0, sg, sc["k2"]), 5)
+        if v == "fused":
+            errs.append(check_probe_backward(tag, v, "K2 + index_add_", out, k2_sum,
+                                             BWD_RTOL_VS_K2[v]))
+        elif v in BWD_RTOL_VS_K2:
+            errs.append(check_probe_backward(tag, v, "K2", out, sc["k2"], BWD_RTOL_VS_K2[v]))
+        res[("backward", v)] = (max(errs),
+                                cuda_ms(lambda: bp.probe_backward(v, *bargs, **fkw), 20), plain_ms)
+    for (d, v), (_, tk, tp) in res.items():
+        log(f"[2b] {tag} time {d} {v}: kernel {tk:.4f} ms  plain {tp:.4f} ms")
+    return res
+
+
+def load_tool(name: str):
+    """tools/<name>.py as a module."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "tools", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_probes(state: dict, scenes, iters: int = 3) -> list:
+    """K3/K4 against their plain versions on phase 2's scenes, then the
+    probes' own path: the two probe tools' run() on the probe scene, between
+    a reset and a read of the probe launch counters."""
+    from gaussian_lic_tpu_torch.ops import blend_probe as bp
+    from gaussian_lic_tpu_torch.utils.synthetic import probe_scene
+
+    light_sc, step_sc = scenes
+    light = compare_probes(light_sc, f"{light_sc['n_gauss']}-Gaussian scene", full=True)
+    step = compare_probes(step_sc, f"{state['n']}-Gaussian train step", full=False)
+
+    sc = probe_scene(state["cfg"], state["intr"], state["gm"], state["kf"])
+    tools = load_tool("probe_torch_kernel"), load_tool("probe_torch_bwd")
+    bp.reset_launches()
+    tools[0].run(sc, iters, log=lambda s: log(f"[2b] probe path: {s}"))
+    tools[1].run(sc, iters, log=lambda s: log(f"[2b] probe path: {s}"))
+    launches = dict(bp.LAUNCHES)
+    log(f"[2b] launches in the probe path: {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a probe variant never launched on the probe path: {launches}")
+
+    src = "gaussian_lic_tpu_torch/csrc/"
+    rows = []
+    for d, variants, cu, replaces in (
+            ("forward", bp.FORWARD_VARIANTS, "blend_probe_forward.cu", "tools/probe_kernel.py:235"),
+            ("backward", bp.BACKWARD_VARIANTS, "blend_probe_backward.cu", "tools/probe_bwd.py:354")):
+        for v in variants:
+            key = (d, v)
+            rows.append(dict(name=f"probe_{d}_{v}", route="cuda", source=src + cu,
+                             replaces=replaces, launches=launches[f"{d}_{v}"],
+                             max_abs_err=max(light[key][0], step[key][0]),
+                             ms=step[key][1], plain_ms=step[key][2]))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -409,6 +550,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from gaussian_lic_tpu_torch import _build
+    from gaussian_lic_tpu_torch.utils.cuda_timing import card_line
 
     t_all = time.perf_counter()
     dev = torch.device("cuda:0")
@@ -429,8 +571,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     state = bench_state(dev)
-    kernels = phase_kernels(dev, state)
+    kernels, scenes = phase_kernels(dev, state)
     log(f"[2] phase seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    probes = phase_probes(state, scenes)
+    del scenes
+    log(f"[2b] phase seconds {time.perf_counter() - t0:.2f}")
     t0 = time.perf_counter()
     phase_slice(dev, kernels)
     log(f"[3] phase seconds {time.perf_counter() - t0:.2f}")
@@ -441,7 +587,7 @@ def main() -> int:
 
     for k in kernels:
         del k["counter"]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels + probes}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,17 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu) with nvcc + ctypes.
 
-On first use, `load()` compiles every `.cu` file of csrc/ into one shared
-library with a plain C interface,
+On first use, `load()` compiles every `.cu` file of csrc/ to an object,
+one nvcc process per source, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o build/libglic_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o
 
-into `gaussian_lic_tpu_torch/build/` (git-ignored), and loads it with
-ctypes. The file name carries a hash of the sources and flags, so an edited
-source is never served from a stale library. The build writes a temporary
-file and renames it, so concurrent builders never load a half-written one.
+links the objects into one shared library with a plain C interface,
+`build/libglic_kernels_<hash>.so` in `gaussian_lic_tpu_torch/build/`
+(git-ignored), and loads it with ctypes. The file name carries a hash of
+the sources and flags, so an edited source is never served from a stale
+library. The build links in a temporary directory and renames the result,
+so concurrent builds never load a half-written one.
 Nothing is compiled or loaded at import time.
 """
 
@@ -29,10 +31,8 @@ from dataclasses import dataclass
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +44,14 @@ _SIGNATURES = {
     # rows, m_pad, starts, lens, dl_dcolor, final_t, n_contrib, grads,
     # n_tx, n_ty, tile_w, tile_h, stream
     "glic_blend_backward": (_VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP),
+    # variant, rows, m_pad, starts, lens, color, final_t, n_contrib, walked,
+    # n_tx, n_ty, tile_w, tile_h, konst (9 host floats or null), stream
+    "glic_blend_probe_forward": (_I, _VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP,
+                                 _I, _I, _I, _I, _VP, _VP),
+    # variant, rows, m_pad, starts, lens, dl_dcolor, final_t, n_contrib, grads,
+    # sorted_gauss, walked, n_tx, n_ty, tile_w, tile_h, stream
+    "glic_blend_probe_backward": (_I, _VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                  _I, _I, _I, _I, _VP),
 }
 
 
@@ -76,6 +84,42 @@ def _sources():
     return srcs, h.hexdigest()[:16]
 
 
+def _start(cmd) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(cmd, proc) -> str:
+    """`proc`'s output; raises if it failed."""
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    return out
+
+
+def _compile_and_link(srcs, path) -> str:
+    """nvcc each source in parallel, link into `path`; returns nvcc's output."""
+    nvcc = _nvcc()
+    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        objs = [os.path.join(tmpdir, os.path.basename(src) + ".o") for src in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj] for src, obj in zip(srcs, objs)]
+        procs = [_start(c) for c in cmds]
+        try:
+            logs = [_wait(c, p) for c, p in zip(cmds, procs)]
+        finally:
+            for p in procs:   # a failed source leaves no compiler running
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        tmp = os.path.join(tmpdir, "lib.so")
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
+        logs.append(_wait(link, _start(link)))
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    return "".join(logs)
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> KernelLibrary:
     """Build (if needed) and load the kernel library; raises if nvcc fails."""
@@ -84,23 +128,9 @@ def load() -> KernelLibrary:
     path = os.path.join(BUILD_DIR, f"libglic_kernels_{digest}.so")
     seconds, log = 0.0, ""
     if not os.path.exists(path):
-        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
         t0 = time.perf_counter()
-        try:
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                    f"{res.stdout}\n{res.stderr}"
-                )
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+        log = _compile_and_link(srcs, path)
         seconds = time.perf_counter() - t0
-        log = res.stdout + res.stderr
     cdll = ctypes.CDLL(path)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(cdll, name)

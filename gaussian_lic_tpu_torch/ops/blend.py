@@ -217,19 +217,31 @@ def _gather_entries(splats, tile_starts, tile_lens, tiles, L):
     return e, idx, valid
 
 
-def _alpha(e, px, py):
+def _alpha(e, px, py, exp=torch.exp):
     """Per (tile, entry, pixel): dx, dy, power, exp(power), alpha, contributes;
-    the same operations, in the same order, as the kernels."""
+    the same operations, in the same order, as the kernels. `exp` is the
+    probes' hook (ops/blend_probe.py)."""
     x, y, A, B, C, opa = (e[..., i:i + 1] for i in range(6))
     dx = x - px[:, None, :]
     dy = y - py[:, None, :]
     nA = -0.5 * A
     nC = -0.5 * C
     power = (nA * dx - B * dy) * dx + (nC * dy) * dy
-    G = torch.exp(power)
+    G = exp(power)
     alpha = torch.clamp_max(opa * G, ALPHA_CAP)
     contrib = (alpha >= OPACITY_THRESHOLD) & (power <= 0.0)
     return dx, dy, power, G, alpha, contrib
+
+
+def _walked(trigger, lens, batch):
+    """Entries walked per tile by a kernel that stages `batch` entries per
+    round and leaves at the first round that starts with every pixel of the
+    tile stopped; `trigger` (G, L, 1024) marks where a pixel stops."""
+    stops = trigger.any(1)                                          # (G, 1024)
+    last = torch.where(stops, trigger.to(torch.int32).argmax(1), 0).amax(1)
+    rounds = torch.div(last, batch, rounding_mode="floor") + 1
+    walk = torch.minimum(rounds * batch, lens)
+    return torch.where(stops.all(1), walk, lens).to(torch.int32)
 
 
 def _to_image(per_tile: torch.Tensor, n_tx, n_ty, tile_h, tile_w) -> torch.Tensor:
@@ -252,13 +264,18 @@ def _to_tiles(img: torch.Tensor, n_tx, n_ty, tile_h, tile_w) -> torch.Tensor:
 
 def blend_forward_plain(
     splats, tile_starts, tile_lens, *, n_tx, n_ty, tile_h=32, tile_w=32,
-    no_color=False, t_eps=T_EPS,
+    no_color=False, t_eps=T_EPS, exp=torch.exp, walked=None, walk_batch=256,
 ):
     """Plain version of K1 (same signature and outputs). Front-to-back
     termination is emulated with cumulative products and a 'dead after the
     first trigger' mask; the cumulative product runs along a non-innermost
     dimension, which PyTorch scans sequentially, so T matches the kernel's
-    running product. `t_eps` exists for the tie check of the kernel test."""
+    running product. `t_eps` exists for the tie check of the kernel test.
+
+    The probes' hooks (ops/blend_probe.py): `exp` replaces torch.exp, and a
+    (T,) int32 `walked` receives the entries each tile's walk visits in a
+    kernel that stages `walk_batch` entries per round and leaves at the first
+    round that starts with every pixel stopped."""
     dev = splats.device
     n_tiles = n_tx * n_ty
     color_t = torch.zeros((n_tiles, 3, TILE_PIX), dtype=torch.float32, device=dev)
@@ -267,11 +284,13 @@ def blend_forward_plain(
     for tiles, L in _tile_chunks(tile_lens):
         e, _, _ = _gather_entries(splats, tile_starts, tile_lens, tiles, L)
         px, py = _pixel_coords(tiles, n_tx, tile_h, tile_w)
-        _, _, _, _, alpha, contrib = _alpha(e, px, py)
+        _, _, _, _, alpha, contrib = _alpha(e, px, py, exp)
         a = torch.where(contrib, alpha, torch.zeros_like(alpha))
         t_f = 1.0 - a
         T_excl = torch.cumprod(torch.cat([torch.ones_like(t_f[:, :1]), t_f[:, :-1]], 1), 1)
         trigger = contrib & (T_excl * t_f < t_eps)
+        if walked is not None:
+            walked[tiles] = _walked(trigger, tile_lens[tiles], walk_batch)
         applied = contrib & ~(torch.cumsum(trigger.to(torch.int32), 1) > 0)
         a = torch.where(applied, alpha, torch.zeros_like(alpha))
         t_f = 1.0 - a
@@ -293,12 +312,13 @@ def blend_forward_plain(
 
 def blend_backward_plain(
     splats, tile_starts, tile_lens, dl_dcolor, final_t, n_contrib, *,
-    n_tx, n_ty, tile_h=32, tile_w=32,
+    n_tx, n_ty, tile_h=32, tile_w=32, pixels=None,
 ):
     """Plain version of K2 (same signature and outputs): T before each entry
     is final_T times the reverse cumulative product of 1/(1-alpha) over the
     applied entries; Sdl is the reverse exclusive cumulative sum of
-    w * (rgb . dL/dpix)."""
+    w * (rgb . dL/dpix). `pixels`, the probes' hook (ops/blend_probe.py),
+    restricts the sums to those flat pixel indices of each tile."""
     dev = splats.device
     grads = torch.zeros((splats.shape[0], N_ATTR), dtype=torch.float32, device=dev)
     dl_t = _to_tiles(dl_dcolor, n_tx, n_ty, tile_h, tile_w)      # (T, 3, 1024)
@@ -307,14 +327,17 @@ def blend_backward_plain(
     for tiles, L in _tile_chunks(tile_lens):
         e, idx, valid = _gather_entries(splats, tile_starts, tile_lens, tiles, L)
         px, py = _pixel_coords(tiles, n_tx, tile_h, tile_w)
+        dl, ft, nc = dl_t[tiles], ft_t[tiles], nc_t[tiles]
+        if pixels is not None:
+            px, py, dl, ft, nc = px[:, pixels], py[:, pixels], dl[..., pixels], \
+                ft[:, pixels], nc[:, pixels]
         dx, dy, _, G, alpha, contrib = _alpha(e, px, py)
         pos = torch.arange(1, L + 1, device=dev)[None, :, None]
-        applied = contrib & (pos <= nc_t[tiles][:, None, :])
+        applied = contrib & (pos <= nc[:, None, :])
         inv_om = 1.0 / (1.0 - alpha)
         f = torch.where(applied, inv_om, torch.ones_like(inv_om))
-        T = ft_t[tiles][:, None, :] * torch.cumprod(f.flip(1), 1).flip(1)
+        T = ft[:, None, :] * torch.cumprod(f.flip(1), 1).flip(1)
         A, B, C, opa = (e[..., i:i + 1] for i in (ROW_A, ROW_B, ROW_C, ROW_OPA))
-        dl = dl_t[tiles]
         dlr, dlg, dlb = dl[:, 0:1], dl[:, 1:2], dl[:, 2:3]
         s1 = e[..., ROW_R:ROW_R + 1] * dlr + e[..., ROW_G:ROW_G + 1] * dlg \
             + e[..., ROW_B2:ROW_B2 + 1] * dlb

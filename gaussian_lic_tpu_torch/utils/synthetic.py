@@ -146,3 +146,41 @@ def make_bench_state(cfg, n_gauss: int, device: Device, n_kf: int = 4, seed: int
         kf.set_frame(i, build_camera(intr, frame, device=device), img)
     opt = {k: AdamState.zeros_like(v) for k, v in gm.trainable().items()}
     return intr, gm, kf, opt
+
+
+def splat_args(xyz, scale, quat, opacity, cam, **kw) -> dict:
+    """The gathered splat list and tile ranges that render_tiled hands the
+    blend kernels (K1/K2, and the probes K3/K4); `kw` as
+    `ops.rasterize.splat_inputs` takes them. `n_gauss` is P, the dead id of
+    `sorted_gauss`."""
+    from gaussian_lic_tpu_torch.ops.rasterize import _gather_splats, splat_inputs
+
+    with torch.no_grad():
+        grid, rows, b, _ = splat_inputs(xyz, scale, quat, opacity, cam, **kw)
+        splats = _gather_splats(rows, b.sorted_gauss)
+    return dict(splats=splats.contiguous(), starts=b.tile_starts, lens=b.tile_lens,
+                sorted_gauss=b.sorted_gauss, n_gauss=xyz.shape[0], grid=grid,
+                live=int(b.num_valid), lost=int(b.overflow))
+
+
+def probe_scene(cfg, intr, gm, kf) -> dict:
+    """The blend probes' scene, the JAX probes' recipe (tools/probe_kernel.py:59-85,
+    tools/probe_bwd.py:70-108): the splat list of map `gm` seen from keyframe
+    0, final_T and n_contrib from K1, and dL/dpix ~ N(0, 0.1) drawn with
+    numpy's default_rng(0). On the bench state (`make_bench_state`) at 1M
+    Gaussians it is the scene tools/probe_torch_{kernel,bwd}.py time."""
+    from gaussian_lic_tpu_torch.ops import blend
+    from gaussian_lic_tpu_torch.ops.rasterize import _splat_budget_for
+
+    sc = splat_args(gm.xyz, gm.scaling, gm.rotation, gm.opacity, kf.camera(intr, 0),
+                    dc=gm.dc, sh_rest=gm.sh_rest, sh_degree=gm.sh_degree,
+                    active=gm.active_mask(), tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+                    max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
+                    max_total_splats=_splat_budget_for(gm.capacity, cfg))
+    g = sc["grid"]
+    _, sc["final_t"], sc["n_contrib"] = blend.blend_forward(
+        sc["splats"], sc["starts"], sc["lens"], n_tx=g.n_tx, n_ty=g.n_ty,
+        tile_h=g.tile_h, tile_w=g.tile_w)
+    dl = np.random.default_rng(0).normal(0, 0.1, (3, g.padded_height, g.padded_width))
+    sc["dl"] = torch.as_tensor(dl.astype(np.float32), device=gm.device)
+    return sc

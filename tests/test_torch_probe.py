@@ -1,0 +1,422 @@
+"""Port parity: the blend probes K3/K4 (ops/blend_probe.py).
+
+The JAX probes (tools/probe_kernel.py, tools/probe_bwd.py) cannot run on the
+CPU: they use TPU DMA semaphores and SMEM scratch, and build a 1M-Gaussian
+state inside main(). So each plain variant is held, on the golden splat list
+(tests/torch_goldens/blend.npz), against what it stands for:
+
+(a) the variants that keep K1/K2's numerics (base, batch512, direct; base,
+    dbuf2, smematomic) against the Pallas goldens, at the tolerances of
+    tests/test_torch_blend.py: image and final_T atol 1e-5, n_contrib exact,
+    grads 1e-4 relative to the max; `fused` against the goldens' per-entry
+    grads summed per Gaussian, 1e-4 relative;
+(b) noexp, noattr, noblend and nored against a jax.numpy transcription of the
+    probes' per-entry bodies (probe_kernel.py:168-196, probe_bwd.py:188-258)
+    walked over each tile's in-range entries. noexp and noattr: image and
+    final_T atol 1e-5 and n_contrib exact outside termination ties (pixels
+    the port's plain version decides differently with 1e-4 moved by 1 ulp);
+    noblend (sums of ~70 powers of up to ~1e3) 1e-5 relative to the max;
+    nored (sums over 4 pixels) 1e-4 relative to the max. The transcription
+    with the production reduction reproduces the Pallas goldens first, at
+    (a)'s tolerances;
+(c) dispatch: CPU tensors take the plain version and count no launch;
+    unknown variants and a fused call without sorted_gauss raise;
+(d) every kernel variant against its plain version, on the card only.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from torch_port_helpers import cuda_device, load_golden, n, rel_max, t
+
+from gaussian_lic_tpu_torch.ops import blend
+from gaussian_lic_tpu_torch.ops import blend_probe as bp
+
+IMG_ATOL = 1e-5
+GRAD_RTOL = 1e-4
+NOBLEND_RTOL = 1e-5
+NORED_RTOL = 1e-4
+N_GAUSS = 300     # ids of the synthetic sorted_gauss for `fused`
+
+
+@pytest.fixture(scope="module")
+def golden():
+    return load_golden("blend", "file")
+
+
+def golden_args(d, device="cpu"):
+    n_tx, n_ty, th, tw = (int(v) for v in d["grid"])
+    args = (t(d["splats"]).to(device), t(d["tile_starts"]).to(device),
+            t(d["tile_lens"]).to(device))
+    return args, dict(n_tx=n_tx, n_ty=n_ty, tile_h=th, tile_w=tw)
+
+
+def pixel_args(d, device="cpu"):
+    return tuple(t(d[k]).to(device) for k in ("dl_dcolor", "final_t", "n_contrib"))
+
+
+def sorted_gauss(d):
+    """A seeded entry -> Gaussian map for `fused`; all-zero rows (the list's
+    padding) take the dead id N_GAUSS."""
+    ids = np.random.default_rng(0).integers(0, N_GAUSS, len(d["splats"])).astype(np.int32)
+    ids[~d["splats"].any(1)] = N_GAUSS
+    return ids
+
+
+def per_gaussian(entry_grads, ids):
+    out = np.zeros((N_GAUSS + 1, entry_grads.shape[1]), np.float64)
+    np.add.at(out, ids, entry_grads)
+    return out
+
+
+def tie_pixels(variant, args, kw):
+    eps32 = np.float32(blend.T_EPS)
+    outs = [bp.probe_forward_plain(variant, *args, t_eps=float(np.nextafter(eps32, to)),
+                                   **kw) for to in (np.float32(0), np.float32(1))]
+    return n((outs[0][2] != outs[1][2]) | (outs[0][1] != outs[1][1]))
+
+
+# ------------------------------------------------------- JAX transcriptions
+
+def _tiles(d, variant=None):
+    """(T, L, 9) in-range attributes of each tile (noattr: the constant
+    splat), (T, L) validity, (T, 1024) pixel x and y."""
+    n_tx, n_ty, th, tw = (int(v) for v in d["grid"])
+    starts, lens = d["tile_starts"], d["tile_lens"]
+    L = int(lens.max())
+    rows = np.zeros((len(lens), L, 9), np.float32)
+    valid = np.arange(L)[None, :] < lens[:, None]
+    for i, (s, ln) in enumerate(zip(starts, lens)):
+        rows[i, :ln] = bp.NOATTR_SPLAT if variant == "noattr" else d["splats"][s:s + ln, :9]
+    flat = np.arange(th * tw)
+    tiles = np.arange(len(lens))
+    px = ((tiles % n_tx)[:, None] * tw + flat[None] % tw).astype(np.float32)
+    py = ((tiles // n_tx)[:, None] * th + flat[None] // tw).astype(np.float32)
+    return rows, valid, px, py
+
+
+def _to_image(x, d):
+    """(T, ..., 1024) -> (..., H, W)."""
+    n_tx, n_ty, th, tw = (int(v) for v in d["grid"])
+    x = np.asarray(x)
+    lead = x.shape[1:-1]
+    x = x.reshape((n_ty, n_tx) + lead + (th, tw))
+    x = np.moveaxis(x, (0, 1), (len(lead), len(lead) + 2))
+    return x.reshape(lead + (n_ty * th, n_tx * tw))
+
+
+def jax_forward_probe(d, variant):
+    """probe_kernel.py's per-entry body (:168-196) as a lax.scan over each
+    tile's entries; out-of-range entries get opacity 0 as there, and noblend's
+    power is taken over in-range entries only (the TPU walks whole chunks)."""
+    import jax
+    import jax.numpy as jnp
+
+    from gaussian_lic_tpu.ops.projection import OPACITY_THRESHOLD
+    from gaussian_lic_tpu.ops.rasterize_ref import ALPHA_CAP, T_EPS
+
+    rows, valid, px, py = _tiles(d, variant)
+
+    def walk(rows_t, valid_t, px, py):
+        def body(carry, inp):
+            T, Cr, Cg, Cb, done, last = carry
+            (x, y, A, B, Cc, opa, r, g, b), ok, pos = inp
+            opa = jnp.where(ok, opa, 0.0)
+            nA = -0.5 * A
+            nC = -0.5 * Cc
+            dx = x - px
+            dy = y - py
+            power = (nA * dx - B * dy) * dx + (nC * dy) * dy
+            if variant == "noblend":
+                power = jnp.where(ok, power, 0.0)
+                return (T, Cr + power, Cg + power * 0.5, Cb + power * 0.25, done, last), None
+            G = power * 0.1 + 0.9 if variant == "noexp" else jnp.exp(power)
+            alpha = jnp.minimum(ALPHA_CAP, opa * G)
+            contrib = (alpha >= OPACITY_THRESHOLD) & (power <= 0.0)
+            test_T = T * (1.0 - alpha)
+            would_term = contrib & (test_T < T_EPS)
+            applied = contrib & (done < 0.5) & jnp.logical_not(would_term)
+            done = jnp.maximum(done, would_term.astype(jnp.float32))
+            w = jnp.where(applied, alpha, 0.0) * T
+            last = jnp.where(applied, pos, last)
+            T = jnp.where(applied, test_T, T)
+            return (T, Cr + w * r, Cg + w * g, Cb + w * b, done, last), None
+
+        z = jnp.zeros_like(px)
+        init = (jnp.ones_like(px), z, z, z, z, jnp.zeros(px.shape, jnp.int32))
+        pos = jnp.arange(1, rows_t.shape[0] + 1, dtype=jnp.int32)
+        (T, Cr, Cg, Cb, _, last), _ = jax.lax.scan(
+            body, init, (tuple(rows_t[:, i] for i in range(9)), valid_t, pos))
+        return jnp.stack([Cr, Cg, Cb]), T, last
+
+    color, T, last = jax.jit(jax.vmap(walk))(rows, valid, px, py)
+    return _to_image(color, d), _to_image(T, d), _to_image(last, d)
+
+
+def jax_backward_probe(d, pixels=None):
+    """probe_bwd.py's per-entry body (:188-258) as a reverse lax.scan over
+    each tile's entries; `pixels` (flat indices) replaces the full reduction
+    as nored's row slice replaces it there. Returns (M_pad, 9)."""
+    import jax
+    import jax.numpy as jnp
+
+    from gaussian_lic_tpu.ops.projection import OPACITY_THRESHOLD
+    from gaussian_lic_tpu.ops.rasterize_ref import ALPHA_CAP
+
+    rows, valid, px, py = _tiles(d)
+    n_tx, n_ty, th, tw = (int(v) for v in d["grid"])
+
+    def to_tiles(img):
+        x = np.asarray(img).reshape(img.shape[:-2] + (n_ty, th, n_tx, tw))
+        x = np.moveaxis(x, (-4, -2), (0, 1))
+        return x.reshape((n_ty * n_tx,) + img.shape[:-2] + (th * tw,))
+
+    dl = to_tiles(d["dl_dcolor"])                           # (T, 3, 1024)
+    ft, nc = to_tiles(d["final_t"]), to_tiles(d["n_contrib"])
+    sel = np.arange(th * tw) if pixels is None else np.asarray(pixels)
+
+    def walk(rows_t, valid_t, px, py, dl, ft, nc):
+        dlr, dlg, dlb = dl
+
+        def body(carry, inp):
+            T_run, Sdl = carry
+            (x, y, A, B, Cc, opa, rr, gg, bb), ok, pos = inp
+            opa = jnp.where(ok, opa, 0.0)
+            nA = -0.5 * A
+            nC = -0.5 * Cc
+            dx = x - px
+            dy = y - py
+            power = (nA * dx - B * dy) * dx + (nC * dy) * dy
+            G = jnp.exp(power)
+            alpha = jnp.minimum(ALPHA_CAP, opa * G)
+            applied = (alpha >= OPACITY_THRESHOLD) & (power <= 0.0) & (pos <= nc)
+            inv_om = 1.0 / (1.0 - alpha)
+            T_run = jnp.where(applied, T_run * inv_om, T_run)
+            w = alpha * T_run
+            s1 = rr * dlr + gg * dlg + bb * dlb
+            dalpha = jnp.where(applied, T_run * s1 - Sdl * inv_om, 0.0)
+            wsel = jnp.where(applied, w, 0.0)
+            E = G * dalpha
+            gd = opa * E
+            t1 = gd * dx
+            t2 = gd * dy
+
+            def rsum(q):
+                return jnp.sum(q[sel])
+
+            m1, m2 = rsum(t1), rsum(t2)
+            rec = jnp.stack([-(A * m1 + B * m2), -(Cc * m2 + B * m1), -0.5 * rsum(t1 * dx),
+                             -rsum(t1 * dy), -0.5 * rsum(t2 * dy), rsum(E),
+                             rsum(wsel * dlr), rsum(wsel * dlg), rsum(wsel * dlb)])
+            return (T_run, Sdl + wsel * s1), rec
+
+        pos = jnp.arange(1, rows_t.shape[0] + 1, dtype=jnp.int32)
+        _, recs = jax.lax.scan(body, (ft, jnp.zeros_like(ft)),
+                               (tuple(rows_t[:, i] for i in range(9)), valid_t, pos),
+                               reverse=True)
+        return recs
+
+    recs = np.asarray(jax.jit(jax.vmap(walk))(rows, valid, px, py, dl, ft, nc))
+    out = np.zeros((len(d["splats"]), 9), np.float32)
+    for i, (s, ln) in enumerate(zip(d["tile_starts"], d["tile_lens"])):
+        out[s:s + ln] = recs[i, :ln]
+    return out
+
+
+# --------------------------------------------------------------------- (a)
+
+@pytest.mark.parametrize("variant", ["base", "batch512", "direct"])
+def test_forward_k1_numerics_vs_pallas(golden, variant):
+    args, kw = golden_args(golden)
+    color, final_t, n_contrib = bp.probe_forward_plain(variant, *args, **kw)
+    np.testing.assert_allclose(n(color), golden["color"], atol=IMG_ATOL, rtol=0)
+    np.testing.assert_allclose(n(final_t), golden["final_t"], atol=IMG_ATOL, rtol=0)
+    np.testing.assert_array_equal(n(n_contrib), golden["n_contrib"])
+
+
+@pytest.mark.parametrize("variant", ["base", "dbuf2", "smematomic"])
+def test_backward_k2_numerics_vs_pallas(golden, variant):
+    args, kw = golden_args(golden)
+    grads = bp.probe_backward_plain(variant, *args, *pixel_args(golden), **kw)
+    assert rel_max(n(grads), golden["entry_grads"]) < GRAD_RTOL
+
+
+def test_fused_vs_pallas_summed_per_gaussian(golden):
+    args, kw = golden_args(golden)
+    ids = sorted_gauss(golden)
+    grads = bp.probe_backward_plain("fused", *args, *pixel_args(golden),
+                                    sorted_gauss=t(ids), n_gauss=N_GAUSS, **kw)
+    assert grads.shape == (N_GAUSS + 1, blend.N_ATTR)
+    assert rel_max(n(grads), per_gaussian(golden["entry_grads"], ids)) < GRAD_RTOL
+
+
+# --------------------------------------------------------------------- (b)
+
+def test_forward_transcription_reproduces_pallas(golden):
+    color, final_t, n_contrib = jax_forward_probe(golden, "base")
+    np.testing.assert_allclose(color, golden["color"], atol=IMG_ATOL, rtol=0)
+    np.testing.assert_allclose(final_t, golden["final_t"], atol=IMG_ATOL, rtol=0)
+    np.testing.assert_array_equal(n_contrib, golden["n_contrib"])
+
+
+def test_backward_transcription_reproduces_pallas(golden):
+    assert rel_max(jax_backward_probe(golden), golden["entry_grads"]) < GRAD_RTOL
+
+
+@pytest.mark.parametrize("variant", ["noexp", "noattr"])
+def test_forward_substitution_vs_jax(golden, variant):
+    args, kw = golden_args(golden)
+    color, final_t, n_contrib = (n(x) for x in bp.probe_forward_plain(variant, *args, **kw))
+    ref = jax_forward_probe(golden, variant)
+    base = n(bp.probe_forward_plain("base", *args, **kw)[0])
+    assert np.abs(ref[0] - base).max() > 1e-2, "the substitution changed nothing"
+    ok = ~tie_pixels(variant, args, kw)
+    np.testing.assert_array_equal(n_contrib[ok], ref[2][ok])
+    np.testing.assert_allclose(color[:, ok], ref[0][:, ok], atol=IMG_ATOL, rtol=0)
+    np.testing.assert_allclose(final_t[ok], ref[1][ok], atol=IMG_ATOL, rtol=0)
+
+
+def test_noblend_vs_jax(golden):
+    args, kw = golden_args(golden)
+    color, final_t, n_contrib = (n(x) for x in bp.probe_forward_plain("noblend", *args, **kw))
+    ref = jax_forward_probe(golden, "noblend")[0]
+    assert rel_max(color, ref) < NOBLEND_RTOL
+    assert (final_t == 1.0).all() and (n_contrib == 0).all()
+
+
+def test_nored_vs_jax(golden):
+    args, kw = golden_args(golden)
+    grads = n(bp.probe_backward_plain("nored", *args, *pixel_args(golden), **kw))
+    ref = jax_backward_probe(golden, pixels=bp.NORED_PIXELS)
+    assert np.abs(ref).max() > 0, "no record from thread 0's pixels"
+    assert rel_max(grads, ref) < NORED_RTOL
+    assert rel_max(grads, golden["entry_grads"]) > 1e-2   # it is not the full reduction
+
+
+@pytest.mark.parametrize("variant", bp.FORWARD_VARIANTS)
+def test_forward_walked(golden, variant):
+    """Entries walked per tile: a range that one batch holds is walked whole."""
+    args, kw = golden_args(golden)
+    walked = torch.full((len(golden["tile_lens"]),), -1, dtype=torch.int32)
+    bp.probe_forward_plain(variant, *args, walked=walked, **kw)
+    assert golden["tile_lens"].max() <= 256   # one batch holds each range
+    np.testing.assert_array_equal(n(walked), golden["tile_lens"])
+
+
+def test_backward_walked(golden):
+    args, kw = golden_args(golden)
+    walked = torch.zeros(len(golden["tile_lens"]), dtype=torch.int32)
+    bp.probe_backward_plain("base", *args, *pixel_args(golden), walked=walked, **kw)
+    nmax = blend._to_tiles(t(golden["n_contrib"]), **kw).amax(1)
+    np.testing.assert_array_equal(n(walked), np.minimum(n(nmax), golden["tile_lens"]))
+    assert (n(walked) < golden["tile_lens"]).any()   # the walk starts below the range end
+
+
+def test_walked_stops_at_the_batch_of_the_last_stop():
+    """A tile whose pixels all stop within the first 256 entries walks 256 of
+    its 600, and 512 with batch512."""
+    L = 600
+    splats = torch.zeros((L, blend.SPLAT_ROWS))
+    # opacity 0.95 over the whole tile: every pixel stops at the 4th entry
+    splats[:, :9] = torch.tensor([16.0, 16.0, 1e-6, 0.0, 1e-6, 0.95, 0.5, 0.5, 0.5])
+    args = (splats, torch.zeros(1, dtype=torch.int32), torch.full((1,), L, dtype=torch.int32))
+    kw = dict(n_tx=1, n_ty=1, tile_h=32, tile_w=32)
+    for variant, expect in (("base", 256), ("batch512", 512), ("noblend", L)):
+        walked = torch.zeros(1, dtype=torch.int32)
+        _, final_t, _ = bp.probe_forward_plain(variant, *args, walked=walked, **kw)
+        assert int(walked) == expect, variant
+    assert float(final_t.max()) == 1.0   # noblend never stops
+
+
+# --------------------------------------------------------------------- (c)
+
+class TestDispatch:
+    @pytest.mark.parametrize("variant", bp.FORWARD_VARIANTS)
+    def test_forward_cpu_takes_the_plain_version(self, golden, variant):
+        args, kw = golden_args(golden)
+        before = dict(bp.LAUNCHES)
+        out = bp.probe_forward(variant, *args, **kw)
+        for a, b in zip(out, bp.probe_forward_plain(variant, *args, **kw)):
+            assert torch.equal(a, b)
+        assert bp.LAUNCHES == before
+
+    @pytest.mark.parametrize("variant", bp.BACKWARD_VARIANTS)
+    def test_backward_cpu_takes_the_plain_version(self, golden, variant):
+        args, kw = golden_args(golden)
+        fkw = dict(kw, sorted_gauss=t(sorted_gauss(golden)), n_gauss=N_GAUSS)
+        before = dict(bp.LAUNCHES)
+        out = bp.probe_backward(variant, *args, *pixel_args(golden), **fkw)
+        assert torch.equal(out, bp.probe_backward_plain(variant, *args, *pixel_args(golden),
+                                                        **fkw))
+        assert bp.LAUNCHES == before
+
+    def test_unknown_variants_and_missing_ids_raise(self, golden):
+        args, kw = golden_args(golden)
+        with pytest.raises(ValueError):
+            bp.probe_forward("chunk512", *args, **kw)
+        with pytest.raises(ValueError):
+            bp.probe_backward("mxuall", *args, *pixel_args(golden), **kw)
+        with pytest.raises(ValueError):
+            bp.probe_backward("fused", *args, *pixel_args(golden), **kw)
+        with pytest.raises(ValueError):
+            bp.probe_backward("fused", *args, *pixel_args(golden),
+                              sorted_gauss=t(sorted_gauss(golden)), n_gauss=-1, **kw)
+        with pytest.raises(ValueError):
+            bp.probe_forward("base", *args, walked=torch.zeros(3, dtype=torch.int32), **kw)
+
+
+# --------------------------------------------------------------------- (d)
+
+@pytest.mark.requires_cuda
+class TestProbesOnTheCard:
+    """Every K3/K4 variant on the card against its plain version on the same
+    card: the K1/K2-numerics variants as tests/test_torch_blend.py holds
+    K1/K2, the others at (b)'s tolerances, and `walked` exactly."""
+
+    @pytest.mark.parametrize("variant", bp.FORWARD_VARIANTS)
+    def test_forward_variant(self, golden, cuda_device, variant):
+        args, kw = golden_args(golden, cuda_device)
+        tiles = len(golden["tile_lens"])
+        wk, wp = (torch.zeros(tiles, dtype=torch.int32, device=cuda_device) for _ in range(2))
+        before = bp.LAUNCHES[f"forward_{variant}"]
+        out = [n(x) for x in bp.probe_forward(variant, *args, walked=wk, **kw)]
+        ref = [n(x) for x in bp.probe_forward_plain(variant, *args, walked=wp, **kw)]
+        assert bp.LAUNCHES[f"forward_{variant}"] == before + 1
+        np.testing.assert_array_equal(n(wk), n(wp))
+        if variant == "noblend":
+            assert rel_max(out[0], ref[0]) < NOBLEND_RTOL
+            np.testing.assert_array_equal(out[1], ref[1])
+        else:
+            np.testing.assert_allclose(out[0], ref[0], atol=IMG_ATOL, rtol=0)
+            np.testing.assert_allclose(out[1], ref[1], atol=IMG_ATOL, rtol=0)
+        np.testing.assert_array_equal(out[2], ref[2])
+
+    @pytest.mark.parametrize("variant", bp.BACKWARD_VARIANTS)
+    def test_backward_variant(self, golden, cuda_device, variant):
+        args, kw = golden_args(golden, cuda_device)
+        fkw = dict(kw, sorted_gauss=t(sorted_gauss(golden)).to(cuda_device), n_gauss=N_GAUSS)
+        pix = pixel_args(golden, cuda_device)
+        tiles = len(golden["tile_lens"])
+        wk, wp = (torch.zeros(tiles, dtype=torch.int32, device=cuda_device) for _ in range(2))
+        g = bp.probe_backward(variant, *args, *pix, walked=wk, **fkw)
+        ref = bp.probe_backward_plain(variant, *args, *pix, walked=wp, **fkw)
+        np.testing.assert_array_equal(n(wk), n(wp))
+        assert rel_max(n(g), n(ref)) < (NORED_RTOL if variant == "nored" else GRAD_RTOL)
+
+
+@pytest.mark.parametrize("path", ["gaussian_lic_tpu_torch/ops/blend_probe.py",
+                                  "gaussian_lic_tpu_torch/utils/cuda_timing.py",
+                                  "gaussian_lic_tpu_torch/utils/synthetic.py",
+                                  "tools/probe_torch_kernel.py", "tools/probe_torch_bwd.py"])
+def test_probe_path_imports_no_jax(path):
+    import os
+    import re
+
+    from torch_port_helpers import ROOT
+
+    with open(os.path.join(ROOT, path)) as f:
+        src = f.read()
+    assert not re.search(r"^\s*(import|from)\s+(jax|gaussian_lic_tpu)\b(?!_torch)", src, re.M)
