@@ -28,7 +28,19 @@ exit code is not 0:
      small stream through the engine on the card and on the CPU (plain path)
      must agree;
   4. full-size train steps: the 1M-Gaussian state of phase 2, 3 warm-up + 20
-     timed steps (ms/step, it/s, peak memory, overflow counters).
+     timed steps (ms/step, it/s, peak memory, overflow counters);
+  5. the application: phase 3's stream written as a RecordedStream directory
+     (stamps 0.1 s apart) and run through `run.main` with config/fastlivo.yaml
+     as shipped (100,000 skybox Gaussians, 16 tile slots), randinit LPIPS,
+     a result path, a checkpoint and the phase timers, on the card; the
+     launch counters are zeroed just before and read at the end of the
+     stream and around `finalize`. It checks the exit code, the kernels'
+     launches in the stream and one K1 launch per eval view, finite eval
+     metrics above a train-PSNR floor, the PLY's vertex count (the skybox
+     left out), the 40 PNG pairs, and that the checkpoint loads back equal
+     to the engine that wrote it; then a 64x64 application with a 256-point
+     skybox runs through `run.main` on the card and on the CPU, and their
+     finalize metrics and PLY vertex counts must agree.
 
 It never falls back to the CPU for the card's work: without a CUDA device it
 exits with an error before printing any result. The last line is
@@ -46,6 +58,7 @@ import json
 import math
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -57,6 +70,8 @@ PSNR_FLOOR = 17.0          # phase 3 train PSNR floor: first H100 run 18.86 dB
 IMG_ATOL = 1e-5            # K1 image and final_T vs plain
 GRAD_RTOL = 1e-4           # K2 per-entry grads vs plain, relative to the max
 SMALL_LOSS_RTOL = 1e-4     # phase 3 small stream: card vs CPU per-keyframe loss
+APP_PSNR_FLOOR = 17.0      # phase 5 train PSNR floor: first H100 run 18.73 dB
+APP_SMALL_RTOL = 1e-4      # phase 5 64x64 app, card vs CPU eval metrics: first H100 run 3.6e-6
 NOBLEND_RTOL = 1e-5        # K3 noblend vs plain, relative to the max: sums of ~1e4 powers
 NORED_RTOL = 1e-4          # K4 nored vs plain, relative to the max: 4-pixel sums
 # K4 variants vs K2 (fused: vs K2 + index_add_), relative to the max; base and
@@ -477,7 +492,7 @@ def phase_slice(dev, kernels: list, n_points: int = 50000, n_frames: int = 40,
         f"max per-keyframe loss rel diff {rel:.3e}")
     if counts[0] != counts[1] or not rel <= SMALL_LOSS_RTOL:
         raise AssertionError("engine on the card disagrees with the engine on the CPU")
-    return dict(train_psnr=train_psnr, keyframes=rows, launches=launches)
+    return dict(train_psnr=train_psnr, keyframes=rows, launches=launches, frames=frames)
 
 
 # ---------------------------------------------------------------------------
@@ -537,6 +552,193 @@ def phase_steps(dev, card: str, state: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the application
+# ---------------------------------------------------------------------------
+
+def recording_engine(rec: dict):
+    """An engine factory for `run.main` that keeps the engine in `rec` and
+    records per-keyframe seconds, the launch counters at the end of the
+    stream (the first call of measure_phase_split or finalize), the phase
+    split, and finalize's seconds, launches and results."""
+    from gaussian_lic_tpu_torch.engine.trainer import MappingEngine
+    from gaussian_lic_tpu_torch.ops import blend
+
+    def make(*args, **kw):
+        eng = MappingEngine(*args, **kw)
+        rec.update(engine=eng, keyframe_seconds=[], stream_launches=None)
+        add_frame, phase_split, finalize = eng.add_frame, eng.measure_phase_split, eng.finalize
+
+        def stream_end():
+            if rec["stream_launches"] is None:
+                rec["stream_launches"] = dict(blend.LAUNCHES)
+
+        def timed_add_frame(frame):
+            t0 = time.perf_counter()
+            is_kf = add_frame(frame)   # ends in a host fetch of the step metrics
+            if is_kf:
+                rec["keyframe_seconds"].append(time.perf_counter() - t0)
+            return is_kf
+
+        def recorded_phase_split(*a, **k):
+            stream_end()
+            rec["phase_split"] = phase_split(*a, **k)
+            return rec["phase_split"]
+
+        def recorded_finalize():
+            stream_end()
+            before = dict(blend.LAUNCHES)
+            t0 = time.perf_counter()
+            rec["results"] = finalize()   # ends in host copies (metrics, PLY)
+            rec["finalize_seconds"] = time.perf_counter() - t0
+            rec["eval_launches"] = {k: blend.LAUNCHES[k] - v for k, v in before.items()}
+            return rec["results"]
+
+        eng.add_frame, eng.measure_phase_split, eng.finalize = (
+            timed_add_frame, recorded_phase_split, recorded_finalize)
+        return eng
+
+    return make
+
+
+def write_stream(frames, path: str, period: float = 0.1) -> None:
+    """`frames` as a RecordedStream directory, stamps `period` s apart."""
+    import dataclasses
+
+    from gaussian_lic_tpu_torch.engine.stream import RecordedStream
+
+    os.makedirs(path)
+    for i, f in enumerate(frames):
+        RecordedStream.write_frame(path, i, dataclasses.replace(f, timestamp=i * period))
+
+
+def run_app(argv, label: str) -> dict:
+    """`run.main(argv)` with a recording engine; raises unless it exits 0."""
+    from gaussian_lic_tpu_torch import run
+
+    rec = {}
+    t0 = time.perf_counter()
+    rc = run.main(argv, engine_factory=recording_engine(rec))
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[5] {label}: run.main exit code {rc} in {rec['seconds']:.2f} s")
+    if rc != 0:
+        raise AssertionError(f"{label}: run.main exited {rc}")
+    return rec
+
+
+def check_checkpoint(path: str, eng, dev) -> float:
+    """Loads the checkpoint at `path` and holds it against `eng`'s state;
+    returns the seconds to write the same state again."""
+    import torch
+
+    from gaussian_lic_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+
+    t0 = time.perf_counter()
+    gm, opt, extra = load_checkpoint(path, device=dev)
+    load_s = time.perf_counter() - t0
+    bad = [f for f in ("xyz", "dc", "sh_rest", "log_scale", "quat", "opa_logit", "count",
+                       "exposure") if not torch.equal(getattr(gm, f), getattr(eng.gm, f))]
+    bad += [f"opt_{k}" for k in eng.opt_state
+            if not (torch.equal(opt[k].exp_avg, eng.opt_state[k].exp_avg)
+                    and torch.equal(opt[k].exp_avg_sq, eng.opt_state[k].exp_avg_sq))]
+    if (bad or set(opt) != set(eng.opt_state) or gm.skybox_count != eng.gm.skybox_count
+            or gm.sh_degree != eng.gm.sh_degree or int(extra["kf_count"]) != eng.kf_count):
+        raise AssertionError(f"the checkpoint does not load back equal to the engine: {bad}")
+    t0 = time.perf_counter()
+    save_checkpoint(path + ".again.npz", eng.gm, eng.opt_state, extra={"kf_count": eng.kf_count})
+    save_s = time.perf_counter() - t0
+    log(f"[5] checkpoint: loads back equal to the engine's state (load {load_s:.3f} s, "
+        f"write {save_s:.3f} s, {os.path.getsize(path) / 2**20:.1f} MiB)")
+    return save_s
+
+
+def small_app_stream(path: str) -> str:
+    """A 9-frame 64x64 stream with a 256-point skybox config; returns the
+    config's path."""
+    from gaussian_lic_tpu_torch.camera import Intrinsics
+    from gaussian_lic_tpu_torch.utils.synthetic import make_sequence, make_world
+
+    intr = Intrinsics(64, 64, 40.0, 40.0, 32.0, 32.0)
+    rng = np.random.default_rng(4)
+    frames = make_sequence(make_world(rng, n_points=300, intr=intr), n_frames=9,
+                           points_per_frame=100, rng=rng)
+    write_stream(frames, os.path.join(path, "stream"))
+    cfg = os.path.join(path, "small.yaml")
+    with open(cfg, "w") as f:
+        f.write("width: 64\nheight: 64\nfx: 40.0\nfy: 40.0\ncx: 32.0\ncy: 32.0\n"
+                "select_every_k_frame: 3\nskybox_points_num: 256\ninitial_capacity: 1024\n"
+                "densify_budget: 256\nmax_train_keyframes: 4\nmax_tiles_per_gaussian: 16\n")
+    return cfg
+
+
+def phase_app(dev, card: str, frames, tmp: str, config: str = CONFIG) -> dict:
+    from gaussian_lic_tpu_torch.config import load_params
+    from gaussian_lic_tpu_torch.io.ply import load_ply
+    from gaussian_lic_tpu_torch.ops import blend
+
+    sky = load_params(config).skybox_points_num   # 100000 in fastlivo.yaml
+    stream = os.path.join(tmp, "stream")
+    write_stream(frames, stream)
+    out = os.path.join(tmp, "out")
+    ckpt = os.path.join(tmp, "ckpt.npz")
+    blend.reset_launches()
+    rec = run_app(["--input", stream, "--config", config, "--lpips-path", "randinit",
+                   "--result-path", out, "--checkpoint", ckpt, "--phase-timers",
+                   "--device", str(dev)], "fastlivo.yaml application")
+    eng, res = rec["engine"], rec["results"]
+    n_views = eng.kf_count + len(eng.test_cameras)
+    stream_l, eval_l = rec["stream_launches"], rec["eval_launches"]
+    log(f"[5] ({card}) keyframe seconds: "
+        + " ".join(f"{s:.4f}" for s in rec["keyframe_seconds"]))
+    log(f"[5] ({card}) finalize seconds {rec['finalize_seconds']:.3f} for {n_views} views "
+        f"({eng.kf_count} train, {len(eng.test_cameras)} test); phase split "
+        f"{json.dumps(rec['phase_split'])}")
+    log(f"[5] launches in the stream {stream_l}; in finalize {eval_l}")
+    log("[5] results " + json.dumps(res))
+    if min(stream_l.values()) <= 0:
+        raise AssertionError(f"a kernel never launched in the application's stream: {stream_l}")
+    if n_views != len(frames) or eval_l["forward"] < n_views:
+        raise AssertionError(f"K1 ran {eval_l['forward']} times for {n_views} eval views "
+                             f"of {len(frames)} frames")
+    metrics = [f"{s}_{m}" for s in ("train", "test") for m in ("psnr", "ssim", "lpips")]
+    if not all(res.get(k) is not None and math.isfinite(res[k]) for k in metrics):
+        raise AssertionError(f"non-finite or missing eval metrics: {res}")
+    if not res["train_psnr"] > APP_PSNR_FLOOR:
+        raise AssertionError(f"train PSNR {res['train_psnr']} below the floor {APP_PSNR_FLOOR}")
+    n_ply = load_ply(os.path.join(out, "point_cloud.ply"))["xyz"].shape[0]
+    if eng.gm.skybox_count != sky or n_ply != int(eng.gm.count) - sky:
+        raise AssertionError(f"PLY holds {n_ply} vertices for {int(eng.gm.count)} Gaussians "
+                             f"with a {eng.gm.skybox_count}-point skybox")
+    pngs = [sorted(os.listdir(os.path.join(out, sub))) for sub in ("render", "gt")]
+    if pngs[0] != pngs[1] or len(pngs[0]) != n_views:
+        raise AssertionError(f"{len(pngs[0])} render and {len(pngs[1])} gt PNGs for "
+                             f"{n_views} views")
+    log(f"[5] PLY {n_ply} vertices (gaussians {int(eng.gm.count)} - skybox {sky}); "
+        f"{n_views} PNG pairs; train PSNR {res['train_psnr']:.4f} dB (floor {APP_PSNR_FLOOR})")
+    ckpt_s = check_checkpoint(ckpt, eng, dev)
+    log(f"[5] ({card}) checkpoint seconds {ckpt_s:.3f}")
+
+    # the same small application on the card and on the CPU
+    small = os.path.join(tmp, "small")
+    cfg = small_app_stream(small)
+    runs = {}
+    for d in (str(dev), "cpu"):
+        r = run_app(["--input", os.path.join(small, "stream"), "--config", cfg,
+                     "--lpips-path", "randinit", "--result-path", os.path.join(small, d),
+                     "--device", d, "--quiet"], f"64x64 application on {d}")
+        r["ply"] = load_ply(os.path.join(small, d, "point_cloud.ply"))["xyz"].shape[0]
+        runs[d] = r
+    a, b = runs[str(dev)], runs["cpu"]
+    rel = {k: abs(a["results"][k] - b["results"][k]) / abs(b["results"][k]) for k in metrics}
+    log(f"[5] 64x64 application card vs CPU: PLY vertices {a['ply']} vs {b['ply']}, "
+        f"metric rel diffs {json.dumps(rel)} (tolerance {APP_SMALL_RTOL})")
+    if a["ply"] != b["ply"] or max(rel.values()) > APP_SMALL_RTOL:
+        raise AssertionError("the application on the card disagrees with the one on the CPU")
+    return dict(results=res, keyframe_seconds=rec["keyframe_seconds"],
+                finalize_seconds=rec["finalize_seconds"], checkpoint_seconds=ckpt_s,
+                phase_split=rec["phase_split"])
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "gaussian_lic_tpu_torch")):
         print("chip_smoke.py: the gaussian_lic_tpu_torch package is not beside this "
@@ -578,11 +780,17 @@ def main() -> int:
     del scenes
     log(f"[2b] phase seconds {time.perf_counter() - t0:.2f}")
     t0 = time.perf_counter()
-    phase_slice(dev, kernels)
+    frames = phase_slice(dev, kernels)["frames"]
     log(f"[3] phase seconds {time.perf_counter() - t0:.2f}")
     t0 = time.perf_counter()
     phase_steps(dev, card, state)
     log(f"[4] phase seconds {time.perf_counter() - t0:.2f}")
+    del state
+    gc.collect()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_app(dev, card, frames, tmp)
+    log(f"[5] phase seconds {time.perf_counter() - t0:.2f}")
     log(f"total seconds {time.perf_counter() - t_all:.2f}")
 
     for k in kernels:

@@ -1,10 +1,13 @@
 """gaussian_lic_tpu_torch — the PyTorch + CUDA port of gaussian_lic_tpu.
 
-The streaming mapper's keyframe path (map init, densification, train steps)
-on an NVIDIA H100, with the tile blend forward and backward as hand-written
-CUDA kernels (csrc/, built with nvcc on first use by `_build.py`). The JAX
-package `gaussian_lic_tpu` is the reference; this package imports torch and
-numpy only.
+The streaming mapping application on an NVIDIA H100: stream ingest
+(recorded directories, rosbags, live ROS), map init with the skybox,
+densification, train steps with the erank term, and the end of the run
+(eval with PSNR/SSIM/LPIPS, PLY export, checkpoints), driven by
+`python -m gaussian_lic_tpu_torch`. The tile blend forward and backward are
+hand-written CUDA kernels (csrc/, built with nvcc on first use by
+`_build.py`). The JAX package `gaussian_lic_tpu` is the reference; this
+package imports torch and numpy only.
 """
 
 from gaussian_lic_tpu_torch.camera import Camera, CameraPose, Intrinsics, make_camera

@@ -1,11 +1,12 @@
-"""Streaming mapping engine: initialize -> per-keyframe extend + optimize.
+"""Streaming mapping engine: initialize -> per-keyframe extend + optimize -> eval.
 
 The counterpart of the JAX package's `engine/trainer.py` (reference mapping
 thread, mapping.cpp:124-200, and gaussian.cpp:499-719):
 
   * `train_step` — render (tiled rasterizer, CUDA blend kernels on the card)
-    -> 0.8*L1 + 0.2*(1-SSIM) (gaussian.cpp:691) -> autograd backward ->
-    visibility-masked sparse Adam on all six groups (optim_utils.h).
+    -> 0.8*L1 + 0.2*(1-SSIM) (gaussian.cpp:691), plus the erank term when
+    `lambda_erank > 0` -> autograd backward -> visibility-masked sparse Adam
+    on all six groups (optim_utils.h).
   * `extend_step` — densification (extend, gaussian.cpp:499-638): alpha-only
     render of the newest keyframe, project the accumulated LiDAR points,
     per-pixel min-depth dedup on the device with two stable sorts, filter
@@ -13,15 +14,14 @@ thread, mapping.cpp:124-200, and gaussian.cpp:499-719):
   * `MappingEngine` — the host-side driver with the reference's keyframe
     cadence (every k-th frame trains, the others become held-out test views,
     gaussian.cpp:75-108) and <=100 random-past-keyframe steps per keyframe
-    (gaussian.cpp:640-719), run one step at a time.
-
-Not ported yet, and raising NotImplementedError where called: `finalize`
-(eval + PLY), `measure_phase_split`, and the erank regularizer
-(`lambda_erank > 0`; 0 in every shipped config).
+    (gaussian.cpp:640-719), run one step at a time; at the end of the run
+    `finalize` (eval on train and held-out views, PLY export) and
+    `measure_phase_split` (the forward/backward/optimizer split of a step).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Union
@@ -38,6 +38,8 @@ from gaussian_lic_tpu_torch.engine.dataset import (
     TestCamera,
     build_camera,
 )
+from gaussian_lic_tpu_torch.engine.evaluate import evaluate_visual_quality
+from gaussian_lic_tpu_torch.io.ply import save_map_ply
 from gaussian_lic_tpu_torch.models.gaussians import (
     GaussianMap,
     LearningRates,
@@ -47,7 +49,9 @@ from gaussian_lic_tpu_torch.models.gaussians import (
 )
 from gaussian_lic_tpu_torch.ops import adam as adam_ops
 from gaussian_lic_tpu_torch.ops import losses
+from gaussian_lic_tpu_torch.ops.erank import erank_regularizer
 from gaussian_lic_tpu_torch.ops.rasterize import _splat_budget_for, render_map
+from gaussian_lic_tpu_torch.utils.cuda_timing import cuda_ms
 
 PARAM_GROUPS = ("xyz", "dc", "sh_rest", "opacity", "log_scale", "quat")
 
@@ -89,8 +93,6 @@ def train_step(
     """One train step on keyframe `idx` -> (gm', opt', metrics). Metrics are
     device tensors (no host sync): loss, n_visible, overflow, budget_lost,
     truncated, and with `with_grads` the raw pre-Adam gradients."""
-    if cfg.lambda_erank > 0:
-        raise NotImplementedError("the erank regularizer (ops/erank.py) is not ported yet")
     lrs = LearningRates.from_params(cfg)
     cam = kf.camera(intr, idx)
     gt = kf.images[idx].float() / 255.0
@@ -105,6 +107,8 @@ def train_step(
     out = render_map(gm2, cam, apply_exposure=cfg.apply_exposure,
                      **_render_kw(cfg, gm.capacity))
     loss = losses.training_loss(out.image, gt, cfg.lambda_dssim)
+    if cfg.lambda_erank > 0:
+        loss = loss + erank_regularizer(gm2.scaling, cfg.lambda_erank)
     grad_list = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = {
         name: torch.zeros_like(leaf) if g is None else g
@@ -215,7 +219,7 @@ class MappingEngine:
     Every tensor of the run lives on `device`."""
 
     def __init__(self, cfg: Params, result_path: Optional[str] = None,
-                 device: Device = "cpu"):
+                 lpips_path: Optional[str] = None, device: Device = "cpu"):
         self.cfg = cfg
         self.device = torch.device(device)
         self.intr = Intrinsics(
@@ -224,6 +228,7 @@ class MappingEngine:
             znear=cfg.znear, zfar=cfg.zfar,
         )
         self.result_path = result_path
+        self.lpips_path = lpips_path
         self.gm: Optional[GaussianMap] = None
         self.opt_state: Optional[Dict] = None
         self.kf_buffer = KeyframeBuffer.empty(cfg.max_train_keyframes, self.intr,
@@ -445,16 +450,76 @@ class MappingEngine:
                 "slot cap — raise max_tiles_per_gaussian to grow further"
             )
 
-    # ------------------------------------------------------------- not ported
+    # ---------------------------------------------------------------- finalize
 
-    def finalize(self) -> Dict[str, float]:
-        """End-of-stream eval and PLY export (mapping.cpp:186-199)."""
-        raise NotImplementedError(
-            "finalize (engine/evaluate.py, ops/lpips.py, io/ply.py) is not ported yet"
-        )
+    def finalize(self) -> Dict[str, Optional[float]]:
+        """End of stream: eval and PLY export (mapping.cpp:186-199)."""
+        results: Dict[str, Optional[float]] = {}
+        if not self.initialized:
+            return results
+        results.update(evaluate_visual_quality(self, result_path=self.result_path,
+                                               lpips_path=self.lpips_path))
+        if self.result_path:
+            os.makedirs(self.result_path, exist_ok=True)
+            save_map_ply(os.path.join(self.result_path, "point_cloud.ply"), self.gm)
+        results["num_gaussians"] = float(int(self.gm.count))
+        return results
 
     def measure_phase_split(self, iters: int = 5) -> Dict[str, float]:
-        raise NotImplementedError("measure_phase_split is not ported yet")
+        """Forward/backward/optimizer time split of one train step on the
+        final map and keyframe 0 (the reference prints these live,
+        mapping.cpp:188-195). Times three nested prefixes of the step, the
+        loss, loss + gradients and the whole step, `iters` times each after
+        one warm-up (CUDA events on the card, the host clock on the CPU), and
+        differences them: forward = t(loss), backward = t(grad) - t(loss),
+        optimizer = t(step) - t(grad)."""
+        if not self.initialized or self.kf_count == 0:
+            return {}
+        cfg, intr = self.cfg, self.intr
+        kw = dict(apply_exposure=cfg.apply_exposure, **_render_kw(cfg, self.gm.capacity))
+        cam = self.kf_buffer.camera(intr, 0)
+        gt = self.kf_buffer.images[0].float() / 255.0
+        exp_step = max(self.exposure_steps, 1)
+
+        def loss_only():
+            with torch.no_grad():
+                out = render_map(self.gm, cam, **kw)
+                return losses.training_loss(out.image, gt, cfg.lambda_dssim)
+
+        def loss_and_grad():
+            trainable = {k: v.detach().requires_grad_(True)
+                         for k, v in self.gm.trainable().items()}
+            out = render_map(self.gm.with_trainable(trainable), cam, **kw)
+            loss = losses.training_loss(out.image, gt, cfg.lambda_dssim)
+            return torch.autograd.grad(loss, list(trainable.values()), allow_unused=True)
+
+        def whole_step():
+            return train_step(self.gm, self.opt_state, self.kf_buffer, 0, exp_step,
+                              intr=intr, cfg=cfg)
+
+        def timeit(fn) -> float:
+            if self.device.type == "cuda":
+                return cuda_ms(fn, iters)
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            return (time.perf_counter() - t0) / iters * 1e3
+
+        t_fwd, t_fb, t_step = timeit(loss_only), timeit(loss_and_grad), timeit(whole_step)
+        split = {
+            "forward_ms": round(t_fwd, 2),
+            "backward_ms": round(max(t_fb - t_fwd, 0.0), 2),
+            "optimizer_ms": round(max(t_step - t_fb, 0.0), 2),
+            "whole_step_ms": round(t_step, 2),
+        }
+        print("===== per-phase step split (cf. mapping.cpp:188-195) =====")
+        print(f"  forward   : {split['forward_ms']:.2f} ms")
+        print(f"  backward  : {split['backward_ms']:.2f} ms")
+        print(f"  optimizer : {split['optimizer_ms']:.2f} ms")
+        print(f"  whole step: {split['whole_step_ms']:.2f} ms  "
+              "(CPU2GPU: none — keyframes are device-resident)")
+        return split
 
     def train_camera(self, idx: int) -> Camera:
         return self.kf_buffer.camera(self.intr, idx)

@@ -2,8 +2,9 @@
 
 `gaussian_map_from_numpy` / `adam_state_from_numpy` take the fields of the
 JAX package's `GaussianMap` and `AdamState`s (converted with `np.asarray`)
-and build this package's, copying the data; `to_numpy` goes back. Nothing
-here imports JAX.
+and build this package's, copying the data; `to_numpy` goes back.
+`lpips_from_numpy` builds the LPIPS module from the JAX package's LPIPS
+parameters. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from gaussian_lic_tpu_torch.models.gaussians import GaussianMap
 from gaussian_lic_tpu_torch.ops.adam import AdamState
+from gaussian_lic_tpu_torch.ops.lpips import LPIPS
 
 Device = Union[str, torch.device]
 MAP_FIELDS = ("xyz", "dc", "sh_rest", "log_scale", "quat", "opa_logit", "count",
@@ -46,6 +48,13 @@ def adam_state_from_numpy(
         )
         for name, st in states.items()
     }
+
+
+def lpips_from_numpy(params: Mapping[str, np.ndarray], *, device: Device) -> LPIPS:
+    """The LPIPS module from the JAX package's LPIPS parameters (keyed
+    conv{i}_w, conv{i}_b, lin{i}_w)."""
+    return LPIPS({k: torch.tensor(np.asarray(v, np.float32)) for k, v in params.items()},
+                 device=device)
 
 
 def to_numpy(obj):

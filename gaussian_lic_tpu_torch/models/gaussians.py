@@ -12,12 +12,15 @@ Parameters and activations (gaussian.h:103-186, gaussian.cpp:147-175):
 
 Initialization (gaussian.cpp:212-304): color -> SH DC via (c-0.5)/C0; scale =
 log(scaling_scale * depth / focal) with focal = (fx+fy)/2; identity quats;
-opacity logit of 0.1. The skybox (`skybox_points_num > 0`) is not ported yet.
+opacity logit of 0.1. Skybox (`skybox_points_num > 0`): points on a far
+hemisphere (radius x 10, theta ~ U[0, 2pi), phi = acos(1 - 1.4u)), DC color
+(0.7, 0.8, 0.95), opacity 0.7, scales from the 3-NN mean distance (ops.knn).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import NamedTuple, Tuple, Union
 
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from gaussian_lic_tpu_torch.ops import sh as sh_ops
+from gaussian_lic_tpu_torch.ops.knn import mean_knn_dist2
 
 Device = Union[str, torch.device]
 
@@ -198,6 +202,49 @@ def point_attributes(
     return points, dc, sh_rest, log_scale, quat, opa
 
 
+def skybox_uniforms(num: int, generator: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The skybox's two (num,) U[0, 1) draws, from a CPU `generator`. The JAX
+    package draws them with jax.random, which torch cannot reproduce; tests
+    substitute its draws here."""
+    u1 = torch.rand(num, generator=generator, dtype=torch.float32)
+    u2 = torch.rand(num, generator=generator, dtype=torch.float32)
+    return u1, u2
+
+
+def make_skybox(
+    num: int,
+    radius: float,
+    seed: int = 0,
+    device: Device = "cpu",
+) -> Tuple[torch.Tensor, ...]:
+    """Skybox Gaussians on a far hemisphere (gaussian.cpp:243-273).
+
+    Positions at radius x 10 with phi = acos(1 - 1.4u) (dips ~23 degrees below
+    the horizon), sky-blue DC (0.7, 0.8, 0.95), opacity 0.7, isotropic scales
+    from the mean distance to the 3 nearest neighbours (distCUDA2 -> ops.knn).
+    The uniforms come from a CPU generator seeded with `seed` and the
+    positions are computed on the CPU too, so a run on the card and one on
+    the CPU start from the same skybox: the card's cos/sin/acos differ from
+    the CPU's in the last bits, enough to move a point across a Morton cell
+    and change its kNN candidates."""
+    u1, u2 = skybox_uniforms(num, torch.Generator(device="cpu").manual_seed(seed))
+    theta = (2.0 * math.pi) * u1
+    phi = torch.acos(1.0 - 1.4 * u2)
+    r = radius * 10.0
+    xyz = torch.stack(
+        [r * torch.cos(theta) * torch.sin(phi), r * torch.sin(theta) * torch.sin(phi),
+         r * torch.cos(phi)],
+        dim=1,
+    ).to(device)
+    rgb = torch.tensor([[0.7, 0.8, 0.95]], dtype=torch.float32, device=device).repeat(num, 1)
+    dc = sh_ops.rgb_to_sh(rgb)
+    dist2 = torch.clamp_min(mean_knn_dist2(xyz), 1e-7)  # gaussian.cpp:261
+    log_scale = torch.log(torch.sqrt(dist2))[:, None].repeat(1, 3)
+    quat = _identity_quats(num, device)
+    opa = torch.full((num,), _inverse_sigmoid_scalar(0.7), dtype=torch.float32, device=device)
+    return xyz, dc, log_scale, quat, opa
+
+
 def initialize_map(
     points: np.ndarray,
     colors: np.ndarray,
@@ -212,19 +259,15 @@ def initialize_map(
     seed: int = 0,
     device: Device = "cpu",
 ) -> GaussianMap:
-    """First-keyframe map initialization from the accumulated LiDAR points
-    (GaussianModel::initialize, gaussian.cpp:212-304)."""
-    del skybox_radius, seed
-    if skybox_points_num > 0:
-        raise NotImplementedError(
-            "skybox initialization (make_skybox + ops/knn.py) is not ported yet; "
-            "run with skybox_points_num=0"
-        )
-    n_total = points.shape[0]
+    """First-keyframe map initialization (GaussianModel::initialize,
+    gaussian.cpp:212-304): the skybox Gaussians first (so that export can
+    slice them off, gaussian.cpp:310-316), then all accumulated LiDAR points."""
+    n_sky = skybox_points_num
+    n_total = points.shape[0] + n_sky
     while capacity < n_total:
         capacity *= 2
     S = (sh_degree + 1) ** 2 - 1
-    gm = GaussianMap.empty(capacity, sh_degree, device=device)
+    gm = GaussianMap.empty(capacity, sh_degree, skybox_count=n_sky, device=device)
     f32 = dict(dtype=torch.float32, device=device)
     xyz, dc, sh_rest, ls, q, o = point_attributes(
         torch.as_tensor(points, **f32),
@@ -234,6 +277,11 @@ def initialize_map(
         scaling_scale,
         S,
     )
+    if n_sky > 0:
+        sky_xyz, sky_dc, sky_ls, sky_q, sky_o = make_skybox(n_sky, skybox_radius, seed, device)
+        xyz, dc, ls, q, o = (torch.cat(p) for p in ((sky_xyz, xyz), (sky_dc, dc), (sky_ls, ls),
+                                                     (sky_q, q), (sky_o, o)))
+        sh_rest = torch.cat([sh_rest.new_zeros((n_sky,) + sh_rest.shape[1:]), sh_rest])
     for field, val in (("xyz", xyz), ("dc", dc), ("sh_rest", sh_rest),
                        ("log_scale", ls), ("quat", q), ("opa_logit", o)):
         getattr(gm, field)[:n_total] = val

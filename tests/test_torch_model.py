@@ -5,12 +5,13 @@ Tolerance: rtol 1e-6 on values (the same float32 formulas: log, division,
 (c - 0.5)/C0); layout, counts and masks exact.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import n, t
+from torch_port_helpers import n, rel_max, t
 
 from gaussian_lic_tpu.models import gaussians as jg
 from gaussian_lic_tpu.ops.adam import AdamState as JAdamState
@@ -49,10 +50,24 @@ class TestInit:
                                        rtol=1e-6, err_msg=a)
         np.testing.assert_array_equal(n(tm.active_mask()), np.asarray(jm.active_mask()))
 
-    def test_skybox_not_ported_yet(self, rng):
-        pts, cols, depths = make_points(rng, 10)
-        with pytest.raises(NotImplementedError):
-            tg.initialize_map(pts, cols, depths, focal=450.0, skybox_points_num=100)
+    def test_skybox_not_ported_yet(self, rng, monkeypatch):
+        """The skybox branch: skybox rows first, then the LiDAR rows, equal
+        to JAX's map given JAX's uniforms (1e-6 relative to each array's
+        largest entry: cos/sin/acos may differ in the last bit)."""
+        k1, k2 = jax.random.split(jax.random.PRNGKey(5))
+        draws = (t(jax.random.uniform(k1, (120,))), t(jax.random.uniform(k2, (120,))))
+        monkeypatch.setattr(tg, "skybox_uniforms", lambda num, gen: draws)
+        pts, cols, depths = make_points(rng, 150)
+        kw = dict(focal=450.0, sh_degree=3, capacity=256, skybox_points_num=120,
+                  skybox_radius=50.0, seed=5)
+        tm = tg.initialize_map(pts, cols, depths, **kw)
+        jm = jg.initialize_map(pts, cols, depths, **kw)
+        assert tm.capacity == jm.capacity == 512     # 270 rows outgrow 256
+        assert tm.skybox_count == jm.skybox_count == 120
+        assert int(tm.count) == int(jm.count) == 270
+        for f in FIELDS:
+            assert rel_max(n(getattr(tm, f)), np.asarray(getattr(jm, f))) <= 1e-6, f
+        np.testing.assert_array_equal(n(tm.xyz[120:270]), pts)
 
     def test_point_attributes(self, rng):
         pts, cols, depths = make_points(rng, 30)

@@ -7,7 +7,10 @@ mode, on small seeded scenes, and returns (or writes) the inputs and outputs as
   blend.npz   K1 `blend_forward` (color and no_color) and K2 `blend_backward`
               at 64x64 with 128 Gaussians, mapped from tile-major to image space;
   train.npz   1 and 10 steps of `_make_train_step(with_grads=True)`;
-  engine.npz  a 3-keyframe `MappingEngine.add_frame` run.
+  engine.npz  a 3-keyframe `MappingEngine.add_frame` run;
+  finalize.npz  a 9-frame run with a 64-point skybox (every 3rd frame a
+              keyframe), then `finalize` with randinit LPIPS: the skybox's
+              uniform draws, the eval results and the PLY file's bytes.
 
 Interpret-mode Pallas is slow on a CPU (tens of seconds to minutes per case),
 which is why the port's fast tests read these files instead of running the JAX
@@ -276,7 +279,48 @@ def make_engine(n_frames: int = 6) -> dict:
     )
 
 
-CASES = {"blend": make_blend, "train": make_train, "engine": make_engine}
+# ---------------------------------------------------------------------------
+# end of run: a 9-frame engine run with a skybox, then finalize
+# ---------------------------------------------------------------------------
+
+FINALIZE_SKYBOX = 64
+RESULT_KEYS = ("train_psnr", "train_ssim", "train_lpips", "test_psnr", "test_ssim",
+               "test_lpips", "num_gaussians")
+
+
+def finalize_params():
+    """The Params of the finalize case: every 3rd frame trains, 64 skybox points."""
+    return small_params(select_every_k_frame=3, skybox_points_num=FINALIZE_SKYBOX)
+
+
+def make_finalize(n_frames: int = 9) -> dict:
+    jax = _jax_cpu()
+    from gaussian_lic_tpu.engine.trainer import MappingEngine
+
+    cfg = finalize_params()
+    frames = _small_world_frames(n_frames, SEED + 3)
+    # the skybox draws of models/gaussians.make_skybox
+    k1, k2 = jax.random.split(jax.random.PRNGKey(cfg.seed))
+    u1 = np.asarray(jax.random.uniform(k1, (cfg.skybox_points_num,)))
+    u2 = np.asarray(jax.random.uniform(k2, (cfg.skybox_points_num,)))
+    with tempfile.TemporaryDirectory() as tmp:
+        eng = MappingEngine(cfg, result_path=tmp, lpips_path="randinit")
+        for f in frames:
+            eng.add_frame(f)
+        res = eng.finalize()
+        with open(os.path.join(tmp, "point_cloud.ply"), "rb") as f:
+            ply = f.read()
+    return dict(
+        _frames_dict(frames),
+        skybox_u1=u1, skybox_u2=u2,
+        results=np.array([res[k] for k in RESULT_KEYS], np.float64),
+        ply=np.frombuffer(ply, np.uint8),
+        kf_count=np.int32(eng.kf_count),
+    )
+
+
+CASES = {"blend": make_blend, "train": make_train, "engine": make_engine,
+         "finalize": make_finalize}
 
 
 def main() -> int:
