@@ -8,15 +8,23 @@ exit code is not 0:
 
   1. device and build: the card's name and power limit, TF32 switched off,
      the CUDA kernels built with nvcc from csrc/ (seconds, ptxas report);
+     K2's entry loop in the SASS (cuobjdump) must issue at most a third of
+     the shuffle and shared-memory instructions of the first design's;
   2. kernel vs plain: K1 blend_forward (color and no_color) and K2
      blend_backward at 640x512, each held against its plain PyTorch version
      with both times (CUDA events), on two inputs: a seeded ~20k-Gaussian
      scene (short tile lists) and the arguments of phase 4's first train step
      at 1M Gaussians (tile lists of thousands of entries, so K1 walks many
-     staged batches and its early exit);
+     staged batches and its early exit). K2 returns per-Gaussian sums and is
+     held per column against the plain per-entry version + index_add_; at
+     each input it is timed in turns beside the first design (K4 base +
+     index_add_). Every
+     kernel's bound (bound_ms) comes from the (entry, pixel) pairs the train
+     step's inputs need (blend_pairs), the card's SM count and max clock;
   2b. the blend probes K3/K4 (ops/blend_probe.py): every variant on phase
-     2's two inputs, held against K1/K2's outputs of phase 2 where it keeps
-     their numerics, and against its own plain version (every variant on the
+     2's two inputs, held against K1's outputs and K2's plain per-entry
+     output of phase 2 where it keeps their numerics (dbuf2 also against
+     K4 base), and against its own plain version (every variant on the
      20k scene, the others at 1M); then the probes' own path, the run()
      of tools/probe_torch_kernel.py and tools/probe_torch_bwd.py on the probe
      scene (1M Gaussians, camera 0), with the probe launch counters zeroed
@@ -68,20 +76,155 @@ CONFIG = os.path.join(REPO, "config", "fastlivo.yaml")
 
 PSNR_FLOOR = 17.0          # phase 3 train PSNR floor: first H100 run 18.86 dB
 IMG_ATOL = 1e-5            # K1 image and final_T vs plain
-GRAD_RTOL = 1e-4           # K2 per-entry grads vs plain, relative to the max
+GRAD_RTOL = 1e-4           # K2 per-Gaussian grads vs plain, relative to each column's max
 SMALL_LOSS_RTOL = 1e-4     # phase 3 small stream: card vs CPU per-keyframe loss
 APP_PSNR_FLOOR = 17.0      # phase 5 train PSNR floor: first H100 run 18.73 dB
 APP_SMALL_RTOL = 1e-4      # phase 5 64x64 app, card vs CPU eval metrics: first H100 run 3.6e-6
 NOBLEND_RTOL = 1e-5        # K3 noblend vs plain, relative to the max: sums of ~1e4 powers
 NORED_RTOL = 1e-4          # K4 nored vs plain, relative to the max: 4-pixel sums
-# K4 variants vs K2 (fused: vs K2 + index_add_), relative to the max; base and
-# dbuf2 keep K2's arithmetic and order, smematomic and fused sum in any order
-BWD_RTOL_VS_K2 = {"base": 1e-6, "dbuf2": 1e-6, "smematomic": GRAD_RTOL, "fused": GRAD_RTOL}
+# K4 variants vs K2's plain per-entry version of phase 2 (fused: summed per
+# Gaussian), relative to the max: they sum the pixels in another order
+BWD_RTOL_VS_PLAIN = {"base": GRAD_RTOL, "dbuf2": GRAD_RTOL, "smematomic": GRAD_RTOL,
+                     "fused": GRAD_RTOL}
+DBUF2_RTOL_VS_BASE = 1e-6  # dbuf2 keeps K4 base's arithmetic and order
 FWD_K1_NUMERICS = ("base", "batch512", "direct")   # K3 variants held to K1 bit for bit
+
+# Bounds (bound_ms): the least time the card could take for a kernel's work on
+# this run's inputs, the larger of its bytes over the memory rate and of its
+# operations over the rate of their pipe. Operations per (entry, pixel) pair,
+# counted from the kernels' source (blend_common.cuh, blend_*.cu): FP32
+# instructions (an FMA is one; the accurate expf is 6 and one MUFU ex2, the
+# IEEE 1/x 4 and one MUFU rcp), as (per pair tested, extra per pair applied).
+# A pixel tests the entries up to the one where it stops (forward) or up to
+# its last applied one (backward); see blend_pairs.
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory rate
+FP32_LANES_PER_SM = 128    # FP32 lanes per SM and clock (67 TFLOP/s at 1,980 MHz, FMA = 2)
+MUFU_LANES_PER_SM = 16     # special-function lanes per SM and clock
+PAIR_FP32 = {"forward": (19, 7), "forward_no_color": (19, 3), "backward": (19, 26),
+             "noexp": (14, 7), "noblend": (12, 0)}
+PAIR_MUFU = {"forward": (1, 0), "forward_no_color": (1, 0), "backward": (1, 1),
+             "noexp": (0, 0), "noblend": (0, 0)}
+ROW_BYTES = 36             # the 9 used floats of a gathered splat row
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def card_rates(dev) -> dict:
+    """The card's SM count and its maximum SM clock (nvidia-smi clocks.max.sm)."""
+    import subprocess
+
+    import torch
+
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout.split()[0]
+    return dict(sms=torch.cuda.get_device_properties(dev).multi_processor_count,
+                hz=float(mhz) * 1e6)
+
+
+def blend_pairs(splats, starts, lens, grid, exp=None) -> dict:
+    """(entry, pixel) pairs of a blend on these inputs, from the plain
+    version's arithmetic: `forward`, per pixel the entries up to the one at
+    which it stops (its whole range if it never stops); `applied`, the pairs
+    it blends; `backward`, per pixel the entries up to its last applied one
+    (n_contrib); `all`, every entry of every range at every pixel of its tile."""
+    import torch
+
+    from gaussian_lic_tpu_torch.ops import blend
+
+    kw = {} if exp is None else dict(exp=exp)
+    out = dict(forward=0, applied=0, backward=0,
+               all=int(lens.long().sum()) * blend.TILE_PIX)
+    for tiles, L in blend._tile_chunks(lens):
+        e, _, _ = blend._gather_entries(splats, starts, lens, tiles, L)
+        px, py = blend._pixel_coords(tiles, grid.n_tx, grid.tile_h, grid.tile_w)
+        *_, alpha, contrib = blend._alpha(e, px, py, **kw)
+        t_f = 1.0 - torch.where(contrib, alpha, torch.zeros_like(alpha))
+        T_excl = torch.cumprod(torch.cat([torch.ones_like(t_f[:, :1]), t_f[:, :-1]], 1), 1)
+        trigger = contrib & (T_excl * t_f < blend.T_EPS)
+        del T_excl, t_f
+        stops = trigger.any(1)
+        stop = trigger.to(torch.int32).argmax(1) + 1
+        tested = torch.where(stops, stop, lens[tiles].long()[:, None].expand_as(stop))
+        applied = contrib & (torch.cumsum(trigger.to(torch.int32), 1) == 0)
+        pos = torch.arange(1, L + 1, device=splats.device)[None, :, None]
+        out["forward"] += int(tested.long().sum())
+        out["applied"] += int(applied.sum())
+        out["backward"] += int(torch.where(applied, pos, 0).amax(1).long().sum())
+    return out
+
+
+def bound_ms(rates, nbytes, pairs, cost, direction) -> tuple:
+    """(bound ms, "bytes" or "operations") of a kernel that moves `nbytes`
+    and does PAIR_FP32/PAIR_MUFU[cost] on `pairs` (blend_pairs), testing its
+    `direction`'s pairs ("all" for a kernel that tests every pair)."""
+    tested, applied = pairs[direction], pairs["applied"] if direction != "all" else 0
+    ops = {k: c[0] * tested + c[1] * applied
+           for k, c in (("fp32", PAIR_FP32[cost]), ("mufu", PAIR_MUFU[cost]))}
+    t_ops = max(ops["fp32"] / (rates["sms"] * FP32_LANES_PER_SM * rates["hz"]),
+                ops["mufu"] / (rates["sms"] * MUFU_LANES_PER_SM * rates["hz"]))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def blend_bytes(sc, output: str) -> int:
+    """Bytes a blend kernel must move on scene `sc`: the used splat columns,
+    the tile ranges, the per-pixel inputs, and its output (`output`: image
+    (color, final_T, n_contrib), `entry` (M_pad, 9) or `gauss` (P, 9) grads;
+    the backward also reads sorted_gauss for `gauss`)."""
+    m, g = sc["splats"].shape[0], sc["grid"]
+    px = g.padded_width * g.padded_height
+    n = m * ROW_BYTES + 8 * g.n_tx * g.n_ty
+    if output == "image":
+        return n + 20 * px
+    n += 20 * px   # dL/dpix, final_T, n_contrib
+    return n + (m * ROW_BYTES if output == "entry" else m * 4 + sc["n_gauss"] * ROW_BYTES)
+
+
+def sass_loop_counts(sass: str, kernel: str, ops=("SHFL", "STS", "LDS")) -> dict:
+    """Counts of `ops` in the innermost loop (a backward branch's span) of
+    the first SASS function whose name holds `kernel` and that holds a SHFL
+    (a K2 design's entry loop, which carries its warp reduction)."""
+    import re
+
+    for part in sass.split("Function : ")[1:]:
+        if kernel not in part.split("\n", 1)[0]:
+            continue
+        ins = [(int(a, 16), t.strip()) for a, t in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+        loops = []
+        for addr, text in ins:
+            m = re.search(r"BRA\s.*?(0x[0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < addr:
+                body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+                if any("SHFL" in t for t in body):
+                    loops.append(body)
+        body = min(loops, key=len)
+        op = lambda t: re.sub(r"^@!?U?P\w+\s+", "", t).split(".")[0].split()[0]  # noqa: E731
+        return dict(instructions=len(body), **{o: sum(op(t) == o for t in body) for o in ops})
+    raise AssertionError(f"no kernel {kernel!r} with a SHFL loop in the SASS")
+
+
+def check_k2_reduction(lib_path: str) -> None:
+    """K2's entry loop must issue at most a third of the shuffle and shared
+    memory instructions of the first design's (K4 base), in the built SASS."""
+    import subprocess
+
+    from gaussian_lic_tpu_torch import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    new = sass_loop_counts(sass, "blend_backward_kernel")
+    old = sass_loop_counts(sass, "probe_backward_kernelILi0E")
+    ratio = sum(new[o] for o in ("SHFL", "STS", "LDS")) / sum(old[o] for o in ("SHFL", "STS", "LDS"))
+    log(f"[1] SASS of the entry loop: K2 {new}; first design (K4 base) {old}; "
+        f"SHFL+STS+LDS ratio {ratio:.3f}")
+    if not ratio <= 1 / 3:
+        raise AssertionError(f"K2's loop issues {ratio:.3f} of the first design's shuffle and "
+                             "shared-memory instructions (limit 1/3)")
 
 
 def timed(fn):
@@ -176,6 +319,7 @@ def compare_kernels(sc: dict, tag: str) -> dict:
     import torch
 
     from gaussian_lic_tpu_torch.ops import blend
+    from gaussian_lic_tpu_torch.ops import blend_probe as bp
     from gaussian_lic_tpu_torch.utils.cuda_timing import cuda_ms
 
     g = sc["grid"]
@@ -213,15 +357,26 @@ def compare_kernels(sc: dict, tag: str) -> dict:
                              f"{IMG_ATOL}")
 
     bargs = args + (sc["dl"], out_p[1], out_p[2])
-    gk = blend.blend_backward(*bargs, **kw)
-    gp = blend.blend_backward_plain(*bargs, **kw)
+    sg, P = sc["sorted_gauss"], sc["n_gauss"]
+    gkw = dict(kw, n_gauss=P)
+    gk = blend.blend_backward(*bargs, sg, **gkw)
+    gp_entry = blend.blend_backward_plain(*bargs, **kw)
+    gp = blend.sum_per_gaussian(gp_entry, sg, P)
     torch.cuda.synchronize()
     err_g = float((gk - gp).abs().max())
-    rel_g = err_g / max(float(gp.abs().max()), 1e-30)
-    log(f"[2] {tag} K2: max|d grad| {err_g:.3e}  relative to max {rel_g:.3e}")
+    rel_cols = ((gk - gp).abs().amax(0) / gp.abs().amax(0).clamp_min(1e-30)).tolist()
+    rel_g = max(rel_cols)
+    log(f"[2] {tag} K2: max|d grad| {err_g:.3e}  relative to each column's max: "
+        + " ".join(f"{r:.2e}" for r in rel_cols))
     if not rel_g <= GRAD_RTOL:
         raise AssertionError(f"{tag}: K2 disagrees with its plain version beyond {GRAD_RTOL} "
                              "relative")
+
+    def plain_bwd():
+        return blend.sum_per_gaussian(blend.blend_backward_plain(*bargs, **kw), sg, P)
+
+    def first_design():   # the first K2 (K4 base) and the per-Gaussian index_add_ after it
+        return blend.sum_per_gaussian(bp.probe_backward("base", *bargs, **kw), sg, P)
 
     res = {
         "forward": (max(err_img, err_ft),
@@ -232,32 +387,52 @@ def compare_kernels(sc: dict, tag: str) -> dict:
                              cuda_ms(lambda: blend.blend_forward_plain(*args, no_color=True,
                                                                        **kw), 3)),
         "backward": (err_g,
-                     cuda_ms(lambda: blend.blend_backward(*bargs, **kw), 20),
-                     cuda_ms(lambda: blend.blend_backward_plain(*bargs, **kw), 3)),
+                     cuda_ms(lambda: blend.blend_backward(*bargs, sg, **gkw), 20),
+                     cuda_ms(plain_bwd, 3)),
     }
     for k, (_, tk, tp) in res.items():
         log(f"[2] {tag} time {k}: kernel {tk:.4f} ms  plain {tp:.4f} ms")
-    sc.update(k1=out_k, ties=ties, k2=gk, k2_in=bargs[3:], times=res)
+    # the new K2 beside the first design, in turns
+    k2_vs = [cuda_ms(f, 20) for f in (first_design, lambda: blend.blend_backward(*bargs, sg, **gkw),
+                                      lambda: blend.blend_backward(*bargs, sg, **gkw), first_design)]
+    log(f"[2] {tag} K2 vs the first design (K4 base + index_add_), in turns old new new old: "
+        + " ".join(f"{v:.4f}" for v in k2_vs) + " ms")
+    sc.update(k1=out_k, ties=ties, k2_plain=gp_entry, k2_in=bargs[3:], times=res,
+              k2_first_ms=(k2_vs[0] + k2_vs[3]) / 2,
+              entry_plain_ms=cuda_ms(lambda: blend.blend_backward_plain(*bargs, **kw), 3))
     return res
 
 
-def phase_kernels(dev, state: dict, n: int = 20000):
+def phase_kernels(dev, state: dict, rates: dict, n: int = 20000):
     """Compares the kernels on the seeded n-Gaussian scene and on the
     arguments of phase 4's first train step. The JSON line reports the
-    larger error of the two and the times at the train step's shapes.
-    Returns those rows and the two scenes."""
+    larger error of the two, and the times and bounds at the train step's
+    shapes. Returns those rows and the two scenes."""
     light_sc, step_sc = kernel_scene(dev, n), step_scene(state)
     light = compare_kernels(light_sc, f"{n}-Gaussian scene")
     step = compare_kernels(step_sc, f"{state['n']}-Gaussian train step")
+    g = step_sc["grid"]
+    step_sc["pairs"] = {"base": blend_pairs(step_sc["splats"], step_sc["starts"],
+                                            step_sc["lens"], g)}
+    log(f"[2] train step pairs: {step_sc['pairs']['base']}")
     src = "gaussian_lic_tpu_torch/csrc/"
     pallas = "gaussian_lic_tpu/ops/blend_pallas.py:"
-    rows = [("blend_forward", "blend_forward.cu", "278", "forward"),
-            ("blend_forward_no_color", "blend_forward.cu", "278", "forward_no_color"),
-            ("blend_backward", "blend_backward.cu", "578", "backward")]
-    return [dict(name=name, route="cuda", source=src + cu, replaces=pallas + line,
-                 counter=key, max_abs_err=max(light[key][0], step[key][0]),
-                 ms=step[key][1], plain_ms=step[key][2])
-            for name, cu, line, key in rows], (light_sc, step_sc)
+    rows = [("blend_forward", "blend_forward.cu", "278", "forward", "forward", "image"),
+            ("blend_forward_no_color", "blend_forward.cu", "278", "forward_no_color",
+             "forward", "image"),
+            ("blend_backward", "blend_backward.cu", "578", "backward", "backward", "gauss")]
+    out = []
+    for name, cu, line, key, direction, output in rows:
+        b_ms, b_by = bound_ms(rates, blend_bytes(step_sc, output), step_sc["pairs"]["base"],
+                              key, direction)
+        out.append(dict(name=name, route="cuda", source=src + cu, replaces=pallas + line,
+                        counter=key, max_abs_err=max(light[key][0], step[key][0]),
+                        ms=step[key][1], plain_ms=step[key][2], bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None))
+        log(f"[2] {name}: {step[key][1]:.4f} ms against a bound of {b_ms:.4f} ms ({b_by})")
+    log(f"[2] K2 at the train step: {step['backward'][1]:.4f} ms; the first design (K4 base + "
+        f"index_add_) {step_sc['k2_first_ms']:.4f} ms in the same run")
+    return out, (light_sc, step_sc)
 
 
 # ---------------------------------------------------------------------------
@@ -307,12 +482,11 @@ def check_probe_backward(tag, v, against, out, ref, tol) -> float:
 
 def compare_probes(sc: dict, tag: str, full: bool) -> dict:
     """Every K3/K4 variant on scene `sc` of phase 2. The variants that keep
-    K1/K2's numerics are held against phase 2's K1/K2 outputs; with `full`,
+    K1/K2's numerics are held against phase 2's K1 output and K2's plain
+    per-entry output; with `full`,
     every variant is also held against its plain version, and otherwise only
     the others run their plain version, once (the rest take phase 2's plain
     time). Returns {(direction, variant): (max abs err, ms, plain ms)}."""
-    import torch
-
     from gaussian_lic_tpu_torch.ops import blend_probe as bp
     from gaussian_lic_tpu_torch.utils.cuda_timing import cuda_ms
 
@@ -336,23 +510,27 @@ def compare_probes(sc: dict, tag: str, full: bool) -> dict:
 
     bargs = args + sc["k2_in"]   # phase 2's dL/dpix, final_T and n_contrib
     fkw = dict(kw, sorted_gauss=sc["sorted_gauss"], n_gauss=sc["n_gauss"])
-    sg = sc["sorted_gauss"].long()
-    k2_sum = sc["k2"].new_zeros((sc["n_gauss"] + 1, sc["k2"].shape[1])).index_add_(
-        0, sg, sc["k2"])
+    k2_plain = sc["k2_plain"]    # phase 2's plain per-entry K2
+    k2_plain_sum = k2_plain.new_zeros((sc["n_gauss"] + 1, k2_plain.shape[1])).index_add_(
+        0, sc["sorted_gauss"].long(), k2_plain)
+    outs = {}
     for v in bp.BACKWARD_VARIANTS:
-        out = bp.probe_backward(v, *bargs, **fkw)
-        errs, plain_ms = [], sc["times"]["backward"][2]
+        out = outs[v] = bp.probe_backward(v, *bargs, **fkw)
+        errs = []
+        plain_ms = sc["times"]["backward"][2] if v == "fused" else sc["entry_plain_ms"]
         if full or v == "nored":
             ref, plain_ms = timed(lambda: bp.probe_backward_plain(v, *bargs, **fkw))
             errs.append(check_probe_backward(tag, v, "plain", out, ref,
                                              NORED_RTOL if v == "nored" else GRAD_RTOL))
-        elif v == "fused":
-            plain_ms += cuda_ms(lambda: torch.zeros_like(k2_sum).index_add_(0, sg, sc["k2"]), 5)
         if v == "fused":
-            errs.append(check_probe_backward(tag, v, "K2 + index_add_", out, k2_sum,
-                                             BWD_RTOL_VS_K2[v]))
-        elif v in BWD_RTOL_VS_K2:
-            errs.append(check_probe_backward(tag, v, "K2", out, sc["k2"], BWD_RTOL_VS_K2[v]))
+            errs.append(check_probe_backward(tag, v, "K2 plain + index_add_", out, k2_plain_sum,
+                                             BWD_RTOL_VS_PLAIN[v]))
+        elif v in BWD_RTOL_VS_PLAIN:
+            errs.append(check_probe_backward(tag, v, "K2 plain", out, k2_plain,
+                                             BWD_RTOL_VS_PLAIN[v]))
+        if v == "dbuf2":
+            errs.append(check_probe_backward(tag, v, "K4 base", out, outs["base"],
+                                             DBUF2_RTOL_VS_BASE))
         res[("backward", v)] = (max(errs),
                                 cuda_ms(lambda: bp.probe_backward(v, *bargs, **fkw), 20), plain_ms)
     for (d, v), (_, tk, tp) in res.items():
@@ -389,6 +567,19 @@ def phase_probes(state: dict, scenes, iters: int = 3) -> list:
     if min(launches.values()) <= 0:
         raise AssertionError(f"a probe variant never launched on the probe path: {launches}")
 
+    pairs = step_sc["pairs"]
+    g = step_sc["grid"]
+    const = step_sc["splats"].clone()
+    const[:, :len(bp.NOATTR_SPLAT)] = const.new_tensor(bp.NOATTR_SPLAT)
+    pairs["noattr"] = blend_pairs(const, step_sc["starts"], step_sc["lens"], g)
+    pairs["noexp"] = blend_pairs(step_sc["splats"], step_sc["starts"], step_sc["lens"], g,
+                                 exp=bp._noexp)
+    del const
+    log(f"[2b] train step pairs: noattr {pairs['noattr']}, noexp {pairs['noexp']}")
+    # (pairs, cost, tested pairs) of each probe's work
+    work = {("forward", "noexp"): ("noexp", "noexp", "forward"),
+            ("forward", "noattr"): ("noattr", "forward", "forward"),
+            ("forward", "noblend"): ("base", "noblend", "all")}
     src = "gaussian_lic_tpu_torch/csrc/"
     rows = []
     for d, variants, cu, replaces in (
@@ -396,10 +587,15 @@ def phase_probes(state: dict, scenes, iters: int = 3) -> list:
             ("backward", bp.BACKWARD_VARIANTS, "blend_probe_backward.cu", "tools/probe_bwd.py:354")):
         for v in variants:
             key = (d, v)
+            which, cost, tested = work.get(key, ("base", d, d))
+            output = "image" if d == "forward" else ("gauss" if v == "fused" else "entry")
+            b_ms, b_by = bound_ms(state["rates"], blend_bytes(step_sc, output), pairs[which],
+                                  cost, tested)
             rows.append(dict(name=f"probe_{d}_{v}", route="cuda", source=src + cu,
                              replaces=replaces, launches=launches[f"{d}_{v}"],
                              max_abs_err=max(light[key][0], step[key][0]),
-                             ms=step[key][1], plain_ms=step[key][2]))
+                             ms=step[key][1], plain_ms=step[key][2], bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None))
     return rows
 
 
@@ -770,10 +966,14 @@ def main() -> int:
             log(f"[1] ptxas: {line.strip()}")
     log(f"[1] kernels built in {lib.build_seconds:.2f} s -> {os.path.relpath(lib.path, REPO)} "
         f"(phase {time.perf_counter() - t0:.2f} s)")
+    check_k2_reduction(lib.path)
 
     t0 = time.perf_counter()
     state = bench_state(dev)
-    kernels, scenes = phase_kernels(dev, state)
+    state["rates"] = card_rates(dev)
+    log(f"[2] bounds at {state['rates']['sms']} SMs, max SM clock "
+        f"{state['rates']['hz'] / 1e6:.0f} MHz")
+    kernels, scenes = phase_kernels(dev, state, state["rates"])
     log(f"[2] phase seconds {time.perf_counter() - t0:.2f}")
     t0 = time.perf_counter()
     probes = phase_probes(state, scenes)

@@ -41,9 +41,10 @@ _SIGNATURES = {
     # rows, m_pad, starts, lens, color, final_t, n_contrib,
     # n_tx, n_ty, tile_w, tile_h, no_color, stream
     "glic_blend_forward": (_VP, _LL, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
-    # rows, m_pad, starts, lens, dl_dcolor, final_t, n_contrib, grads,
-    # n_tx, n_ty, tile_w, tile_h, stream
-    "glic_blend_backward": (_VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP),
+    # rows, m_pad, starts, lens, tile_order, dl_dcolor, final_t, n_contrib,
+    # sorted_gauss, table, n_tx, n_ty, tile_w, tile_h, stream
+    "glic_blend_backward": (_VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                            _I, _I, _I, _I, _VP),
     # variant, rows, m_pad, starts, lens, color, final_t, n_contrib, walked,
     # n_tx, n_ty, tile_w, tile_h, konst (9 host floats or null), stream
     "glic_blend_probe_forward": (_I, _VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP,

@@ -1,12 +1,13 @@
-// K4: substitution probes of the tile blend backward (K2), hand-written for
-// Hopper (sm_90a).
+// K4: substitution probes of the tile blend backward (K2) in its first
+// design, hand-written for Hopper (sm_90a). K2 itself was redesigned since
+// (csrc/blend_backward.cu); `base` keeps the old design line for line.
 //
 // Replaces the TPU kernel tools/probe_bwd.py: make_bwd(...).run (its
 // pl.pallas_call at :354), the Pallas probe of blend_pallas.py's backward.
-// Each variant is K2 (csrc/blend_backward.cu) with its batch pipeline or its
+// Each variant is the first K2 with its batch pipeline or its
 // reduction swapped out:
 //
-//   0 base        K2's walk, bit for bit
+//   0 base        the first K2, line for line (per-entry output)
 //   1 dbuf2       the next batch of 128 entries is copied with cp.async into
 //                 a second shared buffer while the current one is walked
 //                 (the TPU probe's double-buffered DMAs)
@@ -24,14 +25,14 @@
 //                 the last reduction stage removed)
 //
 // The numbering is BACKWARD_VARIANTS in ops/blend_probe.py. The launch shape
-// is K2's: one block of 256 threads per tile, 4 pixels per thread, batches
+// is the first K2's: one block of 256 threads per tile, 4 pixels per thread, batches
 // of 128 entries walked back to front from min(max n_contrib, len); `walked`
-// (one int per tile, or null) receives that count. What bounds K2 is the
+// (one int per tile, or null) receives that count. What bounds that K2 is the
 // per-(entry, pixel) arithmetic plus the 9-sum reduction over 1024 pixels
 // per entry; the variants take that reduction, the batch refill and the
 // per-entry write apart. smematomic and fused sum in a run-dependent order.
 //
-// Shared memory: base and fused 41,476 B (as K2), dbuf2 46,084 B (two
+// Shared memory: base and fused 41,476 B (as the first K2), dbuf2 46,084 B (two
 // 128-entry buffers of 36 B per entry, as 16 + 16 + 4 B copies), nored and
 // smematomic 9,220 B.
 //

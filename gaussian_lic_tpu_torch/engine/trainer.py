@@ -52,6 +52,7 @@ from gaussian_lic_tpu_torch.ops import losses
 from gaussian_lic_tpu_torch.ops.erank import erank_regularizer
 from gaussian_lic_tpu_torch.ops.rasterize import _splat_budget_for, render_map
 from gaussian_lic_tpu_torch.utils.cuda_timing import cuda_ms
+from gaussian_lic_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 PARAM_GROUPS = ("xyz", "dc", "sh_rest", "opacity", "log_scale", "quat")
 
@@ -216,12 +217,13 @@ def extend_step(
 
 class MappingEngine:
     """Host-side streaming driver (the mapping thread, mapping.cpp:124-185).
-    Every tensor of the run lives on `device`."""
+    Every tensor of the run lives on `device`: the card by default (raises
+    without CUDA); `device="cpu"` runs the plain versions of the kernels."""
 
     def __init__(self, cfg: Params, result_path: Optional[str] = None,
-                 lpips_path: Optional[str] = None, device: Device = "cpu"):
+                 lpips_path: Optional[str] = None, device: Device = DEFAULT_DEVICE):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "MappingEngine")
         self.intr = Intrinsics(
             width=cfg.width, height=cfg.height,
             fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy,

@@ -18,6 +18,7 @@ from gaussian_lic_tpu_torch.interop import (
     MAP_FIELDS, adam_state_from_numpy, gaussian_map_from_numpy, to_numpy,
 )
 from gaussian_lic_tpu_torch.models.gaussians import GaussianMap
+from gaussian_lic_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 _FORMAT_VERSION = 1
 
@@ -39,10 +40,11 @@ def save_checkpoint(path: str, gm: GaussianMap, opt_state: Optional[dict] = None
 
 
 def load_checkpoint(
-    path: str, device: Union[str, torch.device] = "cpu",
+    path: str, device: Union[str, torch.device] = DEFAULT_DEVICE,
 ) -> Tuple[GaussianMap, Optional[dict], Dict[str, Any]]:
     """(GaussianMap, {group: AdamState} or None, extra) with every tensor on
-    `device`."""
+    `device`: the card by default (raises without CUDA), or `device="cpu"`."""
+    device = resolve_device(device, "load_checkpoint")
     with np.load(path, allow_pickle=False) as z:
         if int(z["format_version"]) != _FORMAT_VERSION:
             raise ValueError(f"unsupported checkpoint version {int(z['format_version'])}")

@@ -2,8 +2,9 @@
 
 The counterparts of the JAX package's Pallas probes, `make_fwd(...).run` in
 tools/probe_kernel.py and `make_bwd(...).run` in tools/probe_bwd.py. Each
-variant is K1 (`blend.blend_forward`) or K2 (`blend.blend_backward`) with one
-cost centre swapped out; the time it removes from `base` is what that centre
+variant is K1 (`blend.blend_forward`) or K2 in its first design (per-entry
+grads, the per-Gaussian sum left to an index_add_; `blend.blend_backward` was
+redesigned since) with one cost centre swapped out; the time it removes from `base` is what that centre
 costs. Some variants compute something else on purpose, and every variant
 has a plain PyTorch version of exactly what it computes.
 
@@ -16,8 +17,8 @@ Forward variants (csrc/blend_probe_forward.cu), outputs as K1's:
   batch512  512 entries staged per round, 2 per thread, in place of 256
   direct    every thread reads the attributes from device memory; no staging
 
-Backward variants (csrc/blend_probe_backward.cu), per-entry grads as K2's:
-  base        K2's walk, bit for bit
+Backward variants (csrc/blend_probe_backward.cu), per-entry grads as the first K2:
+  base        the first K2, bit for bit
   dbuf2       the next batch is copied with cp.async into a second shared
               buffer while the current one is walked
   nored       no reduction: each entry's record comes from thread 0's four

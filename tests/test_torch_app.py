@@ -51,7 +51,8 @@ class TestFinalize:
         cfg = Params(**{f: getattr(jcfg, f) for f in Params.__dataclass_fields__})
         monkeypatch.setattr(gaussians, "skybox_uniforms",
                             lambda num, gen: (t(d["skybox_u1"]), t(d["skybox_u2"])))
-        eng = MappingEngine(cfg, result_path=str(tmp_path), lpips_path="randinit")
+        eng = MappingEngine(cfg, result_path=str(tmp_path), lpips_path="randinit",
+                            device="cpu")
         for f in frames_from(d):
             eng.add_frame(f)
         res = eng.finalize()
@@ -82,7 +83,8 @@ class TestPhaseSplit:
         d = load_golden("engine", "file")
         tool = golden_tool()
         jcfg = tool.small_params()
-        eng = MappingEngine(Params(**{f: getattr(jcfg, f) for f in Params.__dataclass_fields__}))
+        eng = MappingEngine(Params(**{f: getattr(jcfg, f) for f in Params.__dataclass_fields__}),
+                            device="cpu")
         for f in frames_from(d)[:2]:
             eng.add_frame(f)
         split = eng.measure_phase_split(iters=1)
@@ -102,7 +104,7 @@ class TestCli:
         assert "aligner: native" in text and "===== quality" in text
         assert (prof / "trace.json").stat().st_size > 0
         m = ply.load_ply(str(out / "point_cloud.ply"))
-        gm, opt, extra = checkpoint.load_checkpoint(str(ckpt))
+        gm, opt, extra = checkpoint.load_checkpoint(str(ckpt), device="cpu")
         assert m["xyz"].shape[0] == int(gm.count) > 100 and int(extra["kf_count"]) == 1
         np.testing.assert_array_equal(m["xyz"], gm.xyz[: int(gm.count)].numpy())
         assert sorted(opt) == sorted(gm.trainable())
@@ -114,7 +116,7 @@ class TestCli:
         text = capsys.readouterr().out
         assert f"resumed from {ckpt}: {int(gm.count)} gaussians" in text
         assert "aligner: none" in text
-        gm2, _, _ = checkpoint.load_checkpoint(str(tmp_path / "c2.npz"))
+        gm2, _, _ = checkpoint.load_checkpoint(str(tmp_path / "c2.npz"), device="cpu")
         assert int(gm2.count) >= int(gm.count)
 
     def test_no_cuda_exits_nonzero(self, monkeypatch, capsys):

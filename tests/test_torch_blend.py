@@ -4,32 +4,36 @@
     splat list (tests/torch_goldens/blend.npz; `live` re-runs the JAX side in
     interpret mode). Image and final_T atol 1e-5 (float32 sums taken in a
     different order); n_contrib exact; per-entry gradients 1e-4 relative to
-    the max (PARITY.md C12).
+    the max (PARITY.md C12). K2's per-Gaussian result against np.add.at of
+    the golden's per-entry grads over seeded ids: 1e-6 of the max.
 (b) The port's render_tiled against the JAX dense oracle `render_dense`, with
     the tolerances the JAX package holds its own tiled path to
     (tests/test_rasterize_tiled.py:136-149): the tiled path restricts each
     Gaussian to its culled tiles, the oracle does not.
 (c) Gradients of all six parameter groups through render_tiled against JAX
-    AD of the dense oracle, <= 1e-4 relative (test_rasterize_tiled.py:199-233).
+    AD of the dense oracle, <= 1e-4 relative (test_rasterize_tiled.py:199-233),
+    and the blend's own VJP against JAX's `_make_blend` VJP, 1e-4 relative.
 (d) The CUDA kernels against their plain versions, on the card only.
+
+JAX is imported inside the tests that use it, so the card tests collect on a
+machine without it (GLIC_TEST_TPU=1 keeps tests/conftest.py from importing it).
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import GOLDEN_SOURCES, cuda_device, load_golden, n, rel_max, t
+from torch_port_helpers import (
+    GOLDEN_SOURCES, cuda_device, golden_tool, load_golden, n, rel_max, t,
+)
 
-from gaussian_lic_tpu import camera as jcam
-from gaussian_lic_tpu.ops.rasterize_ref import render_dense
 from gaussian_lic_tpu_torch import camera as tcam
 from gaussian_lic_tpu_torch.ops import blend
 from gaussian_lic_tpu_torch.ops.rasterize import render_tiled
 
 IMG_ATOL = 1e-5
 GRAD_RTOL = 1e-4
+PER_GAUSS_RTOL = 1e-6   # per-Gaussian sums of the plain per-entry grads vs the golden's
 
 
 @pytest.fixture(scope="module", params=GOLDEN_SOURCES)
@@ -42,6 +46,29 @@ def golden_args(d, device="cpu"):
     args = (t(d["splats"]).to(device), t(d["tile_starts"]).to(device),
             t(d["tile_lens"]).to(device))
     return args, dict(n_tx=n_tx, n_ty=n_ty, tile_h=th, tile_w=tw)
+
+
+def pixel_args(d, device="cpu"):
+    """K2's per-pixel inputs of the golden: dL/dpix, final_T, n_contrib."""
+    return [t(d[k]).to(device) for k in ("dl_dcolor", "final_t", "n_contrib")]
+
+
+N_GAUSS = 300   # P of the seeded entry -> Gaussian map below
+
+
+def golden_ids(d):
+    """A seeded entry -> Gaussian map over the golden's list, ids in [0, P]:
+    every 7th entry carries the dead id P."""
+    ids = np.random.default_rng(11).integers(0, N_GAUSS, d["splats"].shape[0]).astype(np.int32)
+    ids[::7] = N_GAUSS
+    return ids
+
+
+def per_gaussian_golden(d, ids):
+    """np.add.at of the JAX golden's per-entry grads, the dead id's row dropped."""
+    out = np.zeros((N_GAUSS + 1, d["entry_grads"].shape[1]), np.float64)
+    np.add.at(out, ids, d["entry_grads"].astype(np.float64))
+    return out[:N_GAUSS]
 
 
 # --------------------------------------------------------------------- (a)
@@ -72,6 +99,17 @@ class TestPlainAgainstPallas:
         for i in range(blend.N_ATTR):
             assert rel_max(n(grads)[:, i], ref[:, i]) < GRAD_RTOL, i
 
+    def test_backward_per_gaussian(self, golden):
+        """K2's plain version (per-entry grads, then the per-Gaussian sum)
+        against np.add.at of the Pallas per-entry grads: 1e-6 of the max."""
+        args, kw = golden_args(golden)
+        ids = golden_ids(golden)
+        grads = blend.blend_backward(*args, *pixel_args(golden), t(ids), n_gauss=N_GAUSS, **kw)
+        ref = per_gaussian_golden(golden, ids)
+        assert grads.shape == (N_GAUSS, blend.N_ATTR)
+        assert np.abs(ref).max() > 0 and (ids == N_GAUSS).any()
+        assert rel_max(n(grads), ref) <= PER_GAUSS_RTOL
+
 
 class TestDispatch:
     def test_cpu_tensors_take_the_plain_version(self):
@@ -82,9 +120,11 @@ class TestDispatch:
         ref = blend.blend_forward_plain(*args, **kw)
         for a, b in zip(out, ref):
             assert torch.equal(a, b)
-        g = blend.blend_backward(*args, t(d["dl_dcolor"]), out[1], out[2], **kw)
-        assert torch.equal(g, blend.blend_backward_plain(*args, t(d["dl_dcolor"]), out[1],
-                                                         out[2], **kw))
+        ids = t(golden_ids(d))
+        g = blend.blend_backward(*args, t(d["dl_dcolor"]), out[1], out[2], ids,
+                                 n_gauss=N_GAUSS, **kw)
+        per_entry = blend.blend_backward_plain(*args, t(d["dl_dcolor"]), out[1], out[2], **kw)
+        assert torch.equal(g, blend.sum_per_gaussian(per_entry, ids, N_GAUSS))
         assert blend.LAUNCHES == before   # the plain version is not a launch
 
     @pytest.mark.parametrize("bad", ["dtype", "width", "tiles", "tile_shape", "strided"])
@@ -104,17 +144,48 @@ class TestDispatch:
         with pytest.raises(ValueError):
             blend.blend_forward(sp, st, ln, **kw)
 
+    @pytest.mark.parametrize("bad", ["ids_dtype", "ids_length", "n_gauss", "n_contrib_dtype"])
+    def test_backward_rejects_what_the_kernel_does_not_take(self, bad):
+        d = load_golden("blend", "file")
+        args, kw = golden_args(d)
+        pix = pixel_args(d)
+        ids = t(golden_ids(d))
+        kw = dict(kw, n_gauss=N_GAUSS)
+        if bad == "ids_dtype":
+            ids = ids.long()
+        elif bad == "ids_length":
+            ids = ids[:-1]
+        elif bad == "n_gauss":
+            kw["n_gauss"] = -1
+        else:
+            pix[2] = pix[2].long()
+        with pytest.raises(ValueError):
+            blend.blend_backward(*args, *pix, ids, **kw)
+
+    def test_longest_first_orders_every_tile_once(self, rng):
+        lens = torch.as_tensor(rng.integers(0, 6, 40), dtype=torch.int32)
+        order = blend.longest_first(lens)
+        assert order.dtype == torch.int32
+        assert sorted(order.tolist()) == list(range(40))       # every tile exactly once
+        got = lens[order.long()].tolist()
+        assert got == sorted(lens.tolist(), reverse=True)      # longest first
+        for a, b in zip(order.tolist(), order.tolist()[1:]):   # ties keep tile order
+            if lens[a] == lens[b]:
+                assert a < b
+
 
 # --------------------------------------------------------------------- (b), (c)
 
 W, H = 256, 64
-J_INTR = jcam.Intrinsics(width=W, height=H, fx=80.0, fy=80.0, cx=128.0, cy=32.0)
 T_INTR = tcam.Intrinsics(width=W, height=H, fx=80.0, fy=80.0, cx=128.0, cy=32.0)
 
 
 def cams():
+    from gaussian_lic_tpu import camera as jcam
+
+    j_intr = jcam.Intrinsics(width=W, height=H, fx=80.0, fy=80.0, cx=128.0, cy=32.0)
     R_wc, t_wc = jcam.look_at(np.zeros(3), np.array([0.0, 0.0, 1.0]))
-    return jcam.make_camera(J_INTR, R_wc, t_wc), tcam.make_camera(T_INTR, R_wc, t_wc)
+    return jcam.make_camera(j_intr, R_wc, t_wc), tcam.make_camera(T_INTR, R_wc, t_wc)
 
 
 def random_scene(rng, m, opa_range=(0.2, 0.9)):
@@ -130,6 +201,10 @@ def random_scene(rng, m, opa_range=(0.2, 0.9)):
 
 
 def render_both(scene, **kw):
+    import jax.numpy as jnp
+
+    from gaussian_lic_tpu.ops.rasterize_ref import render_dense
+
     jc, tc = cams()
     xyz, scale, quat, opacity, dc, shr = scene
     dense = render_dense(*(jnp.asarray(a) for a in (xyz, scale, quat, opacity)), jc,
@@ -175,6 +250,11 @@ class TestRenderAgainstDense:
 
 class TestGradientsAgainstDense:
     def test_grad_parity_with_dense_ad(self, rng):
+        import jax
+        import jax.numpy as jnp
+
+        from gaussian_lic_tpu.ops.rasterize_ref import render_dense
+
         xyz, scale, quat, opacity, dc, shr = random_scene(rng, 60, opa_range=(0.2, 0.8))
         params = dict(xyz=xyz, log_scale=np.log(scale), quat=quat,
                       opa_logit=np.log(opacity / (1 - opacity)), dc=dc, sh_rest=shr)
@@ -198,6 +278,54 @@ class TestGradientsAgainstDense:
             assert rel_max(n(g_tiled[k]), n(g_dense[k])) < GRAD_RTOL, k
 
 
+class TestBlendVjpAgainstJax:
+    """The port's `_Blend` VJP (K2 then the per-Gaussian sum) against the JAX
+    package's `rasterize._make_blend` VJP (Pallas K2, then its carry-sort
+    reduction) on the blend golden's rows: d_rows (P, 16) within 1e-4 of each
+    column's max. With the committed golden, JAX's two Pallas calls are
+    replaced by their recorded interpret-mode outputs, so its own reduction
+    runs on them; `live` runs them in interpret mode (minutes)."""
+
+    @pytest.mark.parametrize("source", GOLDEN_SOURCES)
+    def test_d_rows(self, source, monkeypatch):
+        import jax
+        import jax.numpy as jnp
+
+        from gaussian_lic_tpu.ops import blend_pallas as jbp
+        from gaussian_lic_tpu.ops import rasterize as jr
+        from gaussian_lic_tpu_torch.ops import rasterize as tr
+        from gaussian_lic_tpu_torch.ops import tiles as ttiles
+
+        d = load_golden("blend", "file")
+        tool = golden_tool()
+        rows, b, grid, _ = tool.blend_rows()
+        sw = dict(n_tx=grid.n_tx, n_ty=grid.n_ty, tile_h=32, tile_w=32)
+        dl_t = jbp.swizzle_tiles(jnp.asarray(d["dl_dcolor"]), **sw)
+        if source == "file":
+            recorded = tuple(jbp.swizzle_tiles(jnp.asarray(d[k]), **sw)
+                             for k in ("color", "final_t", "n_contrib"))
+            entry = jnp.zeros((jbp.SPLAT_ROWS, d["splats"].shape[0]), jnp.float32)
+            entry = entry.at[:blend.N_ATTR].set(jnp.asarray(d["entry_grads"]).T)
+            monkeypatch.setattr(jr, "blend_forward", lambda *a, **k: recorded)
+            monkeypatch.setattr(jr, "blend_backward", lambda *a, **k: entry)
+        jblend = jr._make_blend(grid.n_tx, grid.n_ty, 32, 32, tool.BLEND_BUDGET, 16,
+                                interpret=True)
+        _, pull = jax.vjp(lambda r: jblend(r, b.sorted_gauss, b.tile_starts, b.tile_lens,
+                                           b.cnt)[0], rows)
+        want = n(pull(dl_t)[0])
+
+        rows_t = t(rows).requires_grad_()
+        tgrid = ttiles.TileGrid(width=64, height=64, tile_w=32, tile_h=32)
+        color, _, _ = tr._Blend.apply(rows_t, t(b.sorted_gauss), t(b.tile_starts),
+                                      t(b.tile_lens), tgrid)
+        got = n(torch.autograd.grad(color, rows_t, t(d["dl_dcolor"]))[0])
+        assert got.shape == want.shape == (rows.shape[0], blend.SPLAT_ROWS)
+        assert np.abs(want).max() > 0
+        for i in range(blend.N_ATTR):
+            assert rel_max(got[:, i], want[:, i]) < GRAD_RTOL, i
+        assert not got[:, blend.N_ATTR:].any()
+
+
 # --------------------------------------------------------------------- (d)
 
 @pytest.mark.requires_cuda
@@ -219,11 +347,44 @@ class TestKernelsOnTheCard:
         assert blend.LAUNCHES["forward_no_color"] == before["forward_no_color"] + 1
 
     def test_backward_kernel(self, cuda_device):
+        """K2 (per-Gaussian sums with atomics) against its plain version on
+        the card and against the golden."""
         d = load_golden("blend", "file")
         args, kw = golden_args(d, cuda_device)
-        pix = [t(d[k]).to(cuda_device) for k in ("dl_dcolor", "final_t", "n_contrib")]
-        g = blend.blend_backward(*args, *pix, **kw)
-        ref = blend.blend_backward_plain(*args, *pix, **kw)
+        pix = pixel_args(d, cuda_device)
+        ids = t(golden_ids(d)).to(cuda_device)
+        before = blend.LAUNCHES["backward"]
+        g = blend.blend_backward(*args, *pix, ids, n_gauss=N_GAUSS, **kw)
+        ref = blend.sum_per_gaussian(blend.blend_backward_plain(*args, *pix, **kw), ids,
+                                     N_GAUSS)
         torch.cuda.synchronize()
-        assert rel_max(n(g), n(ref)) < GRAD_RTOL
-        assert rel_max(n(g), d["entry_grads"]) < GRAD_RTOL
+        assert blend.LAUNCHES["backward"] == before + 1
+        for i in range(blend.N_ATTR):
+            assert rel_max(n(g)[:, i], n(ref)[:, i]) < GRAD_RTOL, i
+        assert rel_max(n(g), per_gaussian_golden(d, golden_ids(d))) < GRAD_RTOL
+
+    def test_backward_kernel_many_batches(self, cuda_device):
+        """Tiles of 1000, 999 and 517 entries that every pixel applies (wide,
+        faint splats): 8, 8 and 5 staged batches with odd last ones, so the
+        double buffer's barriers go through many phases."""
+        d = load_golden("blend", "file")
+        (sp, _, _), kw = golden_args(d, cuda_device)
+        parts = [sp[:1000].clone(), sp[:999].clone(), sp[:517].clone()]
+        parts[1][:, 0] += 32.0
+        parts[2][:, 1] += 32.0
+        for q in parts:
+            q[:, 2:6] = torch.tensor([0.002, 0.0, 0.002, 0.02], device=cuda_device)
+        sp = torch.cat(parts).contiguous()
+        starts = torch.tensor([0, 1000, 1999, 2516], dtype=torch.int32, device=cuda_device)
+        lens = torch.tensor([1000, 999, 517, 0], dtype=torch.int32, device=cuda_device)
+        ids = np.random.default_rng(12).integers(0, N_GAUSS + 1, sp.shape[0]).astype(np.int32)
+        ids = t(ids).to(cuda_device)
+        dl = pixel_args(d, cuda_device)[0]
+        _, ft, nc = blend.blend_forward(sp, starts, lens, **kw)
+        g = blend.blend_backward(sp, starts, lens, dl, ft, nc, ids, n_gauss=N_GAUSS, **kw)
+        ref = blend.sum_per_gaussian(blend.blend_backward_plain(sp, starts, lens, dl, ft, nc,
+                                                                **kw), ids, N_GAUSS)
+        torch.cuda.synchronize()
+        assert int(nc.max()) == 1000
+        for i in range(blend.N_ATTR):
+            assert rel_max(n(g)[:, i], n(ref)[:, i]) < GRAD_RTOL, i

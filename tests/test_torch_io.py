@@ -121,7 +121,7 @@ class TestCheckpoint:
         jopt = {"xyz": JAdam(jnp.asarray(a["xyz"]) * 2, jnp.asarray(a["xyz"]) ** 2)}
         path = str(tmp_path / "jax.npz")
         jckpt.save_checkpoint(path, jm, jopt, extra={"kf_count": 3})
-        gm, opt, extra = tckpt.load_checkpoint(path)
+        gm, opt, extra = tckpt.load_checkpoint(path, device="cpu")
         assert (gm.sh_degree, gm.skybox_count, int(extra["kf_count"])) == (3, 5, 3)
         assert gm.count.dtype == torch.int32
         for f in MAP_FIELDS:
@@ -152,16 +152,30 @@ class TestCheckpoint:
         d["format_version"] = np.asarray(2)
         np.savez(path, **d)
         with pytest.raises(ValueError):
-            tckpt.load_checkpoint(path)
+            tckpt.load_checkpoint(path, device="cpu")
 
     def test_map_only_round_trip(self, tmp_path, rng):
         gm, _ = port_state(rng)
         path = str(tmp_path / "c.npz")
         tckpt.save_checkpoint(path, gm)
-        back, opt, extra = tckpt.load_checkpoint(path)
+        back, opt, extra = tckpt.load_checkpoint(path, device="cpu")
         assert opt is None and extra == {}
         for f in MAP_FIELDS:
             assert torch.equal(getattr(back, f), getattr(gm, f)), f
+
+
+    def test_defaults_to_the_card(self, tmp_path, rng, monkeypatch):
+        """Without CUDA the default device raises and names device="cpu";
+        with device="cpu" every tensor loads on the CPU."""
+        gm, opt = port_state(rng)
+        path = str(tmp_path / "c.npz")
+        tckpt.save_checkpoint(path, gm, opt)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            tckpt.load_checkpoint(path)
+        back, opt_back, _ = tckpt.load_checkpoint(path, device="cpu")
+        assert back.xyz.device.type == "cpu"
+        assert all(v.exp_avg.device.type == "cpu" for v in opt_back.values())
 
 
 class TestPng:

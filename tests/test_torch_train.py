@@ -174,7 +174,7 @@ class TestEngine:
     def test_three_keyframes(self, engine_golden):
         d = engine_golden
         _, cfg = small_rig()
-        eng = MappingEngine(cfg)
+        eng = MappingEngine(cfg, device="cpu")
         eng.rng = golden_tool()._RecordingRng(eng.rng)   # the same recorder as the goldens'
         counts, losses = [], []
         for fr in frames_from(d):
@@ -192,6 +192,17 @@ class TestEngine:
         """finalize and measure_phase_split on an engine that has seen no
         keyframe return empty results, as the JAX engine's do."""
         _, cfg = small_rig()
-        eng = MappingEngine(cfg)
+        eng = MappingEngine(cfg, device="cpu")
         assert eng.finalize() == {}
         assert eng.measure_phase_split() == {}
+
+    def test_defaults_to_the_card(self, monkeypatch):
+        """Without CUDA the default device raises and names device="cpu";
+        with device="cpu" the engine runs on the CPU."""
+        _, cfg = small_rig()
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            MappingEngine(cfg)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            MappingEngine(cfg, device="cuda:0")
+        assert MappingEngine(cfg, device="cpu").device == torch.device("cpu")

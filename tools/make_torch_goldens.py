@@ -92,17 +92,20 @@ def blend_scene(rng: np.random.Generator, n: int = 128):
     return xyz, scale, quat, opacity, dc, sh_rest
 
 
-def make_blend() -> dict:
+BLEND_BUDGET = 1 << 12   # max_total_splats of the blend case
+
+
+def blend_rows():
+    """The blend case's packed per-Gaussian rows (P, 16) and binning, from
+    the JAX package (no Pallas): the primal and the integer arguments of
+    `rasterize._make_blend` at 64x64, and the rng after the scene's draws."""
     _jax_cpu()
     import jax.numpy as jnp
 
     from gaussian_lic_tpu.camera import Intrinsics, look_at, make_camera
     from gaussian_lic_tpu.ops import sh as sh_ops
     from gaussian_lic_tpu.ops import tiles as tiles_ops
-    from gaussian_lic_tpu.ops.blend_pallas import (
-        CHUNK, SPLAT_ROWS, SUB, blend_backward, blend_forward, swizzle_tiles,
-        unswizzle_tiles,
-    )
+    from gaussian_lic_tpu.ops.blend_pallas import CHUNK
     from gaussian_lic_tpu.ops.projection import OPACITY_THRESHOLD, project_gaussians
     from gaussian_lic_tpu.ops.rasterize import _pack_rows
 
@@ -120,9 +123,20 @@ def make_blend() -> dict:
     rgb = sh_ops.eval_sh_color(3, dc, sh_rest, xyz - cam.cam_center)
     b = tiles_ops.bin_gaussians(
         proj.xy, proj.depth, proj.conic, opacity, radius, active, grid,
-        max_tiles_per_gaussian=16, max_total_splats=1 << 12, align=CHUNK,
+        max_tiles_per_gaussian=16, max_total_splats=BLEND_BUDGET, align=CHUNK,
     )
-    rows = _pack_rows(proj.xy, proj.conic, opacity, rgb)
+    return _pack_rows(proj.xy, proj.conic, opacity, rgb), b, grid, rng
+
+
+def make_blend() -> dict:
+    _jax_cpu()
+    import jax.numpy as jnp
+
+    from gaussian_lic_tpu.ops.blend_pallas import (
+        SPLAT_ROWS, SUB, blend_backward, blend_forward, swizzle_tiles, unswizzle_tiles,
+    )
+
+    rows, b, grid, rng = blend_rows()
     splat_rows = jnp.take(rows, b.sorted_gauss, axis=0, mode="fill", fill_value=0.0)
     m_pad = splat_rows.shape[0]
     splats = splat_rows.reshape(m_pad // SUB, SUB * SPLAT_ROWS)

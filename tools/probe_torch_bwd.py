@@ -1,4 +1,4 @@
-"""Backward blend kernel (K2) by cost centre: the K4 probes on the card.
+"""Backward blend kernel (K2 in its first design) by cost centre: the K4 probes on the card.
 
 The PyTorch/CUDA counterpart of tools/probe_bwd.py. Each variant of
 `ops.blend_probe.probe_backward` replaces K2's batch pipeline or its
@@ -8,9 +8,10 @@ fastlivo preset, camera 0, dL/dpix ~ N(0, 0.1) from default_rng(0)) it prints
 K2's own time, then per variant the kernel time from CUDA events, the max
 deviation from base (absolute and relative to base's max) and the mean
 number of entries walked per tile. `fused` writes per-Gaussian grads, so it
-is compared with, and timed beside, base + the index_add_ that
-ops/rasterize.py runs after K2. The first line is the card's name and power
-limit. Needs a CUDA device; imports no JAX.
+is compared with, and timed beside, base + the index_add_ that followed
+the first K2. Today's K2 (csrc/blend_backward.cu) writes per-Gaussian sums
+too, so its time is the one to set beside those two. The first line is the
+card's name and power limit. Needs a CUDA device; imports no JAX.
 
 Usage: python tools/probe_torch_bwd.py [--iters 10] [--variants base,dbuf2,...]
 """
@@ -46,8 +47,9 @@ def run(sc: dict, iters: int = 10, variants=None, log=print) -> dict:
         out = per_entry.new_zeros((sc["n_gauss"] + 1, blend.N_ATTR))
         return out.index_add_(0, sc["sorted_gauss"].long(), per_entry)
 
-    log(f"prod K2 blend_backward: "
-        f"{cuda_ms(lambda: blend.blend_backward(*bargs, **kw), iters, warmup=2):9.4f} ms")
+    k2 = lambda: blend.blend_backward(*bargs, sc["sorted_gauss"], n_gauss=sc["n_gauss"], **kw)
+    log(f"prod K2 blend_backward (per-Gaussian sums in the kernel): "
+        f"{cuda_ms(k2, iters, warmup=2):9.4f} ms")
     base = bp.probe_backward("base", *bargs, **kw)
     res = {}
     for v in variants or bp.BACKWARD_VARIANTS:
