@@ -15,12 +15,16 @@ exit code is not 0:
      with both times (CUDA events), on two inputs: a seeded ~20k-Gaussian
      scene (short tile lists) and the arguments of phase 4's first train step
      at 1M Gaussians (tile lists of thousands of entries, so K1 walks many
-     staged batches and its early exit). K2 returns per-Gaussian sums and is
-     held per column against the plain per-entry version + index_add_; at
-     each input it is timed in turns beside the first design (K4 base +
-     index_add_). Every
-     kernel's bound (bound_ms) comes from the (entry, pixel) pairs the train
-     step's inputs need (blend_pairs), the card's SM count and max clock;
+     staged batches and its early exit). K1 must match bit for bit outside
+     termination ties; the share of (entry, warp block) pairs its cull keeps
+     is read from its plain emulation (warp_cull_keep), and at each input K1
+     is timed in turns beside its first design (K3 base). K2 returns
+     per-Gaussian sums and is held per column against the plain per-entry
+     version + index_add_; at each input it is timed in turns beside the
+     first design (K4 base + index_add_). Every kernel's bounds come from the
+     (entry, pixel) pairs of the train step's inputs (blend_pairs), the
+     card's SM count and max clock: bound_ms on the pairs the result needs,
+     walk_bound_ms on every pair a plain walk tests;
   2b. the blend probes K3/K4 (ops/blend_probe.py): every variant on phase
      2's two inputs, held against K1's outputs and K2's plain per-entry
      output of phase 2 where it keeps their numerics (dbuf2 also against
@@ -75,7 +79,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "config", "fastlivo.yaml")
 
 PSNR_FLOOR = 17.0          # phase 3 train PSNR floor: first H100 run 18.86 dB
-IMG_ATOL = 1e-5            # K1 image and final_T vs plain
+IMG_ATOL = 1e-5            # K3 variants' image and final_T vs their plain versions
+K1_ATOL = 0.0              # K1 vs plain: bit for bit (the same float operations in order)
 GRAD_RTOL = 1e-4           # K2 per-Gaussian grads vs plain, relative to each column's max
 SMALL_LOSS_RTOL = 1e-4     # phase 3 small stream: card vs CPU per-keyframe loss
 APP_PSNR_FLOOR = 17.0      # phase 5 train PSNR floor: first H100 run 18.73 dB
@@ -89,14 +94,17 @@ BWD_RTOL_VS_PLAIN = {"base": GRAD_RTOL, "dbuf2": GRAD_RTOL, "smematomic": GRAD_R
 DBUF2_RTOL_VS_BASE = 1e-6  # dbuf2 keeps K4 base's arithmetic and order
 FWD_K1_NUMERICS = ("base", "batch512", "direct")   # K3 variants held to K1 bit for bit
 
-# Bounds (bound_ms): the least time the card could take for a kernel's work on
-# this run's inputs, the larger of its bytes over the memory rate and of its
+# Bounds: the least time the card could take for a kernel's work on this
+# run's inputs, the larger of its bytes over the memory rate and of its
 # operations over the rate of their pipe. Operations per (entry, pixel) pair,
 # counted from the kernels' source (blend_common.cuh, blend_*.cu): FP32
 # instructions (an FMA is one; the accurate expf is 6 and one MUFU ex2, the
 # IEEE 1/x 4 and one MUFU rcp), as (per pair tested, extra per pair applied).
-# A pixel tests the entries up to the one where it stops (forward) or up to
-# its last applied one (backward); see blend_pairs.
+# bound_ms counts the pairs the result needs: those a pixel applies and,
+# going forward, the one it stops at (a kernel that skips every other pair
+# cannot beat it). walk_bound_ms counts every pair a plain walk tests: up to
+# the entry where the pixel stops (forward) or up to its last applied one
+# (backward); see blend_pairs.
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory rate
 FP32_LANES_PER_SM = 128    # FP32 lanes per SM and clock (67 TFLOP/s at 1,980 MHz, FMA = 2)
 MUFU_LANES_PER_SM = 16     # special-function lanes per SM and clock
@@ -128,14 +136,16 @@ def blend_pairs(splats, starts, lens, grid, exp=None) -> dict:
     """(entry, pixel) pairs of a blend on these inputs, from the plain
     version's arithmetic: `forward`, per pixel the entries up to the one at
     which it stops (its whole range if it never stops); `applied`, the pairs
-    it blends; `backward`, per pixel the entries up to its last applied one
-    (n_contrib); `all`, every entry of every range at every pixel of its tile."""
+    it blends; `stopped`, the pixels that stop (at a pair that contributes
+    but is not applied); `backward`, per pixel the entries up to its last
+    applied one (n_contrib); `all`, every entry of every range at every
+    pixel of its tile."""
     import torch
 
     from gaussian_lic_tpu_torch.ops import blend
 
     kw = {} if exp is None else dict(exp=exp)
-    out = dict(forward=0, applied=0, backward=0,
+    out = dict(forward=0, applied=0, stopped=0, backward=0,
                all=int(lens.long().sum()) * blend.TILE_PIX)
     for tiles, L in blend._tile_chunks(lens):
         e, _, _ = blend._gather_entries(splats, starts, lens, tiles, L)
@@ -152,21 +162,34 @@ def blend_pairs(splats, starts, lens, grid, exp=None) -> dict:
         pos = torch.arange(1, L + 1, device=splats.device)[None, :, None]
         out["forward"] += int(tested.long().sum())
         out["applied"] += int(applied.sum())
+        out["stopped"] += int(stops.sum())
         out["backward"] += int(torch.where(applied, pos, 0).amax(1).long().sum())
     return out
 
 
-def bound_ms(rates, nbytes, pairs, cost, direction) -> tuple:
-    """(bound ms, "bytes" or "operations") of a kernel that moves `nbytes`
-    and does PAIR_FP32/PAIR_MUFU[cost] on `pairs` (blend_pairs), testing its
-    `direction`'s pairs ("all" for a kernel that tests every pair)."""
-    tested, applied = pairs[direction], pairs["applied"] if direction != "all" else 0
+def bound_ms(rates, nbytes, tested, applied, cost) -> tuple:
+    """(bound ms, "bytes" or "operations") of a kernel that moves `nbytes`,
+    tests `tested` pairs and applies `applied` of them, at
+    PAIR_FP32/PAIR_MUFU[cost] a pair."""
     ops = {k: c[0] * tested + c[1] * applied
            for k, c in (("fp32", PAIR_FP32[cost]), ("mufu", PAIR_MUFU[cost]))}
     t_ops = max(ops["fp32"] / (rates["sms"] * FP32_LANES_PER_SM * rates["hz"]),
                 ops["mufu"] / (rates["sms"] * MUFU_LANES_PER_SM * rates["hz"]))
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def bounds(rates, nbytes, pairs, cost, direction) -> dict:
+    """bound_ms and bound_by on the pairs the result needs, and
+    walk_bound_ms on the pairs a plain walk tests, of a kernel that moves
+    `nbytes` and does PAIR_FP32/PAIR_MUFU[cost] on `pairs` (blend_pairs) in
+    `direction` ("all" for a kernel whose result sums every pair)."""
+    applied = pairs["applied"] if direction != "all" else 0
+    needed = {"forward": pairs["applied"] + pairs["stopped"], "backward": pairs["applied"],
+              "all": pairs["all"]}[direction]
+    b_ms, b_by = bound_ms(rates, nbytes, needed, applied, cost)
+    return dict(bound_ms=b_ms, bound_by=b_by,
+                walk_bound_ms=bound_ms(rates, nbytes, pairs[direction], applied, cost)[0])
 
 
 def blend_bytes(sc, output: str) -> int:
@@ -343,8 +366,13 @@ def compare_kernels(sc: dict, tag: str) -> dict:
     log(f"[2] {tag} K1 color: max|d image| {err_img:.3e}  max|d final_T| {err_ft:.3e}  "
         f"n_contrib mismatches {int(nc_bad.sum())} (tie pixels {int(ties.sum())}, "
         f"excluded from the image check)")
-    if not (err_img <= IMG_ATOL and err_ft <= IMG_ATOL):
-        raise AssertionError(f"{tag}: K1 disagrees with its plain version beyond {IMG_ATOL}")
+    if not (err_img <= K1_ATOL and err_ft <= K1_ATOL):
+        raise AssertionError(f"{tag}: K1 disagrees with its plain version beyond {K1_ATOL}")
+    keep = blend.warp_cull_keep(*args, **kw)
+    kept = float(keep.sum()) / (int(sc["lens"].long().sum()) * keep.shape[2])
+    del keep
+    log(f"[2] {tag} K1 cull: kept share of (entry, warp block) pairs {kept:.6f} "
+        f"(warp_cull_keep, {blend.K1_BLOCK_W}-wide blocks)")
 
     nk = blend.blend_forward(*args, no_color=True, **kw)
     np_ = blend.blend_forward_plain(*args, no_color=True, **kw)
@@ -352,9 +380,9 @@ def compare_kernels(sc: dict, tag: str) -> dict:
     if float(nk[0].abs().max()) != 0.0 or int(nk[2].abs().max()) != 0:
         raise AssertionError(f"{tag}: K1 no_color wrote color or n_contrib")
     log(f"[2] {tag} K1 no_color: max|d final_T| {err_nc:.3e}")
-    if not err_nc <= IMG_ATOL:
+    if not err_nc <= K1_ATOL:
         raise AssertionError(f"{tag}: K1 no_color disagrees with its plain version beyond "
-                             f"{IMG_ATOL}")
+                             f"{K1_ATOL}")
 
     bargs = args + (sc["dl"], out_p[1], out_p[2])
     sg, P = sc["sorted_gauss"], sc["n_gauss"]
@@ -392,12 +420,19 @@ def compare_kernels(sc: dict, tag: str) -> dict:
     }
     for k, (_, tk, tp) in res.items():
         log(f"[2] {tag} time {k}: kernel {tk:.4f} ms  plain {tp:.4f} ms")
+    # the new K1 beside its first design, in turns
+    k1_first = lambda: bp.probe_forward("base", *args, **kw)   # noqa: E731
+    k1_vs = [cuda_ms(f, 20) for f in (k1_first, lambda: blend.blend_forward(*args, **kw),
+                                      lambda: blend.blend_forward(*args, **kw), k1_first)]
+    log(f"[2] {tag} K1 vs the first design (K3 base), in turns old new new old: "
+        + " ".join(f"{v:.4f}" for v in k1_vs) + " ms")
     # the new K2 beside the first design, in turns
     k2_vs = [cuda_ms(f, 20) for f in (first_design, lambda: blend.blend_backward(*bargs, sg, **gkw),
                                       lambda: blend.blend_backward(*bargs, sg, **gkw), first_design)]
     log(f"[2] {tag} K2 vs the first design (K4 base + index_add_), in turns old new new old: "
         + " ".join(f"{v:.4f}" for v in k2_vs) + " ms")
     sc.update(k1=out_k, ties=ties, k2_plain=gp_entry, k2_in=bargs[3:], times=res,
+              k1_first_ms=(k1_vs[0] + k1_vs[3]) / 2, k1_kept=kept,
               k2_first_ms=(k2_vs[0] + k2_vs[3]) / 2,
               entry_plain_ms=cuda_ms(lambda: blend.blend_backward_plain(*bargs, **kw), 3))
     return res
@@ -423,13 +458,14 @@ def phase_kernels(dev, state: dict, rates: dict, n: int = 20000):
             ("blend_backward", "blend_backward.cu", "578", "backward", "backward", "gauss")]
     out = []
     for name, cu, line, key, direction, output in rows:
-        b_ms, b_by = bound_ms(rates, blend_bytes(step_sc, output), step_sc["pairs"]["base"],
-                              key, direction)
+        b = bounds(rates, blend_bytes(step_sc, output), step_sc["pairs"]["base"], key, direction)
         out.append(dict(name=name, route="cuda", source=src + cu, replaces=pallas + line,
                         counter=key, max_abs_err=max(light[key][0], step[key][0]),
-                        ms=step[key][1], plain_ms=step[key][2], bound_ms=b_ms,
-                        bound_by=b_by, library_ms=None))
-        log(f"[2] {name}: {step[key][1]:.4f} ms against a bound of {b_ms:.4f} ms ({b_by})")
+                        ms=step[key][1], plain_ms=step[key][2], **b, library_ms=None))
+        log(f"[2] {name}: {step[key][1]:.4f} ms against a bound of {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}; walk bound {b['walk_bound_ms']:.4f} ms)")
+    log(f"[2] K1 at the train step: {step['forward'][1]:.4f} ms; the first design (K3 base) "
+        f"{step_sc['k1_first_ms']:.4f} ms in the same run; kept share {step_sc['k1_kept']:.6f}")
     log(f"[2] K2 at the train step: {step['backward'][1]:.4f} ms; the first design (K4 base + "
         f"index_add_) {step_sc['k2_first_ms']:.4f} ms in the same run")
     return out, (light_sc, step_sc)
@@ -589,13 +625,12 @@ def phase_probes(state: dict, scenes, iters: int = 3) -> list:
             key = (d, v)
             which, cost, tested = work.get(key, ("base", d, d))
             output = "image" if d == "forward" else ("gauss" if v == "fused" else "entry")
-            b_ms, b_by = bound_ms(state["rates"], blend_bytes(step_sc, output), pairs[which],
-                                  cost, tested)
+            b = bounds(state["rates"], blend_bytes(step_sc, output), pairs[which], cost,
+                       tested)
             rows.append(dict(name=f"probe_{d}_{v}", route="cuda", source=src + cu,
                              replaces=replaces, launches=launches[f"{d}_{v}"],
                              max_abs_err=max(light[key][0], step[key][0]),
-                             ms=step[key][1], plain_ms=step[key][2], bound_ms=b_ms,
-                             bound_by=b_by, library_ms=None))
+                             ms=step[key][1], plain_ms=step[key][2], **b, library_ms=None))
     return rows
 
 

@@ -67,36 +67,6 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSmemBytes = 2 * kBufBytes + kBandWarps * kBatchB * kGrads * 4;
 static_assert(kSmemBytes <= 48 * 1024, "K2's shared memory needs the opt-in attribute");
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// Start copying `bytes` (a multiple of 16, both ends 16-byte aligned) from
-// global `src` to shared `dst`; completion is reported to `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
 // One level of the reduce-scatter: q[0..V) -> q[0..H), H = ceil(V/2). The
 // lane whose `upper` bit is set keeps the upper half, its partner (lane ^ OFF)
 // the lower one; each sends the other half across. The upper half of an odd V

@@ -11,6 +11,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace glic {
 
 constexpr int kThreads = 256;          // threads per block (one block per tile)
@@ -54,6 +56,38 @@ __device__ __forceinline__ Splat load_splat(const float* __restrict__ rows, long
   s.g = p[7];
   s.b = p[8];
   return s;
+}
+
+// 1-D bulk copies (cp.async.bulk) into shared memory, completed on an
+// mbarrier: K1 and K2 stage their batches of gathered rows with these.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Start copying `bytes` (a multiple of 16, both ends 16-byte aligned) from
+// global `src` to shared `dst`; completion is reported to `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
 }
 
 }  // namespace glic

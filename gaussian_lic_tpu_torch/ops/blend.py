@@ -26,12 +26,21 @@ Dispatch: a CPU tensor goes to the plain PyTorch version (`*_plain`; for the
 backward, the per-entry `blend_backward_plain` then `sum_per_gaussian`); a
 CUDA tensor launches the hand-written CUDA kernel (csrc/blend_forward.cu,
 csrc/blend_backward.cu, which sums per Gaussian with atomics) or raises.
-Each launch adds one to `LAUNCHES`.
+Each launch adds one to `LAUNCHES`. Both kernels bulk-copy whole rows, so
+on the card `splats` must be 16-byte aligned.
+
+K1 skips an entry in a warp's 8x16 pixel block when the entry's footprint
+box misses the block (`cull_boxes`): the box holds every pixel at which the
+per-pixel arithmetic above could apply the entry, so a skipped pair is one
+the test would reject, and K1's outputs are those of the plain version, which
+tests every pair. `warp_cull_keep` is the plain emulation of that rule, for
+the tests and chip_smoke.py; the main path never calls it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import torch
@@ -45,6 +54,16 @@ N_ATTR = 9                # of which used: x, y, A, B, C, opa, r, g, b
 ROW_X, ROW_Y, ROW_A, ROW_B, ROW_C, ROW_OPA, ROW_R, ROW_G, ROW_B2 = range(N_ATTR)
 TILE_PIX = 1024           # pixels per tile; the kernels spread them over 256 threads
 GAUSS_TABLE_STRIDE = 12   # floats per row of K2's per-Gaussian table (three float4s)
+WARP_PIX = 128            # pixels of one warp's block in K1 (32 threads x 4)
+K1_BLOCK_W = 8            # K1's warp blocks are 8x16 pixels (csrc/blend_forward.cu)
+
+# K1's cull box (csrc/blend_forward.cu, cull_box): the bounding box of
+# q(d) <= (ln(255 opa) + CULL_POWER_ABS) / (1 - CULL_POWER_REL kappa), kappa =
+# (A + C)^2 / det, widened by CULL_BOX_REL of its half-widths + CULL_BOX_ABS px.
+CULL_POWER_REL = 1e-6     # above the 6 roundings' 3.6e-7 of the float power, per kappa q
+CULL_POWER_ABS = 2e-6     # above expf's 2 ulp + the product's half ulp (3e-7)
+CULL_BOX_REL = 1e-3
+CULL_BOX_ABS = 0.01
 
 # Launch counts of the CUDA kernels (plain-version calls are not counted).
 LAUNCHES = {"forward": 0, "forward_no_color": 0, "backward": 0}
@@ -80,6 +99,11 @@ def _check_common(splats, tile_starts, tile_lens, n_tx, n_ty, tile_h, tile_w):
     n_tiles = n_tx * n_ty
     _check("tile_starts", tile_starts, (n_tiles,), torch.int32, splats.device)
     _check("tile_lens", tile_lens, (n_tiles,), torch.int32, splats.device)
+
+
+def _check_aligned(splats, kernel):
+    if splats.data_ptr() % 16:
+        raise ValueError(f"{kernel} bulk-copies whole rows: splats must be 16-byte aligned")
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -127,6 +151,7 @@ def blend_forward(
         return blend_forward_plain(splats, tile_starts, tile_lens, n_tx=n_tx,
                                    n_ty=n_ty, tile_h=tile_h, tile_w=tile_w,
                                    no_color=no_color)
+    _check_aligned(splats, "K1")
     from gaussian_lic_tpu_torch import _build
 
     lib = _build.load()
@@ -181,8 +206,7 @@ def blend_backward(
                                          final_t, n_contrib, n_tx=n_tx, n_ty=n_ty,
                                          tile_h=tile_h, tile_w=tile_w)
         return sum_per_gaussian(per_entry, sorted_gauss, n_gauss)
-    if splats.data_ptr() % 16:
-        raise ValueError("K2 bulk-copies whole rows: splats must be 16-byte aligned")
+    _check_aligned(splats, "K2")
     from gaussian_lic_tpu_torch import _build
 
     lib = _build.load()
@@ -300,7 +324,8 @@ def blend_forward_plain(
     termination is emulated with cumulative products and a 'dead after the
     first trigger' mask; the cumulative product runs along a non-innermost
     dimension, which PyTorch scans sequentially, so T matches the kernel's
-    running product. `t_eps` exists for the tie check of the kernel test.
+    running product. Every entry is tested at every pixel of its tile.
+    `t_eps` exists for the tie check of the kernel test.
 
     The probes' hooks (ops/blend_probe.py): `exp` replaces torch.exp, and a
     (T,) int32 `walked` receives the entries each tile's walk visits in a
@@ -338,6 +363,81 @@ def blend_forward_plain(
         _to_image(final_t_t, n_tx, n_ty, tile_h, tile_w),
         _to_image(ncontrib_t, n_tx, n_ty, tile_h, tile_w),
     )
+
+
+def _round_out(v: torch.Tensor, down: bool) -> torch.Tensor:
+    """float64 -> the nearest float32 at or below (`down`) or above `v`."""
+    f = v.float()
+    past = f.double() > v if down else f.double() < v
+    step = torch.full_like(f, -math.inf if down else math.inf)
+    return torch.where(past, torch.nextafter(f, step), f)
+
+
+def cull_boxes(splats: torch.Tensor) -> torch.Tensor:
+    """(M, 4) float32 (x_lo, x_hi, y_lo, y_hi) per gathered row: K1's
+    cull_box. Outside the box no pixel centre can apply the entry: the box of
+    the alpha >= 1/255 ellipse q(d) <= ln(255 opa), widened by the float
+    error of the per-pixel test (CULL_* above). Every pixel when a used
+    attribute is not finite, the conic is not positive definite or kappa is
+    too large for the bound; no pixel when 255 opa < 1 (with a margin)."""
+    x, y, A, B, C, opa = (splats[:, i].double() for i in range(6))
+    inf = math.inf
+    finite = torch.isfinite(splats[:, :6]).all(1)
+    none = opa * 255.0 * (1.0 + 1e-6) < 1.0
+    det = A * C - B * B
+    shrink = 1.0 - CULL_POWER_REL * (A + C) * (A + C) / det
+    t = torch.clamp_min(torch.log(255.0 * opa) + CULL_POWER_ABS, 0.0) / shrink
+    s = 2.0 * t / det
+    wx = torch.sqrt(s * C) * (1.0 + CULL_BOX_REL) + CULL_BOX_ABS
+    wy = torch.sqrt(s * A) * (1.0 + CULL_BOX_REL) + CULL_BOX_ABS
+    box = torch.stack([_round_out(x - wx, True), _round_out(x + wx, False),
+                       _round_out(y - wy, True), _round_out(y + wy, False)], 1)
+    every = splats.new_tensor([-inf, inf, -inf, inf])
+    empty = splats.new_tensor([inf, -inf, inf, -inf])
+    bounded = (det > 0) & (A > 0) & (shrink >= 0.5)
+    box = torch.where(bounded[:, None], box, every)
+    box = torch.where(none[:, None], empty, box)
+    return torch.where(finite[:, None], box, every)
+
+
+def _pixel_blocks(tile_w, device) -> torch.Tensor:
+    """(1024,) K1's warp block (numbered row-major in the tile) of each flat
+    pixel."""
+    flat = torch.arange(TILE_PIX, device=device)
+    block_h = WARP_PIX // K1_BLOCK_W
+    row = torch.div(flat, tile_w, rounding_mode="floor")
+    return (torch.div(row, block_h, rounding_mode="floor") * (tile_w // K1_BLOCK_W)
+            + torch.div(flat % tile_w, K1_BLOCK_W, rounding_mode="floor"))
+
+
+def warp_cull_keep(
+    splats, tile_starts, tile_lens, *, n_tx, n_ty, tile_h=32, tile_w=32,
+) -> torch.Tensor:
+    """Plain emulation of K1's cull: (T, L, 1024 / WARP_PIX) bool, L the
+    longest range, True where the warp owning that block of the tile walks
+    the tile's l-th entry (its cull box meets the block); False where K1
+    skips the pair, and past the tile's range."""
+    block_w, block_h = K1_BLOCK_W, WARP_PIX // K1_BLOCK_W
+    if tile_w % block_w or tile_h % block_h:
+        raise ValueError(f"{tile_h}x{tile_w} tiles do not split into K1's warp blocks")
+    dev = splats.device
+    n_tiles = n_tx * n_ty
+    L = max(int(tile_lens.max()) if n_tiles else 0, 1)
+    ar = torch.arange(L, device=dev)
+    valid = ar[None, :] < tile_lens.long()[:, None]
+    idx = torch.where(valid, tile_starts.long()[:, None] + ar[None, :], 0)
+    box = cull_boxes(splats)[idx]                                    # (T, L, 4)
+    tiles = torch.arange(n_tiles, device=dev)
+    blocks = torch.arange(TILE_PIX // WARP_PIX, device=dev)
+    per_row = tile_w // block_w
+    x0 = ((tiles % n_tx) * tile_w)[:, None] + (blocks % per_row)[None, :] * block_w
+    y0 = (torch.div(tiles, n_tx, rounding_mode="floor") * tile_h)[:, None] \
+        + torch.div(blocks, per_row, rounding_mode="floor")[None, :] * block_h
+    x0, y0 = x0.float()[:, None, :], y0.float()[:, None, :]          # (T, 1, blocks)
+    x1, y1 = x0 + (block_w - 1), y0 + (block_h - 1)
+    meets = ((box[..., 1:2] >= x0) & (box[..., 0:1] <= x1)
+             & (box[..., 3:4] >= y0) & (box[..., 2:3] <= y1))
+    return meets & valid[..., None]
 
 
 def blend_backward_plain(

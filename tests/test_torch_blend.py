@@ -13,7 +13,13 @@
 (c) Gradients of all six parameter groups through render_tiled against JAX
     AD of the dense oracle, <= 1e-4 relative (test_rasterize_tiled.py:199-233),
     and the blend's own VJP against JAX's `_make_blend` VJP, 1e-4 relative.
-(d) The CUDA kernels against their plain versions, on the card only.
+(d) K1's cull (`blend.warp_cull_keep`, the plain emulation of the footprint
+    test K1 runs per entry and 8x16 warp block): on the golden and on rows at
+    the edges of the rule, no pair the plain arithmetic applies lies in a
+    skipped block, so the plain forward with the skipped pairs left untested
+    is the plain forward bit for bit.
+(e) The CUDA kernels against their plain versions, on the card only: K1 bit
+    for bit on the golden, the edge rows and tiles of many staged batches.
 
 JAX is imported inside the tests that use it, so the card tests collect on a
 machine without it (GLIC_TEST_TPU=1 keeps tests/conftest.py from importing it).
@@ -328,11 +334,143 @@ class TestBlendVjpAgainstJax:
 
 # --------------------------------------------------------------------- (d)
 
+def contrib_outside_keep(splats, starts, lens, kw):
+    """(warp_cull_keep's mask, the count of (entry, pixel) pairs the plain
+    arithmetic applies that lie in a block the mask skips)."""
+    keep = blend.warp_cull_keep(splats, starts, lens, **kw)
+    blocks = blend._pixel_blocks(kw["tile_w"], splats.device)
+    bad = 0
+    for tiles, L in blend._tile_chunks(lens):
+        e, _, valid = blend._gather_entries(splats, starts, lens, tiles, L)
+        px, py = blend._pixel_coords(tiles, kw["n_tx"], kw["tile_h"], kw["tile_w"])
+        contrib = blend._alpha(e, px, py)[5] & valid[..., None]
+        bad += int((contrib & ~keep[tiles, :L][:, :, blocks]).sum())
+    return keep, bad
+
+
+THR = np.float32(1.0 / 255.0)
+
+
+def _row(x, y, A, B, C, opa):
+    return [x, y, A, B, C, opa, 0.2, 0.5, 0.8] + [0.0] * (blend.SPLAT_ROWS - blend.N_ATTR)
+
+
+def block_of(x, y):
+    """K1's warp block (row-major in the tile) that holds pixel (x, y) of tile 0."""
+    return int(blend._pixel_blocks(32, "cpu")[y * 32 + x])
+
+
+def _at_threshold_rows():
+    """A = C = 0.5, opa 0.5: the alpha = 1/255 circle has radius
+    2 sqrt(ln 127.5) ~ 4.4; centres put pixel (15, 5) within a few 1e-6 of
+    it on either side, the centre itself ~(19.4, 5), in another block."""
+    r = 2.0 * np.sqrt(np.log(255.0 * np.float64(np.float32(0.5))))
+    return [_row(15.0 + r * (1.0 + k * 1e-6), 5.0, 0.5, 0.0, 0.5, 0.5) for k in range(-20, 21)]
+
+
+# rows at the edges of the cull rule, each listed in every tile of a 64x64 image
+EDGE_CASES = {
+    "opacity_above": [_row(10.0, 5.0, 0.5, 0.0, 0.5, THR * np.float32(1.00001))],
+    "opacity_at": [_row(10.0, 5.0, 0.5, 0.0, 0.5, THR)],
+    "opacity_below": [_row(10.0, 5.0, 0.5, 0.0, 0.5, np.nextafter(THR, np.float32(0)))],
+    "opacity_far_below": [_row(10.0, 5.0, 0.5, 0.0, 0.5, THR * np.float32(0.99999))],
+    "power_at_threshold": _at_threshold_rows(),
+    "det_zero": [_row(20.0, 20.0, 1.0, 1.0, 1.0, 0.8)],
+    "det_negative": [_row(20.0, 20.0, 1.0, 2.0, 1.0, 0.8)],
+    "a_negative": [_row(20.0, 20.0, -1.0, 0.0, -1.0, 0.8)],
+    "nonfinite_conic": [_row(20.0, 20.0, np.nan, 0.0, 1.0, 0.8),
+                        _row(20.0, 20.0, np.inf, 0.0, 1.0, 0.8),
+                        _row(20.0, 20.0, 1.0, np.inf, 1.0, 0.8),
+                        _row(20.0, 20.0, 1.0, 0.0, -np.inf, 0.8)],
+    "centre_on_block_edge": [_row(16.0, 16.0, 4.0, 0.0, 4.0, 0.9),
+                             _row(15.5, 15.5, 4.0, 0.0, 4.0, 0.9),
+                             _row(16.0, 16.0, 0.02, 0.01, 0.03, 0.9)],
+}
+NEVER_CULLED = ("det_zero", "det_negative", "a_negative", "nonfinite_conic")
+
+
+def edge_scene(rows, device="cpu"):
+    """`rows` listed in each of the 4 tiles of a 64x64 image."""
+    sp = torch.tensor(np.asarray(rows, np.float32), device=device)
+    m = sp.shape[0]
+    starts = torch.zeros(4, dtype=torch.int32, device=device)
+    lens = torch.full((4,), m, dtype=torch.int32, device=device)
+    return (sp, starts, lens), dict(n_tx=2, n_ty=2, tile_h=32, tile_w=32)
+
+
+class TestWarpCull:
+    def test_no_applied_pair_is_skipped(self, golden):
+        """No pair that the plain arithmetic applies lies in a skipped block,
+        so the forward that leaves the skipped pairs untested is the plain
+        forward bit for bit, and that matches the Pallas golden (above)."""
+        args, kw = golden_args(golden)
+        keep, bad = contrib_outside_keep(*args, kw)
+        assert bad == 0
+
+    def test_kept_share_is_strictly_between_0_and_1(self, golden):
+        args, kw = golden_args(golden)
+        keep = blend.warp_cull_keep(*args, **kw)
+        share = float(keep.sum()) / (int(args[2].sum()) * keep.shape[2])
+        assert 0.0 < share < 1.0
+
+    @pytest.mark.parametrize("case", sorted(EDGE_CASES))
+    def test_edge_rows(self, case):
+        args, kw = edge_scene(EDGE_CASES[case])
+        keep, bad = contrib_outside_keep(*args, kw)
+        assert bad == 0
+        contrib = blend._alpha(args[0][None, :, :blend.N_ATTR],
+                               *blend._pixel_coords(torch.arange(4), 2, 32, 32))[5]
+        if case in NEVER_CULLED:
+            assert bool(keep.all())
+        elif case == "opacity_far_below":
+            assert not bool(keep.any())
+        elif case in ("opacity_above", "opacity_at"):   # the centre pixel applies it
+            assert bool(contrib[0, 0, 5 * 32 + 10]) and bool(keep[0, 0, block_of(10, 5)])
+        elif case == "opacity_below":
+            assert not bool(contrib.any())
+        elif case == "power_at_threshold":   # pixel (15, 5) on both sides of the circle
+            at = contrib[0, :, 5 * 32 + 15]
+            assert bool(at.any()) and not bool(at.all())
+            assert block_of(15, 5) != block_of(19, 5)
+            assert bool(keep[0, :, block_of(15, 5)].all())
+        else:   # the four blocks that meet at (16, 16); the small splats reach no other
+            corner = sorted({block_of(x, y) for x in (15, 16) for y in (15, 16)})
+            others = [b for b in range(keep.shape[2]) if b not in corner]
+            assert len(corner) == 4
+            assert bool(keep[0, :, corner].all()) and not bool(keep[0, :2, others].any())
+
+    def test_cull_boxes_of_the_edge_rows(self):
+        boxes = blend.cull_boxes(torch.tensor(np.asarray(
+            [r for c in NEVER_CULLED for r in EDGE_CASES[c]], np.float32)))
+        assert bool((boxes == torch.tensor([-np.inf, np.inf, -np.inf, np.inf])).all())
+        far = blend.cull_boxes(torch.tensor(EDGE_CASES["opacity_far_below"], dtype=torch.float32))
+        assert bool((far[:, 0] > far[:, 1]).all()) and bool((far[:, 2] > far[:, 3]).all())
+
+
+# --------------------------------------------------------------------- (e)
+
+def many_batch_tiles(d, device):
+    """Tiles of 1000, 999 and 517 entries that every pixel applies (wide,
+    faint splats) and an empty one: 8, 8 and 5 staged batches with odd last
+    ones, so the double buffer's barriers go through many phases."""
+    (sp, _, _), kw = golden_args(d, device)
+    parts = [sp[:1000].clone(), sp[:999].clone(), sp[:517].clone()]
+    parts[1][:, 0] += 32.0
+    parts[2][:, 1] += 32.0
+    for q in parts:
+        q[:, 2:6] = torch.tensor([0.002, 0.0, 0.002, 0.02], device=device)
+    sp = torch.cat(parts).contiguous()
+    starts = torch.tensor([0, 1000, 1999, 2516], dtype=torch.int32, device=device)
+    lens = torch.tensor([1000, 999, 517, 0], dtype=torch.int32, device=device)
+    return (sp, starts, lens), kw
+
+
 @pytest.mark.requires_cuda
 class TestKernelsOnTheCard:
     """K1/K2 on the card against their plain versions on the same card."""
 
     def test_forward_kernels(self, cuda_device):
+        """K1 bit for bit against its plain version on the golden."""
         d = load_golden("blend", "file")
         args, kw = golden_args(d, cuda_device)
         before = dict(blend.LAUNCHES)
@@ -340,11 +478,39 @@ class TestKernelsOnTheCard:
             out = blend.blend_forward(*args, no_color=no_color, **kw)
             ref = blend.blend_forward_plain(*args, no_color=no_color, **kw)
             torch.cuda.synchronize()
-            np.testing.assert_allclose(n(out[0]), n(ref[0]), atol=IMG_ATOL, rtol=0)
-            np.testing.assert_allclose(n(out[1]), n(ref[1]), atol=IMG_ATOL, rtol=0)
-            np.testing.assert_array_equal(n(out[2]), n(ref[2]))
+            for a, b in zip(out, ref):
+                np.testing.assert_array_equal(n(a), n(b))
         assert blend.LAUNCHES["forward"] == before["forward"] + 1
         assert blend.LAUNCHES["forward_no_color"] == before["forward_no_color"] + 1
+
+    @pytest.mark.parametrize("scene", ["edges", "many_batches"])
+    def test_forward_kernel_bit_for_bit(self, scene, cuda_device):
+        """K1 against its plain version, every output bit for bit: the rows
+        at the edges of the cull rule, and tiles of 1000, 999 and 517
+        always-applied entries."""
+        if scene == "edges":
+            args, kw = edge_scene([r for rows in EDGE_CASES.values() for r in rows], cuda_device)
+        else:
+            args, kw = many_batch_tiles(load_golden("blend", "file"), cuda_device)
+        for no_color in (False, True):
+            out = blend.blend_forward(*args, no_color=no_color, **kw)
+            ref = blend.blend_forward_plain(*args, no_color=no_color, **kw)
+            torch.cuda.synchronize()
+            for a, b in zip(out, ref):
+                np.testing.assert_array_equal(n(a), n(b))
+        if scene == "many_batches":
+            assert int(out[2].max()) == 0 and int(ref[2].max()) == 0   # no_color
+            assert int(blend.blend_forward(*args, **kw)[2].max()) == 1000
+
+    def test_rejects_unaligned_splats(self, cuda_device):
+        d = load_golden("blend", "file")
+        (sp, st, ln), kw = golden_args(d, cuda_device)
+        flat = torch.empty(sp.numel() + 1, dtype=torch.float32, device=cuda_device)
+        odd = flat[1:].view(sp.shape)
+        odd.copy_(sp)
+        assert odd.is_contiguous() and odd.data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            blend.blend_forward(odd, st, ln, **kw)
 
     def test_backward_kernel(self, cuda_device):
         """K2 (per-Gaussian sums with atomics) against its plain version on
@@ -364,19 +530,10 @@ class TestKernelsOnTheCard:
         assert rel_max(n(g), per_gaussian_golden(d, golden_ids(d))) < GRAD_RTOL
 
     def test_backward_kernel_many_batches(self, cuda_device):
-        """Tiles of 1000, 999 and 517 entries that every pixel applies (wide,
-        faint splats): 8, 8 and 5 staged batches with odd last ones, so the
-        double buffer's barriers go through many phases."""
+        """K2 on many_batch_tiles: the double buffer's barriers go through
+        many phases."""
         d = load_golden("blend", "file")
-        (sp, _, _), kw = golden_args(d, cuda_device)
-        parts = [sp[:1000].clone(), sp[:999].clone(), sp[:517].clone()]
-        parts[1][:, 0] += 32.0
-        parts[2][:, 1] += 32.0
-        for q in parts:
-            q[:, 2:6] = torch.tensor([0.002, 0.0, 0.002, 0.02], device=cuda_device)
-        sp = torch.cat(parts).contiguous()
-        starts = torch.tensor([0, 1000, 1999, 2516], dtype=torch.int32, device=cuda_device)
-        lens = torch.tensor([1000, 999, 517, 0], dtype=torch.int32, device=cuda_device)
+        (sp, starts, lens), kw = many_batch_tiles(d, cuda_device)
         ids = np.random.default_rng(12).integers(0, N_GAUSS + 1, sp.shape[0]).astype(np.int32)
         ids = t(ids).to(cuda_device)
         dl = pixel_args(d, cuda_device)[0]
