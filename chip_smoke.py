@@ -52,7 +52,22 @@ exit code is not 0:
      left out), the 40 PNG pairs, and that the checkpoint loads back equal
      to the engine that wrote it; then a 64x64 application with a 256-point
      skybox runs through `run.main` on the card and on the CPU, and their
-     finalize metrics and PLY vertex counts must agree.
+     finalize metrics and PLY vertex counts must agree;
+  6. the multi-GPU path (gaussian_lic_tpu_torch/parallel/) on one card:
+     (a) K1 (bit for bit) and K2 on the 20k scene binned in the band
+     geometry's fallback tiles, 16x64 and 8x128, and on the blend golden's
+     list with a NaN-opacity row in front of each tile, against their plain
+     versions; (b) on phase 4's 1M state, `render_band` for every band of
+     D = 2, 4 and 8 (band binning), stitched and held against the full
+     render, K1 launched D times; (c) on a one-rank NCCL process group, the
+     sharded train step against `train_step` for 2 steps (loss, gradients
+     and params by tests/test_parallel.py's rule), then 20 timed steps of
+     each in turns (ms/step, peak memory); (d) MappingEngine on that group
+     over phase 3's stream, the launch counters zeroed just before and read
+     just after, train PSNR within 0.1 dB of phase 3's; (e) `run.main
+     --mesh-devices 1` on phase 5's 64x64 application, metrics within
+     1e-4 of phase 5's card run. One card cannot run two NCCL ranks: the
+     exchange between ranks is tested on the CPU (tests/test_torch_parallel.py).
 
 It never falls back to the CPU for the card's work: without a CUDA device it
 exits with an error before printing any result. The last line is
@@ -267,8 +282,9 @@ def timed(fn):
 # phase 2: kernels vs plain
 # ---------------------------------------------------------------------------
 
-def kernel_scene(dev, n: int = 20000, seed: int = 1) -> dict:
-    """Seeded 640x512 scene of `n` Gaussians, with a random seeded dL/dpix."""
+def kernel_scene(dev, n: int = 20000, seed: int = 1, tile=None) -> dict:
+    """Seeded 640x512 scene of `n` Gaussians, with a random seeded dL/dpix,
+    binned into the config's tiles or into `tile` (tile_h, tile_w)."""
     import torch
 
     from gaussian_lic_tpu_torch.camera import Intrinsics, look_at, make_camera
@@ -289,8 +305,9 @@ def kernel_scene(dev, n: int = 20000, seed: int = 1) -> dict:
     sh_rest = torch.as_tensor(rng.normal(size=(n, 15, 3)) * 0.05, **f32)
     R_wc, t_wc = look_at(np.zeros(3), np.array([0.0, 0.0, 1.0]), up=(0.0, -1.0, 0.0))
     cam = make_camera(intr, R_wc, t_wc, device=dev)
+    tile_h, tile_w = tile or (cfg.tile_h, cfg.tile_w)
     sc = splat_args(xyz, scale, quat, opacity, cam, dc=dc, sh_rest=sh_rest, sh_degree=3,
-                    tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+                    tile_h=tile_h, tile_w=tile_w,
                     max_tiles_per_gaussian=cfg.max_tiles_per_gaussian, max_total_splats=4 * n)
     g = sc["grid"]
     sc["dl"] = torch.as_tensor(rng.normal(size=(3, g.padded_height, g.padded_width)) * 1e-3,
@@ -372,7 +389,7 @@ def compare_kernels(sc: dict, tag: str) -> dict:
     kept = float(keep.sum()) / (int(sc["lens"].long().sum()) * keep.shape[2])
     del keep
     log(f"[2] {tag} K1 cull: kept share of (entry, warp block) pairs {kept:.6f} "
-        f"(warp_cull_keep, {blend.K1_BLOCK_W}-wide blocks)")
+        f"(warp_cull_keep, {'x'.join(map(str, blend.k1_block(g.tile_h, g.tile_w)))} blocks)")
 
     nk = blend.blend_forward(*args, no_color=True, **kw)
     np_ = blend.blend_forward_plain(*args, no_color=True, **kw)
@@ -638,10 +655,10 @@ def phase_probes(state: dict, scenes, iters: int = 3) -> list:
 # phase 3: the slice
 # ---------------------------------------------------------------------------
 
-def run_engine(cfg, frames, dev, verbose: bool):
+def run_engine(cfg, frames, dev, verbose: bool, mesh=None):
     from gaussian_lic_tpu_torch.engine.trainer import MappingEngine
 
-    eng = MappingEngine(cfg, device=dev)
+    eng = MappingEngine(cfg, device=dev, mesh=mesh)
     rows = []
     for i, f in enumerate(frames):
         t0 = time.perf_counter()
@@ -656,14 +673,31 @@ def run_engine(cfg, frames, dev, verbose: bool):
     return eng, rows
 
 
-def phase_slice(dev, kernels: list, n_points: int = 50000, n_frames: int = 40,
-                points_per_frame: int = 5000) -> dict:
+def engine_train_psnr(eng) -> float:
+    """Mean PSNR of the engine's map over its keyframes (phase 3's quality)."""
     import torch
 
+    from gaussian_lic_tpu_torch.ops import losses
+    from gaussian_lic_tpu_torch.ops.rasterize import _splat_budget_for, render_map
+
+    cfg = eng.cfg
+    psnrs = []
+    with torch.no_grad():
+        for i in range(eng.kf_count):
+            out = render_map(eng.gm, eng.train_camera(i), tile_h=cfg.tile_h,
+                             tile_w=cfg.tile_w,
+                             max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
+                             max_total_splats=_splat_budget_for(eng.gm.capacity, cfg))
+            gt = eng.kf_buffer.images[i].float() / 255.0
+            psnrs.append(float(losses.psnr(out.image.clamp(0.0, 1.0), gt)))
+    return float(np.mean(psnrs))
+
+
+def phase_slice(dev, kernels: list, n_points: int = 50000, n_frames: int = 40,
+                points_per_frame: int = 5000) -> dict:
     from gaussian_lic_tpu_torch.camera import Intrinsics
     from gaussian_lic_tpu_torch.config import Params, load_params
-    from gaussian_lic_tpu_torch.ops import blend, losses
-    from gaussian_lic_tpu_torch.ops.rasterize import _splat_budget_for, render_map
+    from gaussian_lic_tpu_torch.ops import blend
     from gaussian_lic_tpu_torch.utils.synthetic import make_sequence, make_world
 
     cfg = load_params(CONFIG, skybox_points_num=0)
@@ -691,16 +725,7 @@ def phase_slice(dev, kernels: list, n_points: int = 50000, n_frames: int = 40,
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} never launched on the main path")
 
-    psnrs = []
-    with torch.no_grad():
-        for i in range(eng.kf_count):
-            out = render_map(eng.gm, eng.train_camera(i), tile_h=cfg.tile_h,
-                             tile_w=cfg.tile_w,
-                             max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
-                             max_total_splats=_splat_budget_for(eng.gm.capacity, eng.cfg))
-            gt = eng.kf_buffer.images[i].float() / 255.0
-            psnrs.append(float(losses.psnr(out.image.clamp(0.0, 1.0), gt)))
-    train_psnr = float(np.mean(psnrs))
+    train_psnr = engine_train_psnr(eng)
     log(f"[3] train PSNR over {eng.kf_count} keyframes: {train_psnr:.4f} dB "
         f"(floor {PSNR_FLOOR}); gaussians {int(eng.gm.count)}; "
         f"steps {sum(min(cfg.max_iters_per_keyframe, k) for k in range(1, eng.kf_count + 1))}")
@@ -723,7 +748,8 @@ def phase_slice(dev, kernels: list, n_points: int = 50000, n_frames: int = 40,
         f"max per-keyframe loss rel diff {rel:.3e}")
     if counts[0] != counts[1] or not rel <= SMALL_LOSS_RTOL:
         raise AssertionError("engine on the card disagrees with the engine on the CPU")
-    return dict(train_psnr=train_psnr, keyframes=rows, launches=launches, frames=frames)
+    return dict(train_psnr=train_psnr, keyframes=rows, launches=launches, frames=frames,
+                cfg=cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -967,7 +993,290 @@ def phase_app(dev, card: str, frames, tmp: str, config: str = CONFIG) -> dict:
         raise AssertionError("the application on the card disagrees with the one on the CPU")
     return dict(results=res, keyframe_seconds=rec["keyframe_seconds"],
                 finalize_seconds=rec["finalize_seconds"], checkpoint_seconds=ckpt_s,
-                phase_split=rec["phase_split"])
+                phase_split=rec["phase_split"], small=dict(config=cfg, stream=os.path.join(
+                    small, "stream"), results=a["results"], ply=a["ply"]))
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the multi-GPU path (parallel/) on one card
+# ---------------------------------------------------------------------------
+
+SHARD_TILES = ((16, 64), (8, 128))   # the band geometry's fallback tiles
+BAND_MESHES = (2, 4, 8)
+BAND_ATOL = 1e-5           # stitched bands vs the full render (tests/test_parallel.py)
+ENGINE_PSNR_DB = 0.1       # mesh engine vs phase 3's engine, train PSNR
+STEP_TIMED, STEP_WARM = 20, 3
+
+
+def check_blend_kernels(sc: dict, tag: str) -> dict:
+    """K1 (color, no_color) bit for bit outside termination ties and K2 per
+    column (GRAD_RTOL) against their plain versions on one scene; returns
+    the errors and K1's time."""
+    import torch
+
+    from gaussian_lic_tpu_torch.ops import blend
+    from gaussian_lic_tpu_torch.utils.cuda_timing import cuda_ms
+
+    g = sc["grid"]
+    kw = dict(n_tx=g.n_tx, n_ty=g.n_ty, tile_h=g.tile_h, tile_w=g.tile_w)
+    args = (sc["splats"], sc["starts"], sc["lens"])
+    errs = {}
+    ties = tie_pixels(blend.blend_forward_plain, sc, kw)
+    for no_color in (False, True):
+        out = blend.blend_forward(*args, no_color=no_color, **kw)
+        ref = blend.blend_forward_plain(*args, no_color=no_color, **kw)
+        ok = ~(ties | (out[2] != ref[2]))
+        if bool(((out[2] != ref[2]) & ~ties).any()):
+            raise AssertionError(f"{tag}: K1 n_contrib differs outside termination ties")
+        err = max(float((out[0] - ref[0]).abs().amax(0)[ok].max()),
+                  float((out[1] - ref[1]).abs()[ok].max()))
+        errs["forward_no_color" if no_color else "forward"] = err
+        if not err <= K1_ATOL:
+            raise AssertionError(f"{tag}: K1 (no_color={no_color}) differs from its plain "
+                                 f"version by {err}")
+    _, ft, nc = blend.blend_forward_plain(*args, **kw)
+    P, ids = sc["n_gauss"], sc["sorted_gauss"]
+    gk = blend.blend_backward(*args, sc["dl"], ft, nc, ids, n_gauss=P, **kw)
+    gp = blend.sum_per_gaussian(blend.blend_backward_plain(*args, sc["dl"], ft, nc, **kw), ids, P)
+    torch.cuda.synchronize()
+    rel = max(((gk - gp).abs().amax(0) / gp.abs().amax(0).clamp_min(1e-30)).tolist())
+    errs["backward"] = float((gk - gp).abs().max())
+    if not rel <= GRAD_RTOL:
+        raise AssertionError(f"{tag}: K2 differs from its plain version by {rel} relative")
+    k1_ms = cuda_ms(lambda: blend.blend_forward(*args, **kw), 20)
+    log(f"[6a] {tag}: K1 max|d| {errs['forward']:.3e} (no_color {errs['forward_no_color']:.3e}), "
+        f"{int(ties.sum())} tie pixels; K2 max|d grad| {errs['backward']:.3e} "
+        f"(relative to the column max {rel:.3e}); K1 {k1_ms:.4f} ms, "
+        f"warp blocks {'x'.join(map(str, blend.k1_block(g.tile_h, g.tile_w)))}")
+    return errs
+
+
+def check_nan_row(dev) -> None:
+    """The blend golden's list with a NaN-opacity row in front of each tile:
+    K1 is its plain version bit for bit; K2 agrees on every other Gaussian
+    and gives the NaN rows' Gaussians no gradient."""
+    import torch
+
+    from gaussian_lic_tpu_torch.ops import blend
+    from gaussian_lic_tpu_torch.utils.synthetic import nan_opacity_list
+
+    with np.load(os.path.join(REPO, "tests", "torch_goldens", "blend.npz")) as z:
+        d = dict(z)
+    sp, st, ln, nan_at = nan_opacity_list(d["splats"], d["tile_starts"], d["tile_lens"])
+    args = tuple(torch.as_tensor(a, device=dev) for a in (sp, st, ln))
+    kw = dict(n_tx=2, n_ty=2, tile_h=32, tile_w=32)
+    for no_color in (False, True):
+        out = blend.blend_forward(*args, no_color=no_color, **kw)
+        ref = blend.blend_forward_plain(*args, no_color=no_color, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+            raise AssertionError(f"K1 (no_color={no_color}) applies a NaN-opacity row")
+    n_gauss = 300
+    ids = np.random.default_rng(13).integers(0, n_gauss - 4, sp.shape[0]).astype(np.int32)
+    ids[nan_at] = np.arange(n_gauss - 4, n_gauss)
+    ids = torch.as_tensor(ids, device=dev)
+    _, ft, nc = blend.blend_forward_plain(*args, **kw)
+    dl = torch.as_tensor(d["dl_dcolor"], device=dev)
+    gk = blend.blend_backward(*args, dl, ft, nc, ids, n_gauss=n_gauss, **kw)
+    gp = blend.sum_per_gaussian(blend.blend_backward_plain(*args, dl, ft, nc, **kw), ids, n_gauss)
+    rest = slice(0, n_gauss - 4)
+    rel = max(((gk[rest] - gp[rest]).abs().amax(0)
+               / gp[rest].abs().amax(0).clamp_min(1e-30)).tolist())
+    nan_rows = gk[n_gauss - 4:]
+    log(f"[6a] NaN-opacity rows: K1 bit for bit (color, no_color); K2 on the other "
+        f"Gaussians {rel:.3e} relative, on the NaN rows' Gaussians max|grad| "
+        f"{float(nan_rows.abs().max()):.3e}")
+    if not (rel <= GRAD_RTOL and bool((nan_rows == 0).all())):
+        raise AssertionError("K2 does not skip the NaN-opacity rows as its plain version does")
+
+
+def check_bands(state: dict) -> None:
+    """render_band for every band of D = 2, 4 and 8 on one card (band
+    binning), stitched and held against the full render of the same state;
+    K1 must launch D times per D."""
+    import torch
+
+    from gaussian_lic_tpu_torch.engine.trainer import _render_kw
+    from gaussian_lic_tpu_torch.ops import blend
+    from gaussian_lic_tpu_torch.ops.rasterize import render_map
+    from gaussian_lic_tpu_torch.parallel.sharded import _band_geometry, render_band
+
+    cfg, intr, gm, kf = (state[k] for k in ("cfg", "intr", "gm", "kf"))
+    kw = _render_kw(cfg, gm.capacity)
+    cam = kf.camera(intr, 1)
+    with torch.no_grad():
+        full = render_map(gm, cam, **kw)
+        for D in BAND_MESHES:
+            grid, band_n_ty = _band_geometry(intr, cfg, D)
+            blend.reset_launches()
+            parts = [render_band(
+                gm.xyz, gm.scaling, gm.rotation, gm.opacity, cam, dc=gm.dc,
+                sh_rest=gm.sh_rest, sh_degree=gm.sh_degree, active=gm.active_mask(),
+                band_ty0=b * band_n_ty, band_n_ty=band_n_ty, tile_h=grid.tile_h,
+                tile_w=grid.tile_w, max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
+                max_total_splats=kw["max_total_splats"]) for b in range(D)]
+            torch.cuda.synchronize()
+            launches = blend.LAUNCHES["forward"]
+            img = torch.cat([p[0] for p in parts], 1)[:, :intr.height, :intr.width]
+            ft = torch.cat([p[1] for p in parts], 0)[:intr.height, :intr.width]
+            lost = sum(int(p[3]) for p in parts) + int(full.budget_lost)
+            err = (float((img - full.image).abs().max()), float((ft - full.final_T).abs().max()))
+            log(f"[6b] {D} bands of {band_n_ty} rows of {grid.tile_h}x{grid.tile_w} tiles: "
+                f"max|d image| {err[0]:.3e}, max|d final_T| {err[1]:.3e} against the full "
+                f"render; K1 launches {launches}; budget lost {lost}")
+            if lost or launches != D or not max(err) <= BAND_ATOL:
+                raise AssertionError(f"{D} stitched bands disagree with the full render")
+
+
+def step_results(m, gm) -> dict:
+    return dict(loss=float(m["loss"]), n_visible=int(m["n_visible"]), grads=m["grads"],
+                params=dict(gm.trainable()))
+
+
+def check_steps_match(got: list, want: list, cfg) -> None:
+    """tests/test_parallel.py:122-175's rule: loss within 1e-6, pre-Adam
+    gradients rtol 3e-4 / atol 3e-7, params within 2e-5 on the lanes whose
+    gradient is not float noise (< 3e-6 in both runs), noise lanes 10 lr."""
+    import torch
+
+    from gaussian_lic_tpu_torch.models.gaussians import LearningRates
+
+    lrs = LearningRates.from_params(cfg)._asdict()
+    noise = {}
+    for i, (a, b) in enumerate(zip(got, want)):
+        dl = abs(a["loss"] - b["loss"])
+        worst = {}
+        for k in a["grads"]:
+            ga, gb = a["grads"][k], b["grads"][k]
+            bad = (ga - gb).abs() > 3e-7 + 3e-4 * gb.abs()
+            noise[k] = noise.get(k, torch.zeros_like(bad)) | (torch.maximum(ga.abs(), gb.abs())
+                                                              < 3e-6)
+            dp = (a["params"][k] - b["params"][k]).abs()
+            worst[k] = (int(bad.sum()), float(torch.where(noise[k], 0.0, dp).max()),
+                        float(torch.where(noise[k], dp, 0.0).max()))
+            if worst[k][0] or worst[k][1] > 2e-5 or worst[k][2] > 10 * lrs[k]:
+                raise AssertionError(f"step {i} {k}: {worst[k]} (grad mismatches, clean-lane "
+                                     "param gap, noise-lane param gap)")
+        log(f"[6c] step {i}: loss {a['loss']:.7f} vs {b['loss']:.7f} (|d| {dl:.2e}); visible "
+            f"{a['n_visible']} vs {b['n_visible']}; per group (grad mismatches, clean param "
+            f"gap, noise param gap) {worst}")
+        if not (dl < 1e-6 and a["n_visible"] == b["n_visible"]):
+            raise AssertionError(f"step {i}: the sharded step's loss or visible count differs")
+
+
+def check_sharded_step(state: dict, mesh) -> dict:
+    """make_sharded_train_step on the one-rank mesh against train_step on the
+    1M state for 2 steps, then 20 steps of each timed in turns."""
+    import torch
+
+    from gaussian_lic_tpu_torch.engine.trainer import train_step
+    from gaussian_lic_tpu_torch.parallel import make_sharded_train_step, shard_state
+
+    cfg, intr, gm, kf, opt = (state[k] for k in ("cfg", "intr", "gm", "kf", "opt"))
+    dev = gm.device
+    sharded = make_sharded_train_step(intr, cfg, mesh, with_grads=True)
+    single = functools.partial(train_step, intr=intr, cfg=cfg, with_grads=True)
+    runs = {}
+    for name, step in (("single", single), ("sharded", sharded)):
+        g, o = (gm, opt) if name == "single" else shard_state(gm, opt, mesh)
+        out = []
+        for i in range(2):
+            g, o, m = step(g, o, kf, i + 1, i + 1)
+            out.append(step_results(m, g))
+        runs[name] = out
+    check_steps_match(runs["sharded"], runs["single"], cfg)
+    del runs
+
+    timed_step = {"single": functools.partial(train_step, intr=intr, cfg=cfg),
+                  "sharded": make_sharded_train_step(intr, cfg, mesh)}
+    res = {}
+    for name in ("single", "sharded", "sharded", "single"):
+        g, o = (gm, opt) if name == "single" else shard_state(gm, opt, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(STEP_WARM):
+            g, o, m = timed_step[name](g, o, kf, i % 4, i + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(STEP_TIMED):
+            g, o, m = timed_step[name](g, o, kf, i % 4, STEP_WARM + i + 1)
+        torch.cuda.synchronize()
+        loss = float(m["loss"])
+        ms = (time.perf_counter() - t0) / STEP_TIMED * 1e3
+        res.setdefault(name, []).append((ms, torch.cuda.max_memory_allocated(dev), loss))
+        del g, o, m
+    for name, runs_ in res.items():
+        log(f"[6c] {name} step at D = 1 ({state['n']} Gaussians, 640x512): ms/step "
+            + " / ".join(f"{r[0]:.3f}" for r in runs_) + "; peak memory "
+            + " / ".join(f"{r[1] / 2**30:.3f}" for r in runs_) + " GiB; loss "
+            + " / ".join(f"{r[2]:.6f}" for r in runs_))
+    return res
+
+
+def phase_sharded(dev, card: str, slice_res: dict, app_res: dict, tmp: str) -> dict:
+    """The multi-GPU path on one card: (a) K1/K2 at the band geometry's
+    fallback tiles and on NaN-opacity rows; (b) D = 2, 4, 8 bands rendered
+    one by one and stitched; (c) the sharded step on a one-rank NCCL mesh
+    against the single-device step; (d) MappingEngine on that mesh over phase
+    3's stream; (e) `run.main --mesh-devices 1` on phase 5's 64x64 app."""
+    import torch
+    import torch.distributed as dist
+
+    from gaussian_lic_tpu_torch.ops import blend
+    from gaussian_lic_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    for tile in SHARD_TILES:
+        check_blend_kernels(kernel_scene(dev, tile=tile), f"20000-Gaussian scene in "
+                            f"{tile[0]}x{tile[1]} tiles")
+    check_nan_row(dev)
+    log(f"[6a] seconds {time.perf_counter() - t0:.2f}")
+
+    t0 = time.perf_counter()
+    state = bench_state(dev)
+    check_bands(state)
+    log(f"[6b] seconds {time.perf_counter() - t0:.2f}")
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(1, device=dev)
+    log(f"[6c] mesh: {dist.get_backend(mesh.group)} process group of {mesh.size} rank on "
+        f"{mesh.device} ({card})")
+    steps = check_sharded_step(state, mesh)
+    del state
+    gc.collect()
+    log(f"[6c] seconds {time.perf_counter() - t0:.2f}")
+
+    t0 = time.perf_counter()
+    blend.reset_launches()
+    eng, _ = run_engine(slice_res["cfg"], slice_res["frames"], dev, verbose=False, mesh=mesh)
+    launches = dict(blend.LAUNCHES)
+    psnr = engine_train_psnr(eng)
+    log(f"[6d] engine on the mesh over phase 3's stream: train PSNR {psnr:.4f} dB against "
+        f"{slice_res['train_psnr']:.4f} single-device; gaussians {int(eng.gm.count)}; "
+        f"launches {launches} ({time.perf_counter() - t0:.2f} s)")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched on the sharded path: {launches}")
+    if not abs(psnr - slice_res["train_psnr"]) < ENGINE_PSNR_DB:
+        raise AssertionError(f"the mesh engine's train PSNR {psnr} is not within "
+                             f"{ENGINE_PSNR_DB} dB of phase 3's")
+    del eng
+    gc.collect()
+
+    t0 = time.perf_counter()
+    small = app_res["small"]
+    rec = run_app(["--input", small["stream"], "--config", small["config"],
+                   "--lpips-path", "randinit", "--result-path", os.path.join(tmp, "mesh1"),
+                   "--device", str(dev), "--mesh-devices", "1", "--quiet"],
+                  "64x64 application, --mesh-devices 1")
+    if rec["engine"].mesh is None:
+        raise AssertionError("--mesh-devices 1 ran without a mesh")
+    rel = {k: abs(rec["results"][k] - v) / abs(v) for k, v in small["results"].items()
+           if k.split("_")[0] in ("train", "test")}
+    log(f"[6e] --mesh-devices 1 vs phase 5's card run: metric rel diffs {json.dumps(rel)} "
+        f"(tolerance {APP_SMALL_RTOL}; {time.perf_counter() - t0:.2f} s)")
+    if max(rel.values()) > APP_SMALL_RTOL:
+        raise AssertionError("--mesh-devices 1 disagrees with the single-device application")
+    dist.destroy_process_group()
+    return dict(steps=steps, engine_psnr=psnr)
 
 
 def main() -> int:
@@ -1015,7 +1324,7 @@ def main() -> int:
     del scenes
     log(f"[2b] phase seconds {time.perf_counter() - t0:.2f}")
     t0 = time.perf_counter()
-    frames = phase_slice(dev, kernels)["frames"]
+    slice_res = phase_slice(dev, kernels)
     log(f"[3] phase seconds {time.perf_counter() - t0:.2f}")
     t0 = time.perf_counter()
     phase_steps(dev, card, state)
@@ -1024,8 +1333,11 @@ def main() -> int:
     gc.collect()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        phase_app(dev, card, frames, tmp)
-    log(f"[5] phase seconds {time.perf_counter() - t0:.2f}")
+        app_res = phase_app(dev, card, slice_res["frames"], tmp)
+        log(f"[5] phase seconds {time.perf_counter() - t0:.2f}")
+        t0 = time.perf_counter()
+        phase_sharded(dev, card, slice_res, app_res, tmp)
+    log(f"[6] phase seconds {time.perf_counter() - t0:.2f}")
     log(f"total seconds {time.perf_counter() - t_all:.2f}")
 
     for k in kernels:

@@ -2,9 +2,10 @@
 
 The same keys, defaults and presets as the JAX package's `config.py`, so one
 YAML file (config/{fastlivo,r3live,mcd}.yaml) drives both packages.
-`opt_bundle_sizes`, `splat_chunk` and `bucket_overprovision` are accepted for
-YAML parity and unused here: the optimize loop runs step by step, the CUDA
-blend kernels stage their own batches, and multi-GPU binning is not ported yet.
+`opt_bundle_sizes` and `splat_chunk` are accepted for YAML parity and unused
+here: the optimize loop runs step by step and the CUDA blend kernels stage
+their own batches. `bucket_overprovision` sizes the multi-GPU binning's
+buckets (parallel/sharded.py).
 """
 
 from __future__ import annotations
@@ -64,7 +65,12 @@ class Params:
     # Sorted-splat-list budget as a multiple of capacity. The engine grows it
     # x1.5 (capped at max_tiles_per_gaussian) when a step reports budget loss.
     splat_budget_factor: float = 1.7
-    bucket_overprovision: float = 1.5  # accepted for YAML parity; unused
+    # Multi-GPU binning (parallel/sharded.py): the bucket each source rank
+    # sends each band holds m_pair = max(ceil(b m / D) rounded down to 256,
+    # 512) entries, b this value, m = max(M / D, 1024) the band's share of the
+    # splat budget M, D the ranks. Entries past a full bucket count as
+    # budget_lost.
+    bucket_overprovision: float = 1.5
 
     # --- capacity management ---
     initial_capacity: int = 1 << 18     # Gaussian array capacity at startup

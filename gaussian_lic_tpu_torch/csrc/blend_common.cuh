@@ -33,8 +33,12 @@ __device__ __forceinline__ float splat_power(const Splat& s, float dx, float dy)
   return __fadd_rn(__fmul_rn(u, dx), __fmul_rn(__fmul_rn(s.nC, dy), dy));
 }
 
+// min(0.99, opa g) that keeps a NaN, as torch.clamp_max and jnp.minimum do
+// (fminf would return 0.99): contributes() then rejects the entry. The same
+// float as fminf for every other input.
 __device__ __forceinline__ float splat_alpha(const Splat& s, float g) {
-  return fminf(kAlphaCap, __fmul_rn(s.opa, g));
+  const float a = __fmul_rn(s.opa, g);
+  return a > kAlphaCap ? kAlphaCap : a;
 }
 
 __device__ __forceinline__ bool contributes(float alpha, float power) {

@@ -11,7 +11,7 @@
 // pairs at the 1M-Gaussian train step, of which 1.8% apply: the tests and
 // their expf were its time. This design tests only the pairs that can apply:
 //  (a) each warp owns a compact kBlockW x (128 / kBlockW) block of the
-//      32x32 tile, 4 pixels per thread. Once per CUDA block, one thread per
+//      tile, 4 pixels per thread. Once per CUDA block, one thread per
 //      staged entry computes the bounding box of the entry's alpha >= 1/255
 //      ellipse (cull_box), widened so that it holds every pixel at which the
 //      float arithmetic of blend_common.cuh could apply the entry. Each warp
@@ -29,7 +29,9 @@
 // K1's warp blocks are 8x16 pixels, 2 bands a tile, launched in tile order:
 // the fastest of the layouts timed at the 1M-Gaussian train step (16x8 and
 // 32x4 blocks; 1, 2 or 4 bands; tile order or longest first, with the argsort
-// it needs on every call counted; PERF.md).
+// it needs on every call counted; PERF.md). The 8x128 tile, which the
+// multi-GPU band geometry falls back to (parallel/sharded.py), has no room
+// for 16 rows: there the blocks are 16x8, the one instantiation that differs.
 //
 // Plain C interface, loaded with ctypes by gaussian_lic_tpu_torch/_build.py.
 
@@ -43,11 +45,8 @@ namespace glic {
 namespace {
 
 constexpr int kBatch = 128;               // entries staged per round
-constexpr int kBlockW = 8;                // warp blocks of 8x16 pixels
 constexpr int kBands = 2;                 // bands per tile
 constexpr int kWarpPix = 32 * kPixPerThread;
-constexpr int kBlockH = kWarpPix / kBlockW;
-constexpr int kRowStep = 32 / kBlockW;    // rows between a thread's pixels
 constexpr int kBandThreads = kThreads / kBands;
 constexpr int kBandWarps = kBandThreads / 32;
 constexpr unsigned kAllLanes = 0xffffffffu;
@@ -96,6 +95,9 @@ __device__ __forceinline__ float4 cull_box(const float* p) {
                      __double2float_rd(y - wy), __double2float_ru(y + wy));
 }
 
+// kBlockW is the width of a warp's pixel block: 8 (8x16 blocks) for tiles
+// whose height is a multiple of 16, 16 (16x8 blocks) for the 8x128 tile.
+template <int kBlockW>
 __global__ void __launch_bounds__(kBandThreads)
 blend_forward_kernel(const float* __restrict__ rows, long long m_pad,
                      const int* __restrict__ tile_starts,
@@ -103,6 +105,8 @@ blend_forward_kernel(const float* __restrict__ rows, long long m_pad,
                      float* __restrict__ color, float* __restrict__ final_t,
                      int* __restrict__ n_contrib, int n_tx, int tile_w,
                      int tile_h, int width_p, int height_p, int no_color) {
+  constexpr int kBlockH = kWarpPix / kBlockW;
+  constexpr int kRowStep = 32 / kBlockW;  // rows between a thread's pixels
   __shared__ __align__(128) float s_buf[2][kBatch * kRowFloats];
   __shared__ float4 s_box[kBatch];
   __shared__ __align__(8) uint64_t s_bar[2];
@@ -249,13 +253,16 @@ extern "C" int glic_blend_forward(const float* rows, long long m_pad, const int*
                                   int* n_contrib, int n_tx, int n_ty, int tile_w, int tile_h,
                                   int no_color, void* stream) {
   using namespace glic;
-  if (tile_w * tile_h != kTilePix || tile_w % kBlockW != 0 || tile_h % kBlockH != 0)
+  // the tile's shape picks the warp block: 8x16 where tile_h % 16 == 0,
+  // 16x8 for tile_h == 8 (the 8x128 tile of the band geometry)
+  const int block_w = tile_h % 16 == 0 ? 8 : (tile_h == 8 ? 16 : 0);
+  if (tile_w * tile_h != kTilePix || block_w == 0 || tile_w % block_w != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(rows) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
   if (n_tx * n_ty <= 0) return static_cast<int>(cudaSuccess);
-  blend_forward_kernel<<<n_tx * n_ty * kBands, kBandThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = block_w == 8 ? blend_forward_kernel<8> : blend_forward_kernel<16>;
+  kernel<<<n_tx * n_ty * kBands, kBandThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       rows, m_pad, tile_starts, tile_lens, color, final_t, n_contrib, n_tx, tile_w, tile_h,
       n_tx * tile_w, n_ty * tile_h, no_color);
   return static_cast<int>(cudaGetLastError());

@@ -17,10 +17,13 @@ thread, mapping.cpp:124-200, and gaussian.cpp:499-719):
     (gaussian.cpp:640-719), run one step at a time; at the end of the run
     `finalize` (eval on train and held-out views, PLY export) and
     `measure_phase_split` (the forward/backward/optimizer split of a step).
+    With a `mesh` (parallel.sharded) its steps run tile-band-sharded over
+    the ranks.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from dataclasses import dataclass
@@ -218,12 +221,27 @@ def extend_step(
 class MappingEngine:
     """Host-side streaming driver (the mapping thread, mapping.cpp:124-185).
     Every tensor of the run lives on `device`: the card by default (raises
-    without CUDA); `device="cpu"` runs the plain versions of the kernels."""
+    without CUDA); `device="cpu"` runs the plain versions of the kernels.
+
+    With a `mesh` (parallel.make_mesh; every rank makes its own engine and
+    feeds it the same frames) the run lives on the mesh's device and each
+    optimize() runs the sharded step (parallel.make_sharded_train_step) on
+    this rank's shard of the map, then gathers the map back whole. Every
+    rank holds the whole map between keyframes and takes the same host
+    decisions (the same frames, numpy RNG and summed overflow counters), so
+    extend, finalize and checkpoints run as without a mesh; only rank 0
+    writes files and prints."""
 
     def __init__(self, cfg: Params, result_path: Optional[str] = None,
-                 lpips_path: Optional[str] = None, device: Device = DEFAULT_DEVICE):
+                 lpips_path: Optional[str] = None, device: Device = DEFAULT_DEVICE,
+                 mesh=None):
         self.cfg = cfg
-        self.device = resolve_device(device, "MappingEngine")
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device,
+                                                                          "MappingEngine")
+        self.is_main = mesh is None or mesh.rank == 0
+        if not self.is_main:
+            result_path = None   # rank 0 writes the eval dumps and the PLY
         self.intr = Intrinsics(
             width=cfg.width, height=cfg.height,
             fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy,
@@ -382,16 +400,28 @@ class MappingEngine:
 
         visible, budget_lost, truncated = [], [], []
         t0 = time.perf_counter()
+        gm, opt_state, step = self.gm, self.opt_state, functools.partial(
+            train_step, intr=self.intr, cfg=cfg)
+        if self.mesh is not None:
+            from gaussian_lic_tpu_torch.parallel import (
+                make_sharded_train_step, shard_state,
+            )
+
+            gm, opt_state = shard_state(gm, opt_state, self.mesh)
+            step = make_sharded_train_step(self.intr, cfg, self.mesh)
         for idx in opt_list:
             self.exposure_steps += 1
-            self.gm, self.opt_state, metrics = train_step(
-                self.gm, self.opt_state, self.kf_buffer, int(idx),
-                self.exposure_steps, intr=self.intr, cfg=cfg,
-            )
+            gm, opt_state, metrics = step(gm, opt_state, self.kf_buffer, int(idx),
+                                          self.exposure_steps)
             # metrics stay on the device until the one fetch below
             visible.append(metrics["n_visible"])
             budget_lost.append(metrics["budget_lost"])
             truncated.append(metrics["truncated"])
+        if self.mesh is not None:
+            from gaussian_lic_tpu_torch.parallel import gather_state
+
+            gm, opt_state = gather_state(gm, opt_state, self.mesh)
+        self.gm, self.opt_state = gm, opt_state
         stats = torch.stack([
             torch.stack(visible).sum(dtype=torch.int64),
             torch.stack(budget_lost).max().to(torch.int64),
@@ -420,7 +450,7 @@ class MappingEngine:
         cfg = self.cfg
         if truncated > 0 and not self._overflow_warned:
             self._overflow_warned = True
-            print(
+            self._print(
                 f"[gaussian-lic-tpu-torch] WARNING: {truncated} rect tiles truncated "
                 "at the per-Gaussian slot cap — large-footprint Gaussians exceed "
                 f"max_tiles_per_gaussian={cfg.max_tiles_per_gaussian}; raise it "
@@ -439,14 +469,14 @@ class MappingEngine:
             )
             self.cfg = cfg.replace(splat_budget_factor=new_f)
             self.timers.compiles += 1
-            print(
+            self._print(
                 f"[gaussian-lic-tpu-torch] binning overflow ({budget_lost} slots "
                 "past the splat budget): splat budget grows "
                 f"{cfg.splat_budget_factor:g} -> {new_f:g} entries/Gaussian"
             )
         elif not self._overflow_warned:
             self._overflow_warned = True
-            print(
+            self._print(
                 f"[gaussian-lic-tpu-torch] WARNING: binning overflow ({budget_lost} "
                 "slots) with the splat budget already at the per-Gaussian "
                 "slot cap — raise max_tiles_per_gaussian to grow further"
@@ -525,6 +555,10 @@ class MappingEngine:
 
     def train_camera(self, idx: int) -> Camera:
         return self.kf_buffer.camera(self.intr, idx)
+
+    def _print(self, msg: str) -> None:
+        if self.is_main:
+            print(msg)
 
 
 def _pad_like(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

@@ -29,11 +29,11 @@ csrc/blend_backward.cu, which sums per Gaussian with atomics) or raises.
 Each launch adds one to `LAUNCHES`. Both kernels bulk-copy whole rows, so
 on the card `splats` must be 16-byte aligned.
 
-K1 skips an entry in a warp's 8x16 pixel block when the entry's footprint
-box misses the block (`cull_boxes`): the box holds every pixel at which the
-per-pixel arithmetic above could apply the entry, so a skipped pair is one
-the test would reject, and K1's outputs are those of the plain version, which
-tests every pair. `warp_cull_keep` is the plain emulation of that rule, for
+K1 skips an entry in a warp's pixel block (`k1_block`: 8x16, or 16x8 in the
+8x128 tile) when the entry's footprint box misses the block (`cull_boxes`):
+the box holds every pixel at which the per-pixel arithmetic above could
+apply the entry, so a skipped pair is one the test would reject, and K1's
+outputs are those of the plain version, which tests every pair. `warp_cull_keep` is the plain emulation of that rule, for
 the tests and chip_smoke.py; the main path never calls it.
 """
 
@@ -55,7 +55,6 @@ ROW_X, ROW_Y, ROW_A, ROW_B, ROW_C, ROW_OPA, ROW_R, ROW_G, ROW_B2 = range(N_ATTR)
 TILE_PIX = 1024           # pixels per tile; the kernels spread them over 256 threads
 GAUSS_TABLE_STRIDE = 12   # floats per row of K2's per-Gaussian table (three float4s)
 WARP_PIX = 128            # pixels of one warp's block in K1 (32 threads x 4)
-K1_BLOCK_W = 8            # K1's warp blocks are 8x16 pixels (csrc/blend_forward.cu)
 
 # K1's cull box (csrc/blend_forward.cu, cull_box): the bounding box of
 # q(d) <= (ln(255 opa) + CULL_POWER_ABS) / (1 - CULL_POWER_REL kappa), kappa =
@@ -152,6 +151,7 @@ def blend_forward(
                                    n_ty=n_ty, tile_h=tile_h, tile_w=tile_w,
                                    no_color=no_color)
     _check_aligned(splats, "K1")
+    k1_block(tile_h, tile_w)
     from gaussian_lic_tpu_torch import _build
 
     lib = _build.load()
@@ -400,14 +400,25 @@ def cull_boxes(splats: torch.Tensor) -> torch.Tensor:
     return torch.where(finite[:, None], box, every)
 
 
-def _pixel_blocks(tile_w, device) -> torch.Tensor:
+def k1_block(tile_h: int, tile_w: int) -> Tuple[int, int]:
+    """(width, height) of K1's warp pixel blocks in a tile_h x tile_w tile,
+    as csrc/blend_forward.cu picks them from the tile's shape: 8x16 where
+    tile_h is a multiple of 16, 16x8 in a tile 8 rows high. Raises for the
+    tiles K1 does not take (fewer than 8 rows)."""
+    block_w = 8 if tile_h % 16 == 0 else (16 if tile_h == 8 else 0)
+    if block_w == 0 or tile_w % block_w:
+        raise ValueError(f"K1 takes tiles of 8 or a multiple of 16 rows, got {tile_h}x{tile_w}")
+    return block_w, WARP_PIX // block_w
+
+
+def _pixel_blocks(tile_h, tile_w, device) -> torch.Tensor:
     """(1024,) K1's warp block (numbered row-major in the tile) of each flat
     pixel."""
+    block_w, block_h = k1_block(tile_h, tile_w)
     flat = torch.arange(TILE_PIX, device=device)
-    block_h = WARP_PIX // K1_BLOCK_W
     row = torch.div(flat, tile_w, rounding_mode="floor")
-    return (torch.div(row, block_h, rounding_mode="floor") * (tile_w // K1_BLOCK_W)
-            + torch.div(flat % tile_w, K1_BLOCK_W, rounding_mode="floor"))
+    return (torch.div(row, block_h, rounding_mode="floor") * (tile_w // block_w)
+            + torch.div(flat % tile_w, block_w, rounding_mode="floor"))
 
 
 def warp_cull_keep(
@@ -417,9 +428,7 @@ def warp_cull_keep(
     longest range, True where the warp owning that block of the tile walks
     the tile's l-th entry (its cull box meets the block); False where K1
     skips the pair, and past the tile's range."""
-    block_w, block_h = K1_BLOCK_W, WARP_PIX // K1_BLOCK_W
-    if tile_w % block_w or tile_h % block_h:
-        raise ValueError(f"{tile_h}x{tile_w} tiles do not split into K1's warp blocks")
+    block_w, block_h = k1_block(tile_h, tile_w)
     dev = splats.device
     n_tiles = n_tx * n_ty
     L = max(int(tile_lens.max()) if n_tiles else 0, 1)

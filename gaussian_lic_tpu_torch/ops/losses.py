@@ -86,3 +86,30 @@ def training_loss(
     return (1.0 - lambda_dssim) * l1_loss(rendered, gt) + lambda_dssim * (
         1.0 - ssim(rendered, gt)
     )
+
+
+HALO = _WINDOW_SIZE // 2  # rows of neighbour context one band needs for SSIM
+
+
+def training_loss_band_part(
+    rendered_ext: torch.Tensor,  # (C, Hb + 2*HALO, W) band + halo rows
+    gt_ext: torch.Tensor,        # (C, Hb + 2*HALO, W) matching GT rows
+    n_pixels: int,               # C*H*W of the FULL image
+    lambda_dssim: float = 0.2,
+) -> torch.Tensor:
+    """Partial training loss of one horizontal band of the image (the JAX
+    package's `ops/losses.py:training_loss_band_part`).
+
+    The band is extended by HALO rows of its neighbours on each side (zeros
+    at the image's edges, as `_blur`'s zero padding), so the band's rows of
+    `ssim_map` here are those of the full image's map, and
+
+        training_loss(full) = sum over bands of training_loss_band_part + lambda
+
+    A sharded caller sums the parts over its ranks and adds lambda for the
+    metric; each rank's gradient flows through its own band and, by the halo
+    exchange's backward, its neighbours' halo rows."""
+    hb = rendered_ext.shape[1] - 2 * HALO
+    diff_sum = (rendered_ext[:, HALO:HALO + hb] - gt_ext[:, HALO:HALO + hb]).abs().sum()
+    smap = ssim_map(rendered_ext, gt_ext)[:, HALO:HALO + hb]
+    return ((1.0 - lambda_dssim) * diff_sum - lambda_dssim * smap.sum()) / n_pixels

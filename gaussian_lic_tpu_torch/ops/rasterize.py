@@ -143,6 +143,14 @@ def splat_inputs(xyz, scale, quat, opacity, camera, dc=None, sh_rest=None, sh_de
     return SplatInputs(grid, rows, binning, radius)
 
 
+def expose(image: torch.Tensor, exposure: torch.Tensor) -> torch.Tensor:
+    """exposure[:, :3] @ rgb + exposure[:, 3:] per pixel of a (3, h, w)
+    image, the matrix product written out in true f32."""
+    flat = image.reshape(3, -1)
+    return ((exposure[:, :3, None] * flat[None, :, :]).sum(1)
+            + exposure[:, 3:]).reshape(image.shape)
+
+
 def render_tiled(
     xyz: torch.Tensor,         # (P,3)
     scale: torch.Tensor,       # (P,3) activated
@@ -195,11 +203,7 @@ def render_tiled(
     n_contrib = ncontrib_p[:H, :W]
 
     if apply_exposure and exposure is not None:
-        flat = image.reshape(3, -1)
-        # exposure[:, :3] @ flat in true f32, written out
-        image = (
-            (exposure[:, :3, None] * flat[None, :, :]).sum(1) + exposure[:, 3:]
-        ).reshape(3, H, W)
+        image = expose(image, exposure)
 
     return TiledRenderOutput(
         image=image,

@@ -125,10 +125,16 @@ def compute_slot_keys_kmajor(
     grid: TileGrid,
     K: int,
     depth_bits: int,
+    band_ty0: int = 0,      # first tile row of the band
+    band_n_ty: int = None,  # tile rows of the band; None: no band, GLOBAL tile ids
 ):
     """Slot enumeration + StopThePop exact culling + key packing, k-major:
-    every per-slot tensor is (K, P). Returns (keys (K*P,) int64 with slot id
-    k*P + p, tiles_touched (P,) int32, truncated () int32)."""
+    every per-slot tensor is (K, P). With `band_n_ty`, keys carry BAND-LOCAL
+    tile ids and the slots outside the band are dead (bin_gaussians of a
+    band); without, GLOBAL tile ids (the sharded binning,
+    parallel/sharded.py). Returns (keys (K*P,) int64 with slot id k*P + p,
+    tiles_touched (P,) int32, truncated () int32: the rect tiles lost to the
+    K-slot cap, counted in the band when there is one)."""
     rminx, rminy, rmaxx, rmaxy = gaussian_rects(xy, radius, grid)
     rect_w = rmaxx - rminx
     rect_count = rect_w * (rmaxy - rminy)
@@ -153,10 +159,22 @@ def compute_slot_keys_kmajor(
     contributes = power <= opacity_power_threshold[None, :]
     slot_valid = live[None, :] & in_rect & contributes                  # (K, P)
 
-    tile_id = torch.where(slot_valid, ty * grid.n_tx + tx, 0).to(torch.int64)
-    enumerated = in_rect.sum(0, dtype=torch.int32)
+    if band_n_ty is not None:
+        ty_local = ty - band_ty0
+        in_band = (ty_local >= 0) & (ty_local < band_n_ty)
+        slot_valid = slot_valid & in_band
+        tile_id = torch.where(slot_valid, ty_local * grid.n_tx + tx, 0).to(torch.int64)
+        rows_in_band = torch.clamp_min(
+            torch.clamp_max(rmaxy, band_ty0 + band_n_ty) - torch.clamp_min(rminy, band_ty0), 0
+        )
+        in_scope_total = rows_in_band * rect_w
+        enumerated = (in_rect & in_band).sum(0, dtype=torch.int32)
+    else:
+        tile_id = torch.where(slot_valid, ty * grid.n_tx + tx, 0).to(torch.int64)
+        in_scope_total = rect_count
+        enumerated = in_rect.sum(0, dtype=torch.int32)
     truncated = torch.where(
-        live, torch.clamp_min(rect_count - enumerated, 0), 0
+        live, torch.clamp_min(in_scope_total - enumerated, 0), 0
     ).sum(dtype=torch.int32)
     tiles_touched = slot_valid.sum(0, dtype=torch.int32)
 
@@ -178,21 +196,34 @@ def bin_gaussians(
     grid: TileGrid,
     max_tiles_per_gaussian: int = 16,
     max_total_splats: int = 1 << 22,
+    band_ty0: int = 0,      # first tile row of the band
+    band_n_ty: int = None,  # tile rows of the band (None: the full grid)
     align: int = 256,
+    depth_bits: int = None,  # None: as many as the band's tile ids leave
 ) -> Binning:
-    """Bin into the full grid. The sorted list is cut at `max_total_splats`
-    entries and padded with dead entries (id P) to a multiple of `align`;
-    the padding keeps the list length M_pad equal to the JAX package's."""
+    """Bin into the full grid or, for the multi-GPU renderer
+    (parallel/sharded.py), into the band of `band_n_ty` tile rows from row
+    `band_ty0`: tile ids and ranges are then the band's, and so, by default
+    and as in the JAX package, are the depth bits. A band binned with the
+    whole grid's `depth_bits` orders its entries as the whole image's list
+    does (the same truncated keys, so the same ties).
+    The sorted list is cut at `max_total_splats` entries and padded with dead
+    entries (id P) to a multiple of `align`; the padding keeps the list
+    length M_pad equal to the JAX package's."""
     P = xy.shape[0]
     K = max_tiles_per_gaussian
     M = max_total_splats
     dev = xy.device
-    depth_bits = rank_bits_for(grid.num_tiles)
+    n_ty_local = grid.n_ty if band_n_ty is None else band_n_ty
+    num_tiles_local = n_ty_local * grid.n_tx
+    if depth_bits is None:
+        depth_bits = rank_bits_for(num_tiles_local)
 
     live = active & (radius > 0.0)
     dkey = depth_key(depth, depth_bits)
     keys, tiles_touched, truncated = compute_slot_keys_kmajor(
         xy, dkey, conic, opacity, radius, live, grid, K, depth_bits,
+        band_ty0=band_ty0, band_n_ty=n_ty_local,
     )
     # stable sort: ties keep slot-id (k-major) order
     sorted_keys, sorted_slots = torch.sort(keys, stable=True)
@@ -222,7 +253,7 @@ def bin_gaussians(
     sorted_keys = sorted_keys[:m_eff]
     sorted_slots = sorted_slots[:m_eff]
     sorted_tiles = sorted_keys >> depth_bits
-    boundaries = torch.arange(grid.num_tiles + 1, dtype=torch.int64, device=dev)
+    boundaries = torch.arange(num_tiles_local + 1, dtype=torch.int64, device=dev)
     edges = torch.searchsorted(sorted_tiles, boundaries, side="left").to(torch.int32)
     tile_starts = edges[:-1]
     tile_lens = edges[1:] - edges[:-1]

@@ -184,3 +184,24 @@ def probe_scene(cfg, intr, gm, kf) -> dict:
     dl = np.random.default_rng(0).normal(0, 0.1, (3, g.padded_height, g.padded_width))
     sc["dl"] = torch.as_tensor(dl.astype(np.float32), device=gm.device)
     return sc
+
+
+def nan_opacity_list(splats: np.ndarray, tile_starts: np.ndarray, tile_lens: np.ndarray):
+    """A gathered splat list with a NaN-opacity row in front of each tile's
+    range (a copy of the range's first row, opacity NaN), padded with dead
+    rows to a multiple of 256: (splats, tile_starts, tile_lens, the NaN rows'
+    indices). Every blend kernel must skip those rows."""
+    rows, starts, lens, nan_at = [], [], [], []
+    at = 0
+    for s, n in zip(tile_starts, tile_lens):
+        nan = splats[s].copy()
+        nan[5] = np.nan
+        rows.append(np.concatenate([nan[None], splats[s:s + n]]))
+        starts.append(at)
+        lens.append(n + 1)
+        nan_at.append(at)
+        at += n + 1
+    m_pad = (at + 255) // 256 * 256
+    rows.append(np.zeros((m_pad - at, splats.shape[1]), np.float32))
+    return (np.concatenate(rows).astype(np.float32), np.array(starts, np.int32),
+            np.array(lens, np.int32), np.array(nan_at, np.int64))

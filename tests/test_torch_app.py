@@ -124,9 +124,14 @@ class TestCli:
         assert run.main(["--demo"]) != 0
         assert "--device cpu" in capsys.readouterr().err
 
-    def test_mesh_devices_not_ported(self, capsys):
-        assert run.main(["--demo", "--device", "cpu", "--mesh-devices", "2"]) != 0
-        assert "parallel/sharded.py" in capsys.readouterr().err
+    def test_mesh_devices_not_ported(self, monkeypatch, capsys):
+        """What --mesh-devices does not run: more NCCL ranks than the card
+        count (one GPU per rank; it does not run fewer), and a negative N."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        assert run.main(["--demo", "--mesh-devices", "2"]) == 2
+        assert "one GPU per rank" in capsys.readouterr().err
+        assert run.main(["--demo", "--device", "cpu", "--mesh-devices", "-1"]) == 2
 
     def test_recorded_stream_input(self, tmp_path):
         frames = run._demo_frames(Params(width=128, height=64, fx=60.0, fy=60.0, cx=64.0,

@@ -19,7 +19,11 @@
     skipped block, so the plain forward with the skipped pairs left untested
     is the plain forward bit for bit.
 (e) The CUDA kernels against their plain versions, on the card only: K1 bit
-    for bit on the golden, the edge rows and tiles of many staged batches.
+    for bit on the golden, the edge rows, tiles of many staged batches, at
+    each tile shape of the multi-GPU band geometry (32x32, 16x64, 8x128) and
+    with NaN-opacity rows; K2 per column on the same.
+(f) NaN opacity: the plain forward and backward skip a NaN-opacity row as
+    the Pallas kernels do (the nan_row golden), and the row changes nothing.
 
 JAX is imported inside the tests that use it, so the card tests collect on a
 machine without it (GLIC_TEST_TPU=1 keeps tests/conftest.py from importing it).
@@ -36,6 +40,7 @@ from torch_port_helpers import (
 from gaussian_lic_tpu_torch import camera as tcam
 from gaussian_lic_tpu_torch.ops import blend
 from gaussian_lic_tpu_torch.ops.rasterize import render_tiled
+from gaussian_lic_tpu_torch.utils.synthetic import nan_opacity_list
 
 IMG_ATOL = 1e-5
 GRAD_RTOL = 1e-4
@@ -338,7 +343,7 @@ def contrib_outside_keep(splats, starts, lens, kw):
     """(warp_cull_keep's mask, the count of (entry, pixel) pairs the plain
     arithmetic applies that lie in a block the mask skips)."""
     keep = blend.warp_cull_keep(splats, starts, lens, **kw)
-    blocks = blend._pixel_blocks(kw["tile_w"], splats.device)
+    blocks = blend._pixel_blocks(kw["tile_h"], kw["tile_w"], splats.device)
     bad = 0
     for tiles, L in blend._tile_chunks(lens):
         e, _, valid = blend._gather_entries(splats, starts, lens, tiles, L)
@@ -357,7 +362,7 @@ def _row(x, y, A, B, C, opa):
 
 def block_of(x, y):
     """K1's warp block (row-major in the tile) that holds pixel (x, y) of tile 0."""
-    return int(blend._pixel_blocks(32, "cpu")[y * 32 + x])
+    return int(blend._pixel_blocks(32, 32, "cpu")[y * 32 + x])
 
 
 def _at_threshold_rows():
@@ -447,6 +452,100 @@ class TestWarpCull:
         assert bool((far[:, 0] > far[:, 1]).all()) and bool((far[:, 2] > far[:, 3]).all())
 
 
+TILES = [(32, 32), (16, 64), (8, 128)]
+
+
+def tile_scene(tile, device="cpu"):
+    """A seeded 1000-Gaussian scene at 256x64 binned into `tile` tiles: the
+    splat list, tile ranges and ids render_tiled hands K1/K2, with a seeded
+    dL/dpix."""
+    from gaussian_lic_tpu_torch.utils.synthetic import splat_args
+
+    rng = np.random.default_rng(5)
+    xyz, scale, quat, opacity, dc, shr = (t(a).to(device) for a in random_scene(rng, 1000))
+    R_wc, t_wc = tcam.look_at(np.zeros(3), np.array([0.0, 0.0, 1.0]))
+    cam = tcam.make_camera(T_INTR, R_wc, t_wc, device=device)
+    sc = splat_args(xyz, scale, quat, opacity, cam, dc=dc, sh_rest=shr, sh_degree=3,
+                    tile_h=tile[0], tile_w=tile[1], max_total_splats=1 << 14)
+    g = sc["grid"]
+    kw = dict(n_tx=g.n_tx, n_ty=g.n_ty, tile_h=g.tile_h, tile_w=g.tile_w)
+    dl = t(rng.normal(size=(3, g.padded_height, g.padded_width)).astype(np.float32)).to(device)
+    return (sc["splats"], sc["starts"], sc["lens"]), kw, sc["sorted_gauss"], sc["n_gauss"], dl
+
+
+class TestTileShapes:
+    """K1 takes every tile the multi-GPU band geometry uses (32x32, 16x64,
+    8x128): its warp blocks come from the tile's shape (8x16, or 16x8 in an
+    8-row tile)."""
+
+    def test_k1_block(self):
+        assert blend.k1_block(32, 32) == blend.k1_block(16, 64) == (8, 16)
+        assert blend.k1_block(8, 128) == (16, 8)
+        for bad in ((4, 256), (2, 512), (1, 1024), (1024, 1)):
+            with pytest.raises(ValueError, match=f"{bad[0]}x{bad[1]}"):
+                blend.k1_block(*bad)
+
+    @pytest.mark.parametrize("tile", TILES, ids=lambda s: f"{s[0]}x{s[1]}")
+    def test_no_applied_pair_is_skipped(self, tile):
+        """The cull's plain emulation at the tile's warp blocks keeps every
+        pair the plain arithmetic applies."""
+        args, kw, *_ = tile_scene(tile)
+        keep, bad = contrib_outside_keep(*args, kw)
+        assert bad == 0 and int(args[2].sum()) > 500
+        assert 0.0 < float(keep.sum()) / (int(args[2].sum()) * keep.shape[2]) < 1.0
+
+
+class TestNanOpacity:
+    """A NaN-opacity row is skipped: min(0.99, NaN) is NaN, which fails the
+    alpha >= 1/255 test (JAX's jnp.minimum, the plain version's clamp_max,
+    and on the card splat_alpha in csrc/blend_common.cuh). The rows of the
+    nan_row golden: the blend golden's list with one in front of each tile
+    (utils/synthetic.nan_opacity_list)."""
+
+    @pytest.mark.parametrize("source", GOLDEN_SOURCES)
+    def test_plain_against_pallas(self, source):
+        d = load_golden("blend", "file")
+        want = load_golden("nan_row", source)
+        args, kw = nan_args(d)
+        color, final_t, n_contrib = blend.blend_forward_plain(*args, **kw)
+        np.testing.assert_allclose(n(color), want["color"], atol=IMG_ATOL, rtol=0)
+        np.testing.assert_allclose(n(final_t), want["final_t"], atol=IMG_ATOL, rtol=0)
+        np.testing.assert_array_equal(n(n_contrib), want["n_contrib"])
+        grads = n(blend.blend_backward_plain(*args, t(d["dl_dcolor"]), final_t, n_contrib,
+                                             **kw))
+        ref = want["entry_grads"]
+        np.testing.assert_array_equal(np.isnan(grads), np.isnan(ref))
+        for i in range(blend.N_ATTR):
+            assert rel_max(np.nan_to_num(grads[:, i]), np.nan_to_num(ref[:, i])) < GRAD_RTOL, i
+
+    def test_the_row_changes_nothing(self):
+        """With the NaN row in front of each range, the plain forward is the
+        one without it, n_contrib one further along."""
+        d = load_golden("blend", "file")
+        args, kw = nan_args(d)
+        got = blend.blend_forward_plain(*args, **kw)
+        ref = blend.blend_forward_plain(*golden_args(d)[0], **kw)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        assert torch.equal(got[2], torch.where(ref[2] > 0, ref[2] + 1, 0))
+
+
+def nan_args(d, device="cpu"):
+    sp, st, ln, _ = nan_opacity_list(d["splats"], d["tile_starts"], d["tile_lens"])
+    return (t(sp).to(device), t(st).to(device), t(ln).to(device)), \
+        dict(n_tx=2, n_ty=2, tile_h=32, tile_w=32)
+
+
+def nan_ids(d):
+    """Entry -> Gaussian ids over the NaN list: the NaN rows get ids
+    N_GAUSS - 4 .. N_GAUSS - 1 of their own, the others seeded below them,
+    every 7th the dead id."""
+    sp, _, _, nan_at = nan_opacity_list(d["splats"], d["tile_starts"], d["tile_lens"])
+    ids = np.random.default_rng(13).integers(0, N_GAUSS - 4, sp.shape[0]).astype(np.int32)
+    ids[::7] = N_GAUSS
+    ids[nan_at] = np.arange(N_GAUSS - 4, N_GAUSS)
+    return ids
+
+
 # --------------------------------------------------------------------- (e)
 
 def many_batch_tiles(d, device):
@@ -528,6 +627,56 @@ class TestKernelsOnTheCard:
         for i in range(blend.N_ATTR):
             assert rel_max(n(g)[:, i], n(ref)[:, i]) < GRAD_RTOL, i
         assert rel_max(n(g), per_gaussian_golden(d, golden_ids(d))) < GRAD_RTOL
+
+    @pytest.mark.parametrize("tile", TILES, ids=lambda s: f"{s[0]}x{s[1]}")
+    def test_tile_shapes(self, tile, cuda_device):
+        """K1 bit for bit (color, no_color) and K2 per column at each tile
+        shape of the band geometry, against the plain versions."""
+        args, kw, ids, P, dl = tile_scene(tile, cuda_device)
+        for no_color in (False, True):
+            out = blend.blend_forward(*args, no_color=no_color, **kw)
+            ref = blend.blend_forward_plain(*args, no_color=no_color, **kw)
+            torch.cuda.synchronize()
+            for a, b in zip(out, ref):
+                np.testing.assert_array_equal(n(a), n(b))
+        color_p, ft, nc = blend.blend_forward_plain(*args, **kw)
+        assert int(nc.max()) > 0 and float(color_p.abs().max()) > 0
+        g = blend.blend_backward(*args, dl, ft, nc, ids, n_gauss=P, **kw)
+        gp = blend.sum_per_gaussian(blend.blend_backward_plain(*args, dl, ft, nc, **kw), ids, P)
+        torch.cuda.synchronize()
+        for i in range(blend.N_ATTR):
+            assert rel_max(n(g)[:, i], n(gp)[:, i]) < GRAD_RTOL, i
+
+    def test_rejects_tiles_under_8_rows(self, cuda_device):
+        args, kw, *_ = tile_scene((8, 128), cuda_device)
+        with pytest.raises(ValueError, match="4x256"):
+            blend.blend_forward(*args, **dict(kw, n_tx=1, n_ty=16, tile_h=4, tile_w=256))
+
+    def test_nan_opacity_row(self, cuda_device):
+        """K1 skips the NaN-opacity rows bit for bit as its plain version
+        does; K2 skips them too: every other Gaussian's gradients agree, and
+        the NaN rows' own Gaussians get no opacity or colour gradient (their
+        position and conic gradients are 0 on the card and opa * 0 = NaN in
+        the plain version and JAX, which take the product before the test)."""
+        d = load_golden("blend", "file")
+        args, kw = nan_args(d, cuda_device)
+        for no_color in (False, True):
+            out = blend.blend_forward(*args, no_color=no_color, **kw)
+            ref = blend.blend_forward_plain(*args, no_color=no_color, **kw)
+            torch.cuda.synchronize()
+            for a, b in zip(out, ref):
+                np.testing.assert_array_equal(n(a), n(b))
+        _, ft, nc = blend.blend_forward_plain(*args, **kw)
+        ids = t(nan_ids(d)).to(cuda_device)
+        dl = t(d["dl_dcolor"]).to(cuda_device)
+        g = n(blend.blend_backward(*args, dl, ft, nc, ids, n_gauss=N_GAUSS, **kw))
+        gp = n(blend.sum_per_gaussian(blend.blend_backward_plain(*args, dl, ft, nc, **kw),
+                                      ids, N_GAUSS))
+        nan_g = slice(N_GAUSS - 4, N_GAUSS)
+        assert np.isfinite(g).all() and np.isnan(gp[nan_g, :5]).all()
+        assert not g[nan_g].any() and not gp[nan_g, 5:].any()
+        for i in range(blend.N_ATTR):
+            assert rel_max(g[:N_GAUSS - 4, i], gp[:N_GAUSS - 4, i]) < GRAD_RTOL, i
 
     def test_backward_kernel_many_batches(self, cuda_device):
         """K2 on many_batch_tiles: the double buffer's barriers go through

@@ -92,3 +92,42 @@ class TestAdam:
         np.testing.assert_allclose(n(tp), n(jp), rtol=RTOL)
         np.testing.assert_allclose(n(ts.exp_avg), n(js.exp_avg), rtol=RTOL)
         np.testing.assert_allclose(n(ts.exp_avg_sq), n(js.exp_avg_sq), rtol=RTOL)
+
+
+class TestBandLoss:
+    """training_loss_band_part against JAX's, and the identity its docstring
+    states: the parts of the bands plus lambda are the full image's training
+    loss (1e-6), with the gradient of the sum equal to the full loss's."""
+
+    @staticmethod
+    def band_ext(img, b, hb):
+        """Rows [b hb - HALO, (b + 1) hb + HALO) of `img`, zeros past its edges."""
+        h = tl.HALO
+        pad = torch.nn.functional.pad(img, (0, 0, h, h))
+        return pad[:, b * hb:(b + 1) * hb + 2 * h]
+
+    def test_against_jax(self, rng):
+        a, b = images(rng, (3, 26, 40))
+        n_pix = 3 * 48 * 40
+        jv, jg = jax.value_and_grad(jl.training_loss_band_part)(
+            jnp.asarray(a), jnp.asarray(b), n_pix, 0.2)
+        ta = t(a).requires_grad_()
+        tv = tl.training_loss_band_part(ta, t(b), n_pix, 0.2)
+        (tg,) = torch.autograd.grad(tv, ta)
+        assert tl.HALO == jl.HALO == 5
+        np.testing.assert_allclose(float(tv.detach()), float(jv), rtol=RTOL)
+        assert rel_max(n(tg), n(jg)) < RTOL
+
+    @pytest.mark.parametrize("n_bands", [2, 4])
+    def test_parts_sum_to_the_full_loss(self, rng, n_bands):
+        a, b = images(rng, (3, 48, 40))
+        hb = 48 // n_bands
+        ta = t(a).requires_grad_()
+        full = tl.training_loss(ta, t(b), 0.2)
+        (g_full,) = torch.autograd.grad(full, ta)
+        parts = [tl.training_loss_band_part(self.band_ext(ta, k, hb), self.band_ext(t(b), k, hb),
+                                            a.size, 0.2) for k in range(n_bands)]
+        total = torch.stack(parts).sum() + 0.2
+        (g_parts,) = torch.autograd.grad(total, ta)
+        assert abs(float(total.detach()) - float(full.detach())) < 1e-6
+        assert rel_max(n(g_parts), n(g_full)) < 1e-5

@@ -407,6 +407,55 @@ class TestProbesOnTheCard:
         assert rel_max(n(g), n(ref)) < (NORED_RTOL if variant == "nored" else GRAD_RTOL)
 
 
+def nan_scene(d, device):
+    """The blend golden's list with a NaN-opacity row in front of each tile
+    (utils/synthetic.nan_opacity_list), K2's per-pixel inputs on it,
+    and an entry -> Gaussian map that gives the NaN rows ids of their own."""
+    from gaussian_lic_tpu_torch.ops import blend
+    from gaussian_lic_tpu_torch.utils.synthetic import nan_opacity_list
+
+    sp, st, ln, nan_at = nan_opacity_list(d["splats"], d["tile_starts"], d["tile_lens"])
+    args = tuple(t(a).to(device) for a in (sp, st, ln))
+    kw = dict(n_tx=2, n_ty=2, tile_h=32, tile_w=32)
+    _, ft, nc = blend.blend_forward_plain(*args, **kw)
+    ids = np.random.default_rng(1).integers(0, N_GAUSS - 4, len(sp)).astype(np.int32)
+    ids[nan_at] = np.arange(N_GAUSS - 4, N_GAUSS)
+    return args, kw, (t(d["dl_dcolor"]).to(device), ft, nc), t(ids).to(device), nan_at
+
+
+@pytest.mark.requires_cuda
+class TestNanOpacityOnTheCard:
+    """Every K3/K4 variant skips a NaN-opacity row as its plain version does
+    (splat_alpha keeps the NaN, csrc/blend_common.cuh). The backward of a
+    skipped row is 0 on the card and opa * 0 = NaN in the plain version, so
+    the backward is held on the other rows, and the NaN rows' must be 0."""
+
+    @pytest.mark.parametrize("variant", bp.FORWARD_VARIANTS)
+    def test_forward(self, golden, cuda_device, variant):
+        args, kw, _, _, _ = nan_scene(golden, cuda_device)
+        out = [n(x) for x in bp.probe_forward(variant, *args, **kw)]
+        ref = [n(x) for x in bp.probe_forward_plain(variant, *args, **kw)]
+        assert np.isfinite(out[0]).all() and np.isfinite(out[1]).all()
+        if variant == "noblend":
+            assert rel_max(out[0], ref[0]) < NOBLEND_RTOL
+        else:
+            np.testing.assert_allclose(out[0], ref[0], atol=IMG_ATOL, rtol=0)
+            np.testing.assert_allclose(out[1], ref[1], atol=IMG_ATOL, rtol=0)
+        np.testing.assert_array_equal(out[2], ref[2])
+
+    @pytest.mark.parametrize("variant", bp.BACKWARD_VARIANTS)
+    def test_backward(self, golden, cuda_device, variant):
+        args, kw, pix, ids, nan_at = nan_scene(golden, cuda_device)
+        fkw = dict(kw, sorted_gauss=ids, n_gauss=N_GAUSS)
+        g = n(bp.probe_backward(variant, *args, *pix, **fkw))
+        ref = n(bp.probe_backward_plain(variant, *args, *pix, **fkw))
+        skipped = np.zeros(len(g), bool)
+        skipped[np.arange(N_GAUSS - 4, N_GAUSS) if variant == "fused" else nan_at] = True
+        assert np.isfinite(g).all() and not g[skipped].any()
+        tol = NORED_RTOL if variant == "nored" else GRAD_RTOL
+        assert rel_max(g[~skipped], ref[~skipped]) < tol
+
+
 @pytest.mark.parametrize("path", ["gaussian_lic_tpu_torch/ops/blend_probe.py",
                                   "gaussian_lic_tpu_torch/utils/cuda_timing.py",
                                   "gaussian_lic_tpu_torch/utils/synthetic.py",

@@ -112,3 +112,78 @@ class TestBinningParity:
                 n(ttiles.depth_key(t(d), bits)),
                 np.asarray(jtiles.depth_key(jnp.asarray(d), bits)).astype(np.int64),
             )
+
+
+def band_inputs(rng, imbalanced):
+    """Projected inputs at 256x128; `imbalanced` squeezes every mean into one
+    band's rows, so the other bands get only the footprints' overhang."""
+    inp = binning_inputs(rng, 300, width=256, height=128)
+    if imbalanced:
+        inp["xy"] = inp["xy"].copy()
+        inp["xy"][:, 1] = 112.0 + 0.05 * (inp["xy"][:, 1] - 64.0)
+    return inp
+
+
+class TestBandBinning:
+    """bin_gaussians of one band (band_ty0, band_n_ty) against JAX's, every
+    output exactly, for each band of 2 and 4 bands: band-local tile ids, the
+    slots outside the band dead, the band's truncation count and depth bits."""
+
+    @pytest.mark.parametrize("imbalanced", [False, True], ids=["spread", "imbalanced"])
+    @pytest.mark.parametrize("n_bands", [2, 4])
+    @pytest.mark.parametrize("tile", [(32, 32), (8, 128)], ids=["32x32", "8x128"])
+    def test_each_band(self, rng, n_bands, imbalanced, tile):
+        inp = band_inputs(rng, imbalanced)
+        grid = (256, 128, tile[1], tile[0])
+        band_n_ty = ttiles.TileGrid(*grid).n_ty // n_bands
+        lens = []
+        for b in range(n_bands):
+            jb, tb = both(inp, grid, max_tiles_per_gaussian=4, max_total_splats=1 << 12,
+                          band_ty0=b * band_n_ty, band_n_ty=band_n_ty, align=256)
+            assert_same(jb, tb)
+            assert tb.tile_starts.shape == (band_n_ty * grid[0] // tile[1],)
+            lens.append(int(tb.num_valid))
+        assert min(lens) >= 0 and sum(lens) > 0
+        if imbalanced:
+            assert min(lens) < max(lens) // 2   # the bottom band holds most
+        full = ttiles.bin_gaussians(*(t(inp[k]) for k in ("xy", "depth", "conic", "opacity",
+                                                          "radius", "active")),
+                                    ttiles.TileGrid(*grid), max_tiles_per_gaussian=4,
+                                    max_total_splats=1 << 12)
+        assert sum(lens) <= int(full.num_valid) + int(full.truncated)
+
+    def test_truncation_is_counted_per_band(self, rng):
+        inp = band_inputs(rng, False)
+        inp["radius"] = np.where(inp["active"], inp["radius"] * 4, 0).astype(np.float32)
+        grid = (256, 128, 32, 32)
+        total = 0
+        for b in range(2):
+            jb, tb = both(inp, grid, max_tiles_per_gaussian=2, max_total_splats=1 << 12,
+                          band_ty0=2 * b, band_n_ty=2, align=256)
+            assert_same(jb, tb)
+            total += int(tb.truncated)
+        assert total > 0
+
+    def test_global_tile_ids_without_a_band(self, rng):
+        """compute_slot_keys_kmajor without a band keeps global tile ids, the
+        form the sharded binning routes by."""
+        inp = band_inputs(rng, False)
+        names = ("xy", "depth", "conic", "opacity", "radius", "active")
+        grid = (256, 128, 32, 32)
+        jgrid, tgrid = jtiles.TileGrid(*grid), ttiles.TileGrid(*grid)
+        bits = ttiles.rank_bits_for(tgrid.num_tiles)
+        j = {k: jnp.asarray(inp[k]) for k in names}
+        tt = {k: t(inp[k]) for k in names}
+        jlive = j["active"] & (j["radius"] > 0)
+        tlive = tt["active"] & (tt["radius"] > 0)
+        jk, jtt, jtr = jtiles.compute_slot_keys_kmajor(
+            j["xy"], jtiles.depth_key(j["depth"], bits), j["conic"], j["opacity"],
+            j["radius"], jlive, jgrid, 4, bits)
+        tk, ttt, ttr = ttiles.compute_slot_keys_kmajor(
+            tt["xy"], ttiles.depth_key(tt["depth"], bits), tt["conic"], tt["opacity"],
+            tt["radius"], tlive, tgrid, 4, bits)
+        np.testing.assert_array_equal(n(tk), np.asarray(jk).astype(np.int64))
+        np.testing.assert_array_equal(n(ttt), np.asarray(jtt))
+        assert int(ttr) == int(jtr)
+        live = n(tk)[n(tk) != ttiles.INVALID_KEY]
+        assert (live >> bits).max() >= tgrid.n_tx * 2   # ids past the first band

@@ -6,11 +6,15 @@ mode, on small seeded scenes, and returns (or writes) the inputs and outputs as
 
   blend.npz   K1 `blend_forward` (color and no_color) and K2 `blend_backward`
               at 64x64 with 128 Gaussians, mapped from tile-major to image space;
+  nan_row.npz K1 and K2 on blend.npz's list with a NaN-opacity row in front
+              of each tile (the port's utils/synthetic.nan_opacity_list);
   train.npz   1 and 10 steps of `_make_train_step(with_grads=True)`;
   engine.npz  a 3-keyframe `MappingEngine.add_frame` run;
   finalize.npz  a 9-frame run with a 64-point skybox (every 3rd frame a
               keyframe), then `finalize` with randinit LPIPS: the skybox's
-              uniform draws, the eval results and the PLY file's bytes.
+              uniform draws, the eval results and the PLY file's bytes;
+  parallel.npz  the sharded binning, render and two train steps
+              (`parallel/sharded.py`) on 2- and 4-device CPU meshes.
 
 Interpret-mode Pallas is slow on a CPU (tens of seconds to minutes per case),
 which is why the port's fast tests read these files instead of running the JAX
@@ -44,6 +48,10 @@ SMALL_RIG = dict(width=64, height=64, fx=40.0, fy=40.0, cx=32.0, cy=32.0)
 
 def _jax_cpu():
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    # the parallel case's meshes need host devices (as tests/conftest.py sets)
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (flags + " --xla_force_host_platform_device_count=8").strip()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -162,6 +170,34 @@ def make_blend() -> dict:
         dl_dcolor=dl,
         entry_grads=np.asarray(grads[:9].T),
     )
+
+
+def make_nan_row() -> dict:
+    """K1 and K2 (Pallas, interpret mode) on the blend case's list with a
+    NaN-opacity row in front of each tile: jnp.minimum(0.99, NaN) is NaN, so
+    the alpha >= 1/255 test rejects the row."""
+    _jax_cpu()
+    import jax.numpy as jnp
+
+    from gaussian_lic_tpu.ops.blend_pallas import (
+        SPLAT_ROWS, SUB, blend_backward, blend_forward, swizzle_tiles, unswizzle_tiles,
+    )
+
+    from gaussian_lic_tpu_torch.utils.synthetic import nan_opacity_list
+
+    with np.load(os.path.join(GOLDEN_DIR, "blend.npz")) as z:
+        d = dict(z)
+    sp, st, ln, _ = nan_opacity_list(d["splats"], d["tile_starts"], d["tile_lens"])
+    splats = jnp.asarray(sp).reshape(sp.shape[0] // SUB, SUB * SPLAT_ROWS)
+    sw = dict(n_tx=2, n_ty=2, tile_h=32, tile_w=32)
+    kw = dict(sw, interpret=True)
+    color_t, ft_t, nc_t = blend_forward(splats, jnp.asarray(st), jnp.asarray(ln), **kw)
+    grads = blend_backward(splats, jnp.asarray(st), jnp.asarray(ln),
+                           swizzle_tiles(jnp.asarray(d["dl_dcolor"]), **sw), ft_t, nc_t, **kw)
+    return dict(color=np.asarray(unswizzle_tiles(color_t, **sw)),
+                final_t=np.asarray(unswizzle_tiles(ft_t, **sw)),
+                n_contrib=np.asarray(unswizzle_tiles(nc_t, **sw)),
+                entry_grads=np.asarray(grads[:9].T))
 
 
 # ---------------------------------------------------------------------------
@@ -333,8 +369,179 @@ def make_finalize(n_frames: int = 9) -> dict:
     )
 
 
-CASES = {"blend": make_blend, "train": make_train, "engine": make_engine,
-         "finalize": make_finalize}
+# ---------------------------------------------------------------------------
+# the sharded binning, render and train step on 2- and 4-device CPU meshes
+# ---------------------------------------------------------------------------
+
+PARALLEL_MESHES = (2, 4)
+PARALLEL_RIG = dict(width=128, height=64, fx=60.0, fy=60.0, cx=64.0, cy=32.0)
+
+
+def parallel_params(**kw):
+    """The Params of the parallel case (tests/test_parallel.py's setup):
+    128x64 in (8,128) tiles, 8 tile rows, so both meshes keep the tile shape."""
+    from gaussian_lic_tpu.config import Params
+
+    base = dict(PARALLEL_RIG, skybox_points_num=0, initial_capacity=512,
+                max_tiles_per_gaussian=16, max_train_keyframes=4, tile_h=8, tile_w=128)
+    base.update(kw)
+    return Params(**base)
+
+
+def parallel_scene():
+    """(gm, frames) of tests/test_parallel.py's setup (seed 7, 3 frames)."""
+    from gaussian_lic_tpu.camera import Intrinsics
+    from gaussian_lic_tpu.engine.dataset import build_camera
+    from gaussian_lic_tpu.models.gaussians import initialize_map
+    from gaussian_lic_tpu.utils.synthetic import make_sequence, make_world
+
+    intr = Intrinsics(**PARALLEL_RIG)
+    rng = np.random.default_rng(7)
+    world = make_world(rng, n_points=250)
+    frames = make_sequence(world, n_frames=3, points_per_frame=150, rng=rng)
+    pts = np.concatenate([f.points for f in frames])
+    cols = np.concatenate([f.colors for f in frames])
+    cam0 = build_camera(intr, frames[0])
+    z = (pts @ np.asarray(cam0.pose.R_cw).T + np.asarray(cam0.pose.t_cw))[:, 2]
+    keep = z > 0
+    gm = initialize_map(pts[keep], cols[keep], z[keep].astype(np.float32),
+                        focal=60.0, scaling_scale=1.0, sh_degree=3, capacity=512)
+    return gm, frames
+
+
+def tied_scene():
+    """(gm, frames) of tests/test_parallel.py's TestDepthKeyTies: 64
+    Gaussians on one z-plane (equal truncated depth keys) with large
+    overlapping footprints, so the blend order within a tile is the k-major
+    slot order."""
+    from gaussian_lic_tpu.models.gaussians import initialize_map
+    from gaussian_lic_tpu.utils.synthetic import make_sequence, make_world
+
+    P = 64
+    rng = np.random.default_rng(3)
+    pts = np.stack([rng.uniform(-1.5, 1.5, P), rng.uniform(-0.7, 0.7, P),
+                    np.full(P, 4.0)], axis=1).astype(np.float32)
+    cols = rng.uniform(0.05, 0.95, (P, 3)).astype(np.float32)
+    gm = initialize_map(pts, cols, np.full(P, 4.0, np.float32), focal=60.0,
+                        scaling_scale=8.0, sh_degree=0, capacity=P)
+    world = make_world(rng, n_points=64)
+    frames = make_sequence(world, n_frames=1, points_per_frame=32, rng=rng)
+    return gm, frames
+
+
+def _keyframes(intr, frames, capacity):
+    from gaussian_lic_tpu.engine.dataset import KeyframeBuffer, build_camera
+
+    kf = KeyframeBuffer.empty(capacity, intr)
+    for i, f in enumerate(frames):
+        kf = kf.set_frame(i, build_camera(intr, f), f.image_u8())
+    return kf
+
+
+def _map_dict(prefix: str, gm) -> dict:
+    out = {f"{prefix}_{name}": np.asarray(getattr(gm, name)) for name in GM_FIELDS}
+    out[f"{prefix}_count"] = np.int32(int(gm.count))
+    return out
+
+
+def sharded_binning(mesh, n_dev, grid, band_n_ty, K, m_pair, inputs):
+    """bin_gaussians_sharded on every device of `mesh` (replicated inputs):
+    each output stacked over the devices, (D, ...)."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from gaussian_lic_tpu.ops.blend_pallas import CHUNK
+    from gaussian_lic_tpu.parallel.sharded import AXIS_TILES, bin_gaussians_sharded
+
+    def body(*args):
+        out = bin_gaussians_sharded(*args, grid, axis_name=AXIS_TILES, n_dev=n_dev,
+                                    band_n_ty=band_n_ty, max_tiles_per_gaussian=K,
+                                    m_pair=m_pair, align=CHUNK)
+        return tuple(x[None] for x in out)
+
+    fn = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(P(),) * 6,
+                               out_specs=(P(AXIS_TILES),) * 7, check_vma=False))
+    return [np.asarray(x) for x in fn(*inputs)]
+
+
+BIN_FIELDS = ("sorted_gauss", "tile_starts", "tile_lens", "cnt", "num_valid",
+              "budget_lost", "truncated")
+
+
+def make_parallel() -> dict:
+    """JAX's sharded functions at D = 2 and 4: the binning of camera 0's
+    projection (bin_gaussians_sharded, per device), make_sharded_render on
+    keyframe 0 of the setup scene and of the tied-depth scene, and two steps
+    of make_sharded_train_step(with_grads=True) on keyframes 0 and 1."""
+    _jax_cpu()
+    import jax.numpy as jnp
+
+    from gaussian_lic_tpu.camera import Intrinsics
+    from gaussian_lic_tpu.engine.dataset import KeyframeBuffer
+    from gaussian_lic_tpu.engine.trainer import PARAM_GROUPS
+    from gaussian_lic_tpu.ops import adam as adam_ops
+    from gaussian_lic_tpu.ops.projection import OPACITY_THRESHOLD, project_gaussians
+    from gaussian_lic_tpu.ops.rasterize import _splat_budget_for
+    from gaussian_lic_tpu.parallel import (
+        make_mesh, make_sharded_render, make_sharded_train_step,
+    )
+    from gaussian_lic_tpu.parallel.sharded import _band_geometry
+
+    cfg = parallel_params()
+    intr = Intrinsics(**PARALLEL_RIG)
+    gm, frames = parallel_scene()
+    kf = _keyframes(intr, frames, cfg.max_train_keyframes)
+    tgm, tframes = tied_scene()
+    tkf = _keyframes(intr, tframes, 2)
+    tcfg = parallel_params(initial_capacity=64)
+    out = dict(_map_dict("map", gm), **_map_dict("tied", tgm),
+               **{f"frames_{k}": v for k, v in _frames_dict(frames).items()},
+               **{f"tied_frames_{k}": v for k, v in _frames_dict(tframes).items()})
+
+    # camera 0's projection: the binning's inputs, as render_band makes them
+    cam = KeyframeBuffer.camera(kf, intr, jnp.asarray(0, jnp.int32))
+    proj = project_gaussians(gm.xyz, gm.scaling, gm.rotation, cam)
+    opa = gm.opacity
+    active = (proj.in_front & proj.det_valid & (opa >= OPACITY_THRESHOLD)
+              & gm.active_mask())
+    radius = jnp.where(active, proj.radius, 0.0)
+    inputs = (proj.xy, proj.depth, proj.conic, opa, radius, active)
+    for name, a in zip(("xy", "depth", "conic", "opacity", "radius", "active"), inputs):
+        out[f"bin_in_{name}"] = np.asarray(a)
+
+    zeros = {name: adam_ops.AdamState(jnp.zeros_like(gm.trainable()[name]),
+                                      jnp.zeros_like(gm.trainable()[name]))
+             for name in PARAM_GROUPS}
+    for D in PARALLEL_MESHES:
+        mesh = make_mesh(D)
+        grid, band_n_ty = _band_geometry(intr, cfg, D)
+        m_local = max(_splat_budget_for(gm.capacity, cfg) // D, 1 << 10)
+        m_pair = max(-(-int(cfg.bucket_overprovision * m_local) // D) // 256 * 256, 512)
+        out[f"bin{D}_m_pair"] = np.int32(m_pair)
+        for f, a in zip(BIN_FIELDS, sharded_binning(
+                mesh, D, grid, band_n_ty, cfg.max_tiles_per_gaussian, m_pair, inputs)):
+            out[f"bin{D}_{f}"] = a
+        img, ft = make_sharded_render(intr, cfg, mesh)(gm, kf, jnp.asarray(0, jnp.int32))
+        out[f"render{D}_image"], out[f"render{D}_final_t"] = np.asarray(img), np.asarray(ft)
+        img, ft = make_sharded_render(intr, tcfg, mesh)(tgm, tkf, jnp.asarray(0, jnp.int32))
+        out[f"tied{D}_image"], out[f"tied{D}_final_t"] = np.asarray(img), np.asarray(ft)
+        step = make_sharded_train_step(intr, cfg, mesh, with_grads=True)
+        gm_s, opt_s = gm, zeros
+        for i in range(2):
+            gm_s, opt_s, m = step(gm_s, opt_s, kf, jnp.asarray(i % 2, jnp.int32),
+                                  jnp.asarray(i + 1, jnp.int32))
+            tag = f"step{D}_{i}"
+            out[f"{tag}_loss"] = np.float32(m["loss"])
+            out[f"{tag}_n_visible"] = np.int32(m["n_visible"])
+            for g in PARAM_GROUPS:
+                out[f"{tag}_grad_{g}"] = np.asarray(m["grads"][g])
+            for name in GM_FIELDS:
+                out[f"{tag}_{name}"] = np.asarray(getattr(gm_s, name))
+    return out
+
+
+CASES = {"blend": make_blend, "nan_row": make_nan_row, "train": make_train,
+         "engine": make_engine, "finalize": make_finalize, "parallel": make_parallel}
 
 
 def main() -> int:

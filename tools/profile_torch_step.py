@@ -4,15 +4,19 @@ Builds the train-step benchmark state (1M Gaussians at the fastlivo rig by
 default, `utils.synthetic.make_bench_state`), warms up, then runs a few steps
 under torch.profiler and prints, per step: the wall time with and without
 the profiler, the summed kernel time and the device's busy share, and the
-kernels that take the most device time. Needs a CUDA device; imports no JAX.
+kernels that take the most device time. `--sharded` profiles the multi-GPU
+step (parallel.make_sharded_train_step) on a one-rank NCCL group instead of
+`train_step`: what the sharded machinery costs on one card. Needs a CUDA
+device; imports no JAX.
 
 Usage: python tools/profile_torch_step.py [--gaussians N] [--steps 5]
-                                         [--trace step_trace.json]
+                                         [--trace step_trace.json] [--sharded]
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import subprocess
 import sys
@@ -26,6 +30,8 @@ def main() -> int:
     ap.add_argument("--gaussians", type=int, default=1 << 20)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--trace", default=None, help="write a chrome trace here")
+    ap.add_argument("--sharded", action="store_true",
+                    help="the sharded step on a one-rank NCCL group")
     args = ap.parse_args()
 
     import torch
@@ -47,6 +53,13 @@ def main() -> int:
     n = args.gaussians
     cfg = load_params(preset="fastlivo", initial_capacity=n, skybox_points_num=0)
     intr, gm, kf, opt = make_bench_state(cfg, n, dev)
+    train_step = functools.partial(trainer.train_step, intr=intr, cfg=cfg)
+    if args.sharded:
+        from gaussian_lic_tpu_torch import parallel
+
+        mesh = parallel.make_mesh(1, device=dev)
+        gm, opt = parallel.shard_state(gm, opt, mesh)
+        train_step = parallel.make_sharded_train_step(intr, cfg, mesh)
 
     step = 0
 
@@ -55,7 +68,7 @@ def main() -> int:
         m = None
         for _ in range(k):
             step += 1
-            gm, opt, m = trainer.train_step(gm, opt, kf, step % 4, step, intr=intr, cfg=cfg)
+            gm, opt, m = train_step(gm, opt, kf, step % 4, step)
         return m
 
     run(3)
@@ -85,7 +98,8 @@ def main() -> int:
     kernels = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                       and self_dev_us(e) > 0), key=self_dev_us, reverse=True)
     total_dev = sum(self_dev_us(e) for e in kernels) / 1e3 / args.steps
-    print(f"card: {card}; {n} Gaussians {cfg.width}x{cfg.height}; steps {args.steps}")
+    print(f"card: {card}; {n} Gaussians {cfg.width}x{cfg.height}; steps {args.steps}; "
+          + ("sharded step, one-rank NCCL group" if args.sharded else "train_step"))
     print(f"wall ms/step: {wall_plain:.3f} (unprofiled), {wall_prof:.3f} (profiled)")
     print(f"kernel time: {total_dev:.3f} ms/step; device busy {100 * total_dev / wall_prof:.1f}% "
           f"of the profiled step, {100 * total_dev / wall_plain:.1f}% of the unprofiled one")
@@ -93,6 +107,8 @@ def main() -> int:
     for e in kernels[:25]:
         print(f"  {self_dev_us(e) / 1e3 / args.steps:9.3f}  x{e.count // args.steps:<5d} "
               f"{e.key[:110]}")
+    if args.sharded:
+        torch.distributed.destroy_process_group()
     return 0
 
 
