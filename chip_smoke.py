@@ -67,7 +67,18 @@ exit code is not 0:
      just after, train PSNR within 0.1 dB of phase 3's; (e) `run.main
      --mesh-devices 1` on phase 5's 64x64 application, metrics within
      1e-4 of phase 5's card run. One card cannot run two NCCL ranks: the
-     exchange between ranks is tested on the CPU (tests/test_torch_parallel.py).
+     exchange between ranks is tested on the CPU (tests/test_torch_parallel.py);
+  7. the dense oracle and the production-scale tools: (a) K1 and K2 against
+     an independent reference, the dense oracle (ops/rasterize_ref.py), on
+     tests/test_rasterize_tiled.py's scenes at 256x64 (a 200-Gaussian
+     forward; the gradients of a 60-Gaussian scene through K1 + K2 against
+     autograd of the oracle), and the oracle on the card against the CPU;
+     (b) tools/soak_torch.py through its main() at 60 frames of the
+     production config (skybox 100,000, 16 tile slots, 100 iterations a
+     keyframe), which must print SOAK PASS, with the launch counters zeroed
+     just before and read just after; (c) tools/validate_scale_torch.py at
+     its defaults (VALIDATION PASS); (d) run._demo_frames at the fastlivo
+     rig, whose GT comes from the dense oracle, on the card against the CPU.
 
 It never falls back to the CPU for the card's work: without a CUDA device it
 exits with an error before printing any result. The last line is
@@ -1279,6 +1290,201 @@ def phase_sharded(dev, card: str, slice_res: dict, app_res: dict, tmp: str) -> d
     return dict(steps=steps, engine_psnr=psnr)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the dense oracle, the production-scale tools, the synthetic GT
+# ---------------------------------------------------------------------------
+
+ORACLE_RIG = dict(width=256, height=64, fx=80.0, fy=80.0, cx=128.0, cy=32.0)
+ORACLE_GEOM = ("xyz", "scale", "quat", "opacity")
+# render_tiled (K1) vs render_dense: tests/test_rasterize_tiled.py:139-149's bounds
+ORACLE_IMG_MAX, ORACLE_IMG_MEAN, ORACLE_T_MAX = 0.02, 1e-4, 0.03
+ORACLE_GRAD_RTOL = 1e-4    # K1 + K2 grads vs autograd of render_dense, of each column's max
+ORACLE_CARD_ATOL = 1e-5    # render_dense on the card vs on the CPU
+DEMO_LSB, DEMO_SHARE = 1, 1e-3   # run._demo_frames' uint8 images, card vs CPU
+SOAK_FRAMES = 60           # 12 keyframes, 78 steps
+DEMO_FRAMES = 2            # the CPU's dense GT takes ~15 s a frame at 640x512
+
+
+def oracle_scene(rng, m: int, opa_range=(0.2, 0.9)) -> dict:
+    """tests/test_rasterize_tiled.py:27-41's random_scene, as numpy arrays."""
+    xyz = np.stack([rng.uniform(-6, 6, m), rng.uniform(-1, 1, m), rng.uniform(3, 10, m)],
+                   1).astype(np.float32)
+    scale = (np.abs(rng.normal(size=(m, 3))) * 0.08 + 0.03).astype(np.float32)
+    quat = rng.normal(size=(m, 4)).astype(np.float32)
+    opacity = rng.uniform(*opa_range, m).astype(np.float32)
+    dc = (rng.normal(size=(m, 3)) * 0.4).astype(np.float32)
+    shr = (rng.normal(size=(m, 15, 3)) * 0.05).astype(np.float32)
+    return dict(xyz=xyz, scale=scale, quat=quat, opacity=opacity, dc=dc, sh_rest=shr)
+
+
+def oracle_camera(dev):
+    from gaussian_lic_tpu_torch.camera import Intrinsics, look_at, make_camera
+
+    R_wc, t_wc = look_at(np.zeros(3), np.array([0.0, 0.0, 1.0]))
+    return make_camera(Intrinsics(**ORACLE_RIG), R_wc, t_wc, device=dev)
+
+
+def oracle_grads(params: dict, target, cam, renderer) -> dict:
+    """Gradients of mean((image - target)^2) by the six parameter groups
+    (tests/test_rasterize_tiled.py:199-233)."""
+    import torch
+
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    out = renderer(p["xyz"], torch.exp(p["log_scale"]), p["quat"], torch.sigmoid(p["opa_logit"]),
+                   cam, dc=p["dc"], sh_rest=p["sh_rest"], sh_degree=3)
+    loss = torch.mean((out.image - target) ** 2)
+    return dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+
+
+def check_oracle(dev) -> dict:
+    """(a) K1 and K2 against the dense oracle on the card, an independent
+    reference: the 200-Gaussian forward, the 60-Gaussian gradients, and the
+    card's oracle against the CPU's."""
+    import torch
+
+    from gaussian_lic_tpu_torch.ops import blend
+    from gaussian_lic_tpu_torch.ops.rasterize import render_tiled
+    from gaussian_lic_tpu_torch.ops.rasterize_ref import render_dense
+
+    sc = oracle_scene(np.random.default_rng(7), 200)
+
+    def scene_on(d):
+        """(positional args, keyword args) of the renderers on device d."""
+        t = {k: torch.as_tensor(v, device=d) for k, v in sc.items()}
+        return [t[k] for k in ORACLE_GEOM] + [oracle_camera(d)], dict(dc=t["dc"],
+                                                                    sh_rest=t["sh_rest"])
+
+    (args, kw), (args_cpu, kw_cpu) = scene_on(dev), scene_on("cpu")
+    blend.reset_launches()
+    with torch.no_grad():
+        tiled = render_tiled(*args, **kw, max_total_splats=1 << 14)
+        dense = render_dense(*args, **kw)
+        dense_cpu = render_dense(*args_cpu, **kw_cpu)
+    d_img = (tiled.image - dense.image).abs()
+    res = dict(img_max=float(d_img.max()), img_mean=float(d_img.mean()),
+               final_t=float((tiled.final_T - dense.final_T).abs().max()),
+               radii=float((tiled.radii - dense.radii).abs().max()),
+               card_cpu=max(float((dense.image.cpu() - dense_cpu.image).abs().max()),
+                            float((dense.final_T.cpu() - dense_cpu.final_T).abs().max())),
+               n_contrib_card_cpu=int((dense.n_contrib.cpu() != dense_cpu.n_contrib).sum()))
+    log(f"[7a] 200 Gaussians at 256x64, K1 vs the dense oracle on the card: image max|d| "
+        f"{res['img_max']:.3e} (bound {ORACLE_IMG_MAX}), mean {res['img_mean']:.3e} "
+        f"(bound {ORACLE_IMG_MEAN}), final_T max|d| {res['final_t']:.3e} (bound "
+        f"{ORACLE_T_MAX}), radii max|d| {res['radii']:.3e}, overflow {int(tiled.overflow)}")
+    log(f"[7a] the oracle, card vs CPU: image/final_T max|d| {res['card_cpu']:.3e} (tolerance "
+        f"{ORACLE_CARD_ATOL}), n_contrib mismatches {res['n_contrib_card_cpu']}")
+    if (int(tiled.overflow) or res["img_max"] >= ORACLE_IMG_MAX
+            or res["img_mean"] >= ORACLE_IMG_MEAN or res["final_t"] >= ORACLE_T_MAX
+            or not torch.equal(tiled.visible, dense.visible)
+            or not torch.allclose(tiled.radii, dense.radii)):
+        raise AssertionError(f"K1 disagrees with the dense oracle: {res}")
+    if not res["card_cpu"] <= ORACLE_CARD_ATOL:
+        raise AssertionError(f"the dense oracle on the card disagrees with the CPU's: {res}")
+
+    rng = np.random.default_rng(8)
+    g = oracle_scene(rng, 60, opa_range=(0.2, 0.8))
+    params = dict(xyz=g["xyz"], log_scale=np.log(g["scale"]), quat=g["quat"],
+                  opa_logit=np.log(g["opacity"] / (1 - g["opacity"])), dc=g["dc"],
+                  sh_rest=g["sh_rest"])
+    params = {k: torch.as_tensor(v, device=dev) for k, v in params.items()}
+    target = torch.as_tensor(rng.uniform(size=(3, ORACLE_RIG["height"], ORACLE_RIG["width"]))
+                             .astype(np.float32), device=dev)
+    cam = args[-1]
+    g_dense = oracle_grads(params, target, cam, render_dense)
+    g_tiled = oracle_grads(params, target, cam,
+                           lambda *a, **k: render_tiled(*a, **k, max_total_splats=1 << 14))
+    torch.cuda.synchronize()
+    res["launches"] = dict(blend.LAUNCHES)
+    res["grad_rel"] = {}
+    for k in params:
+        a, b = g_tiled[k].reshape(60, -1), g_dense[k].reshape(60, -1)
+        res["grad_rel"][k] = float(((a - b).abs().amax(0) / b.abs().amax(0).clamp_min(1e-12)).max())
+    log(f"[7a] 60 Gaussians, gradients through K1 + K2 vs autograd of the oracle, relative to "
+        f"each column's max: {json.dumps(res['grad_rel'])} (tolerance {ORACLE_GRAD_RTOL}); "
+        f"launches {res['launches']}")
+    if max(res["grad_rel"].values()) > ORACLE_GRAD_RTOL:
+        raise AssertionError(f"K1 + K2 gradients disagree with the dense oracle: {res}")
+    if res["launches"]["forward"] <= 0 or res["launches"]["backward"] <= 0:
+        raise AssertionError(f"K1 or K2 did not launch against the oracle: {res['launches']}")
+    return res
+
+
+def load_tool(name: str):
+    """tools/<name>.py as a module."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_soak(dev, tmp: str, frames: int = SOAK_FRAMES, extra=()) -> dict:
+    """(b) tools/soak_torch.py through its own main() at the production
+    config (skybox 100,000, K = 16, 100 iterations a keyframe), launch
+    counters zeroed just before and read just after."""
+    from gaussian_lic_tpu_torch.ops import blend
+
+    out = os.path.join(tmp, "soak.json")
+    blend.reset_launches()
+    rc = load_tool("soak_torch").main(["--frames", str(frames), "--device", str(dev),
+                                       "--out", out, *extra])
+    launches = dict(blend.LAUNCHES)
+    with open(out) as f:
+        summary = json.load(f)["summary"]
+    log(f"[7b] soak exit code {rc}; launches {launches}")
+    if rc != 0:
+        raise AssertionError(f"tools/soak_torch.py exited {rc}: {summary}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched in the soak: {launches}")
+    return dict(summary=summary, launches=launches)
+
+
+def check_demo_frames(dev, n_frames: int = DEMO_FRAMES) -> dict:
+    """(d) the synthetic GT repair on the card: run._demo_frames at the
+    fastlivo rig (600 points: the dense oracle) on the card against the CPU."""
+    from gaussian_lic_tpu_torch import run
+    from gaussian_lic_tpu_torch.config import load_params
+
+    cfg = load_params(CONFIG)
+    card = run._demo_frames(cfg, n_frames=n_frames, device=dev)
+    cpu = run._demo_frames(cfg, n_frames=n_frames, device="cpu")
+    lsb, off, values = 0, 0, 0
+    for a, b in zip(card, cpu):
+        d = np.abs(a.image.astype(np.int32) - b.image.astype(np.int32))
+        lsb, off, values = max(lsb, int(d.max())), off + int((d > 0).sum()), values + d.size
+        if not (np.array_equal(a.points, b.points) and np.array_equal(a.R_wc, b.R_wc)):
+            raise AssertionError("_demo_frames' LiDAR points or poses differ across devices")
+    log(f"[7d] _demo_frames at {cfg.width}x{cfg.height}, {n_frames} frames, card vs CPU: "
+        f"max {lsb} LSB, {off} of {values} values differ (tolerance {DEMO_LSB} LSB on "
+        f"{DEMO_SHARE:.1%})")
+    if len(card) != len(cpu) or lsb > DEMO_LSB or off > DEMO_SHARE * values:
+        raise AssertionError("the demo's GT frames on the card disagree with the CPU's")
+    return dict(lsb=lsb, off=off, values=values)
+
+
+def phase_tools(dev, tmp: str) -> dict:
+    """(a) K1/K2 against the dense oracle; (b) the soak tool at 60 frames;
+    (c) the validation tool at its defaults; (d) the demo's GT frames, card
+    against CPU."""
+    res = {}
+    t0 = time.perf_counter()
+    res["oracle"] = check_oracle(dev)
+    log(f"[7a] seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    res["soak"] = run_soak(dev, tmp)
+    log(f"[7b] seconds {time.perf_counter() - t0:.2f}")
+    gc.collect()
+    t0 = time.perf_counter()
+    rc = load_tool("validate_scale_torch").main(["--device", str(dev)])
+    log(f"[7c] validate_scale_torch exit code {rc}; seconds {time.perf_counter() - t0:.2f}")
+    if rc != 0:
+        raise AssertionError(f"tools/validate_scale_torch.py exited {rc}")
+    gc.collect()
+    t0 = time.perf_counter()
+    res["demo"] = check_demo_frames(dev)
+    log(f"[7d] seconds {time.perf_counter() - t0:.2f}")
+    return res
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "gaussian_lic_tpu_torch")):
         print("chip_smoke.py: the gaussian_lic_tpu_torch package is not beside this "
@@ -1337,7 +1543,12 @@ def main() -> int:
         log(f"[5] phase seconds {time.perf_counter() - t0:.2f}")
         t0 = time.perf_counter()
         phase_sharded(dev, card, slice_res, app_res, tmp)
-    log(f"[6] phase seconds {time.perf_counter() - t0:.2f}")
+        log(f"[6] phase seconds {time.perf_counter() - t0:.2f}")
+        del slice_res, app_res
+        gc.collect()
+        t0 = time.perf_counter()
+        phase_tools(dev, tmp)
+    log(f"[7] phase seconds {time.perf_counter() - t0:.2f}")
     log(f"total seconds {time.perf_counter() - t_all:.2f}")
 
     for k in kernels:

@@ -29,6 +29,7 @@ import torch
 
 from gaussian_lic_tpu_torch.ops import sh as sh_ops
 from gaussian_lic_tpu_torch.ops.knn import mean_knn_dist2
+from gaussian_lic_tpu_torch.ops.projection import build_cov3d
 
 Device = Union[str, torch.device]
 
@@ -60,6 +61,11 @@ def _inverse_sigmoid_scalar(x: float) -> float:
 
 
 OPA_LOGIT_INIT = _inverse_sigmoid_scalar(0.1)
+
+
+def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """general_utils::inverse_sigmoid: log(x / (1 - x))."""
+    return torch.log(x / (1.0 - x))
 
 
 def _identity_quats(n: int, device: Device) -> torch.Tensor:
@@ -112,6 +118,10 @@ class GaussianMap:
     @property
     def opacity(self) -> torch.Tensor:
         return torch.sigmoid(self.opa_logit)
+
+    def covariance(self, scaling_modifier: float = 1.0) -> torch.Tensor:
+        """Full (C,3,3) Sigma = R diag((m s)^2) R^T (getCovariance, gaussian.cpp:177-205)."""
+        return build_cov3d(scaling_modifier * self.scaling, self.rotation)
 
     # ----- parameter dict for the optimizer -----
 

@@ -115,6 +115,47 @@ def gaussian_rects(
     return rect_min_x, rect_min_y, rect_max_x, rect_max_y
 
 
+def compute_slot_tiles(
+    xy: torch.Tensor,       # (P,2)
+    conic: torch.Tensor,    # (P,3)
+    opacity: torch.Tensor,  # (P,)
+    radius: torch.Tensor,   # (P,)
+    live: torch.Tensor,     # (P,) bool
+    grid: TileGrid,
+    K: int,
+):
+    """Per-slot tile assignment with StopThePop exact culling, p-major: slot
+    k of a Gaussian is the k-th tile of its bounding rect in row-major order
+    (duplicateWithKeys' enumeration, rasterizer_impl.cu:59-193), kept only if
+    the Gaussian's largest contribution inside the tile can reach the opacity
+    threshold (forward.cu:169-170). Returns (tx, ty, slot_valid, in_rect,
+    (rminy, rmaxy, rect_w)): all (P, K) except the rect's (P,) rows. The
+    binning itself enumerates the same slots k-major
+    (`compute_slot_keys_kmajor`)."""
+    rminx, rminy, rmaxx, rmaxy = gaussian_rects(xy, radius, grid)
+    rect_w = rmaxx - rminx
+    rect_count = rect_w * (rmaxy - rminy)
+
+    k = torch.arange(K, dtype=torch.int32, device=xy.device)[None, :]   # (1, K)
+    safe_w = torch.clamp_min(rect_w, 1)[:, None]                        # (P, 1)
+    tx = rminx[:, None] + k % safe_w                                    # (P, K)
+    ty = rminy[:, None] + torch.div(k, safe_w, rounding_mode="floor")
+    in_rect = k < rect_count[:, None]
+
+    power = max_contrib_power_rect_components(
+        conic[:, None, 0], conic[:, None, 1], conic[:, None, 2],
+        xy[:, None, 0], xy[:, None, 1],
+        (tx * grid.tile_w).float(), (ty * grid.tile_h).float(),
+        ((tx + 1) * grid.tile_w - 1).float(), ((ty + 1) * grid.tile_h - 1).float(),
+    )
+    opacity_power_threshold = torch.log(
+        torch.clamp_min(opacity, OPACITY_THRESHOLD) / OPACITY_THRESHOLD
+    )
+    contributes = power <= opacity_power_threshold[:, None]
+    slot_valid = live[:, None] & in_rect & contributes
+    return tx, ty, slot_valid, in_rect, (rminy, rmaxy, rect_w)
+
+
 def compute_slot_keys_kmajor(
     xy: torch.Tensor,       # (P,2)
     dkey: torch.Tensor,     # (P,) int64 truncated depth key (depth_key())

@@ -3,10 +3,10 @@
 The JAX package's `utils/synthetic.py` with the same numpy draws: a world of
 colored surfel points, a smooth camera trajectory, GT images rendered from
 the ground-truth Gaussian scene, and per-frame "LiDAR" returns (the world
-points in front of the camera, colorized). GT images render through this
-package's `render_tiled` at every size (the JAX version uses its dense oracle
-for n <= 2048), so tests that compare the two packages build their frames
-with the JAX package.
+points in front of the camera, colorized). As in the JAX package, GT images
+of worlds of at most 2048 points come from the dense oracle
+(`ops.rasterize_ref.render_dense`) and larger worlds render through the
+tiled rasterizer, so a small world's frames are the JAX package's frames.
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ from gaussian_lic_tpu_torch.camera import Camera, Intrinsics, look_at, make_came
 from gaussian_lic_tpu_torch.engine.dataset import FrameInput, KeyframeBuffer, build_camera
 
 Device = Union[str, torch.device]
+
+DENSE_GT_MAX = 2048   # worlds up to this size render their GT with the dense oracle
 
 
 @dataclass
@@ -39,25 +41,26 @@ class SyntheticWorld:
     @torch.no_grad()
     def render_gt(self, cam: Camera) -> np.ndarray:
         """(3, H, W) GT image in [0, 1] from the ground-truth Gaussian scene,
-        rendered on the camera's device."""
+        rendered on the camera's device: by the exact dense oracle for worlds
+        of at most DENSE_GT_MAX points, by the tiled rasterizer above (the
+        oracle is O(points x pixels))."""
         from gaussian_lic_tpu_torch.ops import sh as sh_ops
         from gaussian_lic_tpu_torch.ops.rasterize import render_tiled
+        from gaussian_lic_tpu_torch.ops.rasterize_ref import render_dense
 
         n = len(self.points)
         f32 = dict(dtype=torch.float32, device=cam.device)
         quat = torch.zeros((n, 4), **f32)
         quat[:, 0] = 1.0
-        budget = 1 << max(int(np.ceil(np.log2(max(n, 1) * 4))), 12)
-        out = render_tiled(
-            torch.as_tensor(self.points, **f32),
-            torch.as_tensor(self.scales, **f32),
-            quat,
-            torch.as_tensor(self.opacity, **f32),
-            cam,
-            dc=sh_ops.rgb_to_sh(torch.as_tensor(self.colors, **f32)),
-            sh_rest=torch.zeros((n, 15, 3), **f32),
-            max_total_splats=budget,
-        )
+        args = (torch.as_tensor(self.points, **f32), torch.as_tensor(self.scales, **f32),
+                quat, torch.as_tensor(self.opacity, **f32), cam)
+        kw = dict(dc=sh_ops.rgb_to_sh(torch.as_tensor(self.colors, **f32)),
+                  sh_rest=torch.zeros((n, 15, 3), **f32))
+        if n <= DENSE_GT_MAX:
+            out = render_dense(*args, **kw)
+        else:
+            budget = 1 << max(int(np.ceil(np.log2(max(n, 1) * 4))), 12)
+            out = render_tiled(*args, **kw, max_total_splats=budget)
         return out.image.clamp(0.0, 1.0).cpu().numpy()
 
 

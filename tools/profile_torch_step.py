@@ -6,11 +6,14 @@ under torch.profiler and prints, per step: the wall time with and without
 the profiler, the summed kernel time and the device's busy share, and the
 kernels that take the most device time. `--sharded` profiles the multi-GPU
 step (parallel.make_sharded_train_step) on a one-rank NCCL group instead of
-`train_step`: what the sharded machinery costs on one card. Needs a CUDA
-device; imports no JAX.
+`train_step`: what the sharded machinery costs on one card. `--capacity`
+pads the map to more rows than it has Gaussians, as the engine's capacity
+doubling does, and `--tiles-per-gaussian` sets the slot count K (the soak's
+skybox config takes 16). Needs a CUDA device; imports no JAX.
 
 Usage: python tools/profile_torch_step.py [--gaussians N] [--steps 5]
                                          [--trace step_trace.json] [--sharded]
+                                         [--capacity C] [--tiles-per-gaussian K]
 """
 
 from __future__ import annotations
@@ -32,6 +35,10 @@ def main() -> int:
     ap.add_argument("--trace", default=None, help="write a chrome trace here")
     ap.add_argument("--sharded", action="store_true",
                     help="the sharded step on a one-rank NCCL group")
+    ap.add_argument("--capacity", type=int, default=None,
+                    help="rows of the padded map (default: the Gaussian count)")
+    ap.add_argument("--tiles-per-gaussian", type=int, default=None,
+                    help="max_tiles_per_gaussian (default: the fastlivo preset's)")
     args = ap.parse_args()
 
     import torch
@@ -51,7 +58,10 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     n = args.gaussians
-    cfg = load_params(preset="fastlivo", initial_capacity=n, skybox_points_num=0)
+    over = {} if args.tiles_per_gaussian is None else dict(
+        max_tiles_per_gaussian=args.tiles_per_gaussian)
+    cfg = load_params(preset="fastlivo", initial_capacity=max(args.capacity or n, n),
+                      skybox_points_num=0, **over)
     intr, gm, kf, opt = make_bench_state(cfg, n, dev)
     train_step = functools.partial(trainer.train_step, intr=intr, cfg=cfg)
     if args.sharded:
@@ -98,7 +108,8 @@ def main() -> int:
     kernels = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                       and self_dev_us(e) > 0), key=self_dev_us, reverse=True)
     total_dev = sum(self_dev_us(e) for e in kernels) / 1e3 / args.steps
-    print(f"card: {card}; {n} Gaussians {cfg.width}x{cfg.height}; steps {args.steps}; "
+    print(f"card: {card}; {n} Gaussians in {gm.capacity} rows, K = "
+          f"{cfg.max_tiles_per_gaussian}, {cfg.width}x{cfg.height}; steps {args.steps}; "
           + ("sharded step, one-rank NCCL group" if args.sharded else "train_step"))
     print(f"wall ms/step: {wall_plain:.3f} (unprofiled), {wall_prof:.3f} (profiled)")
     print(f"kernel time: {total_dev:.3f} ms/step; device busy {100 * total_dev / wall_prof:.1f}% "
