@@ -34,21 +34,28 @@ exit code is not 0:
      scene (1M Gaussians, camera 0), with the probe launch counters zeroed
      just before and read just after: every variant must show;
   3. the slice: MappingEngine.add_frame over a 40-frame synthetic stream at
-     the fastlivo rig (640x512, SH 3, 16 tile slots, capacity 262144); the
-     launch counters are zeroed just before the stream and read just after,
-     and must show every kernel; the train PSNR must clear a floor; the same
-     small stream through the engine on the card and on the CPU (plain path)
-     must agree;
-  4. full-size train steps: the 1M-Gaussian state of phase 2, 3 warm-up + 20
-     timed steps (ms/step, it/s, peak memory, overflow counters);
+     the fastlivo rig (640x512, SH 3, 16 tile slots, capacity 262144), its
+     steps in bundles (CUDA graphs); the launch counters are zeroed just
+     before the stream and read just after, and must show every kernel; the
+     train PSNR must clear a floor; the same small stream through the engine
+     on the card and on the CPU (plain path, eager bundles) must agree; the
+     graphs' capture seconds and the compile count are printed;
+  4. full-size train steps: the 1M-Gaussian state of phase 2, 100 steps
+     eagerly and as the bundles 64+16+16+4 in turns (eager, bundle, bundle,
+     eager, after an untimed pass that captures the graphs) from one state:
+     ms/step, it/s, peak memory, overflow counters, capture seconds and the
+     graph pool's bytes; the bundles' losses must agree with the eager
+     runs' within their spread, and their K1/K2 launches must equal the
+     eager loop's;
   5. the application: phase 3's stream written as a RecordedStream directory
      (stamps 0.1 s apart) and run through `run.main` with config/fastlivo.yaml
      as shipped (100,000 skybox Gaussians, 16 tile slots), randinit LPIPS,
      a result path, a checkpoint and the phase timers, on the card; the
      launch counters are zeroed just before and read at the end of the
-     stream and around `finalize`. It checks the exit code, the kernels'
-     launches in the stream and one K1 launch per eval view, finite eval
-     metrics above a train-PSNR floor, the PLY's vertex count (the skybox
+     stream and around `finalize` (its steps in bundles, as in phase 3).
+     It checks the exit code, the kernels' launches in the stream and one
+     K1 launch per eval view, finite eval metrics above a train-PSNR
+     floor, the PLY's vertex count (the skybox
      left out), the 40 PNG pairs, and that the checkpoint loads back equal
      to the engine that wrote it; then a 64x64 application with a 256-point
      skybox runs through `run.main` on the card and on the CPU, and their
@@ -75,8 +82,8 @@ exit code is not 0:
      autograd of the oracle), and the oracle on the card against the CPU;
      (b) tools/soak_torch.py through its main() at 60 frames of the
      production config (skybox 100,000, 16 tile slots, 100 iterations a
-     keyframe), which must print SOAK PASS, with the launch counters zeroed
-     just before and read just after; (c) tools/validate_scale_torch.py at
+     keyframe, in bundles), which must print SOAK PASS, with the launch
+     counters zeroed just before and read just after; (c) tools/validate_scale_torch.py at
      its defaults (VALIDATION PASS); (d) run._demo_frames at the fastlivo
      rig, whose GT comes from the dense oracle, on the card against the CPU.
 
@@ -725,6 +732,7 @@ def phase_slice(dev, kernels: list, n_points: int = 50000, n_frames: int = 40,
     eng, rows = run_engine(cfg, frames, dev, verbose=True)
     launches = dict(blend.LAUNCHES)
     log(f"[3] launches in the stream: {launches}")
+    log(f"[3] bundles: compiles {eng.timers.compiles}; {graph_line(eng.graphs)}")
 
     kf_losses = [r[2] for r in rows]
     if not all(math.isfinite(v) for v in kf_losses):
@@ -777,47 +785,109 @@ def bench_state(dev, n: int = 1 << 20) -> dict:
     return dict(n=n, cfg=cfg, intr=intr, gm=gm, kf=kf, opt=opt)
 
 
-def phase_steps(dev, card: str, state: dict) -> dict:
+BUNDLE_STEPS = 100         # a keyframe's steps: 64 + 16 + 16 + 4 at the shipped sizes
+# The bundles' 100-step losses against the eager runs': K2's atomics sum in
+# a new order each run, so two eager runs differ in the last bits and drift
+# apart over the steps (sparse Adam is sign-like on noise gradients): 3.2e-5
+# relative between two eager runs at 1M on an H100. Every bundle loss must
+# lie within SPREAD_FACTOR x the two eager runs' gap of both (a gap of 2
+# samples is a loose estimate of the spread), or within LOSS_RTOL_FLOOR
+# relative; a bundle that lost a step or its state is off by far more.
+SPREAD_FACTOR = 3.0
+LOSS_RTOL_FLOOR = 2e-4
+
+
+def graph_line(g) -> str:
+    """Captures (k: seconds), the graph pool's bytes and the warm-up
+    launches of a BundleGraphs (an engine's is `eng.graphs`)."""
+    caps = ", ".join(f"{k}: {sec:.3f} s" for k, sec, _ in g.captures)
+    return (f"captures [{caps}], pool {g.pool_bytes / 2**20:.1f} MiB, warm-up launches "
+            f"{g.warmup_launches}")
+
+
+def phase_steps(dev, card: str, state: dict, steps: int = BUNDLE_STEPS) -> dict:
+    """`steps` train steps from the 1M state, eagerly one by one and as the
+    engine's bundles (CUDA graphs), in turns (eager, bundle, bundle, eager)
+    after an untimed pass that captures the graphs. Each turn starts from
+    the same state and keyframe ids; its window ends in synchronize() and
+    the loss's host fetch. The bundles' losses must lie within the eager
+    runs' spread, and their K1/K2 launches must equal the eager loop's."""
     import torch
 
-    from gaussian_lic_tpu_torch.engine.trainer import train_step
+    from gaussian_lic_tpu_torch.engine.trainer import (
+        BundleGraphs, _decompose_bundles, _make_train_bundle, train_step,
+    )
+    from gaussian_lic_tpu_torch.ops import blend
 
-    n, cfg, intr, gm, kf, opt = (state[k] for k in ("n", "cfg", "intr", "gm", "kf", "opt"))
-    del state["gm"], state["opt"]   # the steps replace them
+    n, cfg, intr, gm0, kf, opt0 = (state[k] for k in ("n", "cfg", "intr", "gm", "kf", "opt"))
+    del state["gm"], state["opt"]   # the runs start from gm0/opt0
     gc.collect()                    # engines of phase 3 held in reference cycles
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
+    idxs = torch.as_tensor(np.random.default_rng(5).integers(0, kf.images.shape[0], steps),
+                           device=dev)
+    sizes = _decompose_bundles(steps, cfg.opt_bundle_sizes)
+    graphs = BundleGraphs()
+    bundles = {k: _make_train_bundle(intr, cfg, k, graphs) for k in set(sizes)}
 
-    step = 0
-
-    def run(k):
-        nonlocal gm, opt, step
-        m = None
-        for _ in range(k):
-            step += 1
-            gm, opt, m = train_step(gm, opt, kf, step % 4, step, intr=intr, cfg=cfg)
+    def eager():
+        gm, opt, m = gm0, opt0, None
+        for i in range(steps):
+            gm, opt, m = train_step(gm, opt, kf, idxs[i], i + 1, intr=intr, cfg=cfg)
         return m
 
-    run(3)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    m = run(20)
-    torch.cuda.synchronize()
-    loss = float(m["loss"])
-    dt = time.perf_counter() - t0
-    ms = dt / 20 * 1e3
-    peak = torch.cuda.max_memory_allocated(dev)
-    res = dict(ms_per_step=ms, it_per_s=1e3 / ms, peak_bytes=peak, loss=loss,
-               budget_lost=int(m["budget_lost"]), truncated=int(m["truncated"]),
-               n_visible=int(m["n_visible"]))
-    log(f"[4] {n} Gaussians 640x512 ({card}): {ms:.3f} ms/step, {1e3 / ms:.3f} it/s, "
-        f"peak memory {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held before the "
-        f"steps), loss {loss:.6f}, visible {res['n_visible']}, "
-        f"budget_lost {res['budget_lost']}, truncated {res['truncated']}")
-    if not math.isfinite(loss):
-        raise AssertionError(f"non-finite loss {loss}")
-    return res
+    def bundled():
+        gm, opt, m, pos = gm0, opt0, None, 0
+        for k in sizes:
+            gm, opt, m = bundles[k](gm, opt, kf, idxs[pos:pos + k], pos + 1)
+            pos += k
+        return m
+
+    def turn(fn) -> dict:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        blend.reset_launches()
+        t0 = time.perf_counter()
+        m = fn()
+        torch.cuda.synchronize()
+        loss = float(m["loss"])
+        dt = time.perf_counter() - t0
+        return dict(ms=dt / steps * 1e3, loss=loss, launches=dict(blend.LAUNCHES),
+                    peak=torch.cuda.max_memory_allocated(dev),
+                    reserved=torch.cuda.memory_reserved(dev), budget_lost=int(m["budget_lost"]),
+                    truncated=int(m["truncated"]), n_visible=int(m["n_visible"]))
+
+    first = turn(bundled)           # captures the graphs
+    log(f"[4] bundles {'+'.join(map(str, sizes))} of {steps} steps: first pass (captures "
+        f"included) {first['ms']:.3f} ms/step; {graph_line(graphs)}")
+    runs = [(name, turn(fn)) for name, fn in (("eager", eager), ("bundle", bundled),
+                                               ("bundle", bundled), ("eager", eager))]
+    for name, r in runs:
+        log(f"[4] {n} Gaussians 640x512 ({card}), {name}: {r['ms']:.3f} ms/step, "
+            f"{1e3 / r['ms']:.3f} it/s, peak memory {r['peak'] / 2**30:.3f} GiB "
+            f"({held / 2**30:.3f} GiB held before; reserved {r['reserved'] / 2**30:.3f} GiB, "
+            f"the graph pool's included), loss {r['loss']:.7f}, visible "
+            f"{r['n_visible']}, budget_lost {r['budget_lost']}, truncated {r['truncated']}, "
+            f"launches {r['launches']}")
+    eager_l = [r["loss"] for name, r in runs if name == "eager"]
+    bundle_l = [r["loss"] for name, r in runs if name == "bundle"] + [first["loss"]]
+    spread = max(eager_l) - min(eager_l)
+    tol = max(SPREAD_FACTOR * spread, LOSS_RTOL_FLOOR * abs(eager_l[0]))
+    gap = max(abs(b - e) for b in bundle_l for e in eager_l)
+    log(f"[4] {steps}-step loss: eager {eager_l}, bundles {bundle_l}; eager gap "
+        f"{spread:.3e}, bundles vs eager at most {gap:.3e} (tolerance {tol:.3e}: "
+        f"{SPREAD_FACTOR} x the eager gap, at least {LOSS_RTOL_FLOOR} relative)")
+    if not all(math.isfinite(v) for v in eager_l + bundle_l):
+        raise AssertionError(f"non-finite loss: {eager_l + bundle_l}")
+    if gap > tol:
+        raise AssertionError("the bundles' loss lies outside the eager runs' spread")
+    want = runs[0][1]["launches"]
+    if want["forward"] != steps or any(r["launches"] != want for _, r in runs + [("", first)]):
+        raise AssertionError("the bundles' K1/K2 launches differ from the eager loop's: "
+                             + str([r["launches"] for _, r in runs]))
+    ms = {name: [r["ms"] for nm, r in runs if nm == name] for name in ("eager", "bundle")}
+    return dict(ms_per_step=ms, losses=dict(eager=eager_l, bundle=bundle_l), first=first,
+                captures=list(graphs.captures), pool_bytes=graphs.pool_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -962,6 +1032,7 @@ def phase_app(dev, card: str, frames, tmp: str, config: str = CONFIG) -> dict:
         f"({eng.kf_count} train, {len(eng.test_cameras)} test); phase split "
         f"{json.dumps(rec['phase_split'])}")
     log(f"[5] launches in the stream {stream_l}; in finalize {eval_l}")
+    log(f"[5] bundles: compiles {eng.timers.compiles}; {graph_line(eng.graphs)}")
     log("[5] results " + json.dumps(res))
     if min(stream_l.values()) <= 0:
         raise AssertionError(f"a kernel never launched in the application's stream: {stream_l}")
@@ -1430,7 +1501,7 @@ def run_soak(dev, tmp: str, frames: int = SOAK_FRAMES, extra=()) -> dict:
     launches = dict(blend.LAUNCHES)
     with open(out) as f:
         summary = json.load(f)["summary"]
-    log(f"[7b] soak exit code {rc}; launches {launches}")
+    log(f"[7b] soak exit code {rc}; launches {launches}; compiles {summary['recompiles']}")
     if rc != 0:
         raise AssertionError(f"tools/soak_torch.py exited {rc}: {summary}")
     if min(launches.values()) <= 0:

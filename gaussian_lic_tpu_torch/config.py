@@ -2,10 +2,11 @@
 
 The same keys, defaults and presets as the JAX package's `config.py`, so one
 YAML file (config/{fastlivo,r3live,mcd}.yaml) drives both packages.
-`opt_bundle_sizes` and `splat_chunk` are accepted for YAML parity and unused
-here: the optimize loop runs step by step and the CUDA blend kernels stage
-their own batches. `bucket_overprovision` sizes the multi-GPU binning's
-buckets (parallel/sharded.py).
+`opt_bundle_sizes` splits a keyframe's steps into bundles, as in the JAX
+package (each a CUDA graph on the card, engine/trainer.py); its sizes must be
+positive. `splat_chunk` is accepted for YAML parity and unused here: the CUDA
+blend kernels stage their own batches. `bucket_overprovision` sizes the
+multi-GPU binning's buckets (parallel/sharded.py).
 """
 
 from __future__ import annotations
@@ -53,7 +54,9 @@ class Params:
 
     # --- training loop (gaussian.cpp:645) ---
     max_iters_per_keyframe: int = 100
-    opt_bundle_sizes: tuple = (64, 16, 4, 1)  # accepted for YAML parity; unused
+    # Steps a keyframe runs as bundles of these sizes, greedily (100 -> 64 +
+    # 16 + 16 + 4); a size of 1 is implied. Each must be > 0.
+    opt_bundle_sizes: tuple = (64, 16, 4, 1)
 
     # --- rasterizer knobs (no reference counterpart) ---
     tile_h: int = 32             # image-tile height (tile_h*tile_w must be 1024)
@@ -90,6 +93,10 @@ class Params:
             object.__setattr__(
                 self, "opt_bundle_sizes", tuple(self.opt_bundle_sizes)
             )
+        # the greedy decomposition never ends on a size <= 0
+        if not all(int(k) == k and k > 0 for k in self.opt_bundle_sizes):
+            raise ValueError(f"opt_bundle_sizes must be positive integers, got "
+                             f"{self.opt_bundle_sizes}")
 
     @property
     def num_sh_rest(self) -> int:

@@ -20,6 +20,16 @@ import torch
 from gaussian_lic_tpu_torch.camera import Camera, CameraPose, Intrinsics, make_camera
 
 Device = Union[str, torch.device]
+# an int, or a 0-d integer tensor on the buffer's device (a CUDA graph's step)
+KeyframeIndex = Union[int, torch.Tensor]
+
+
+def _take(x: torch.Tensor, idx: KeyframeIndex) -> torch.Tensor:
+    """x[idx]; a tensor index goes through index_select, which reads it on
+    the device (no host read, so a CUDA graph can capture the step)."""
+    if isinstance(idx, torch.Tensor):
+        return x.index_select(0, idx.reshape(1))[0]
+    return x[idx]
 
 
 @dataclass
@@ -79,13 +89,17 @@ class KeyframeBuffer:
         self.images[idx] = torch.from_numpy(chw).to(self.images.device)
         return self
 
-    def camera(self, intr: Intrinsics, idx: int) -> Camera:
+    def camera(self, intr: Intrinsics, idx: KeyframeIndex) -> Camera:
         """The Camera of keyframe `idx`."""
         return Camera(
             intr=intr,
-            pose=CameraPose(R_cw=self.R_cw[idx], t_cw=self.t_cw[idx]),
-            full_proj=self.full_proj[idx],
+            pose=CameraPose(R_cw=_take(self.R_cw, idx), t_cw=_take(self.t_cw, idx)),
+            full_proj=_take(self.full_proj, idx),
         )
+
+    def image(self, idx: KeyframeIndex) -> torch.Tensor:
+        """The (3, H, W) uint8 image of keyframe `idx`."""
+        return _take(self.images, idx)
 
     def grow(self, new_capacity: int) -> "KeyframeBuffer":
         """Capacity growth of the stacked buffers."""

@@ -26,7 +26,8 @@ Dispatch: a CPU tensor goes to the plain PyTorch version (`*_plain`; for the
 backward, the per-entry `blend_backward_plain` then `sum_per_gaussian`); a
 CUDA tensor launches the hand-written CUDA kernel (csrc/blend_forward.cu,
 csrc/blend_backward.cu, which sums per Gaussian with atomics) or raises.
-Each launch adds one to `LAUNCHES`. Both kernels bulk-copy whole rows, so
+Each launch adds one to `LAUNCHES` (a CUDA graph adds its recorded launches
+at each replay, `launches_apart`). Both kernels bulk-copy whole rows, so
 on the card `splats` must be 16-byte aligned.
 
 K1 skips an entry in a warp's pixel block (`k1_block`: 8x16, or 16x8 in the
@@ -39,6 +40,7 @@ the tests and chip_smoke.py; the main path never calls it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Tuple
@@ -74,6 +76,22 @@ _PLAIN_CHUNK_ELEMS = 1 << 25
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def launches_apart():
+    """Takes the launches counted inside the block out of LAUNCHES and puts
+    them in the dict it yields, when the block ends. A CUDA graph's capture
+    runs the wrappers but executes nothing: its graph adds what it recorded
+    at each replay (engine/trainer.py, BundleGraphs)."""
+    before = dict(LAUNCHES)
+    apart: dict = {}
+    try:
+        yield apart
+    finally:
+        for k in LAUNCHES:
+            apart[k] = LAUNCHES[k] - before[k]
+            LAUNCHES[k] = before[k]
 
 
 # ---------------------------------------------------------------------------

@@ -337,7 +337,7 @@ def make_sharded_train_step(intr: Intrinsics, cfg: Params, mesh: Mesh,
         active_s = torch.arange(g0, g0 + shard, device=dev) < gm_s.count
         y_off = float(mesh.rank * band_h)
         cam = kf.camera(intr, idx)
-        gt = kf.images[idx].float() / 255.0
+        gt = kf.image(idx).float() / 255.0
         m_local = max(_splat_budget_for(shard * D, cfg) // D, 1 << 10)
         m_pair = _m_pair(m_local, D, cfg.bucket_overprovision)
 

@@ -158,7 +158,7 @@ def run_stream(
     print(f"  optimize (train steps): {t.optimize_steps:.2f} s")
     print(f"  adding (frame ingest) : {t.adding:.2f} s")
     print(f"  extending (densify)   : {t.extending:.2f} s")
-    print(f"  capacity growths      : {t.compiles}")
+    print(f"  capacity recompiles   : {t.compiles}")
     return {"frames": n_frames, "wall_s": wall}
 
 

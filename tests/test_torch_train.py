@@ -28,17 +28,15 @@ import pytest
 import torch
 
 from torch_port_helpers import (
-    GOLDEN_SOURCES, frames_from, golden_tool, load_golden, n, rel_max, small_rig,
+    GOLDEN_SOURCES, frames_from, golden_tool, initial_state, load_golden, n, rel_max, small_rig,
 )
 
 from gaussian_lic_tpu.ops import adam as jadam
 from gaussian_lic_tpu.ops import erank as jerank
 from gaussian_lic_tpu.ops import losses as jl
-from gaussian_lic_tpu_torch.engine.dataset import KeyframeBuffer, build_camera
 from gaussian_lic_tpu_torch.engine.trainer import (
     PARAM_GROUPS, MappingEngine, _render_kw, train_step,
 )
-from gaussian_lic_tpu_torch.models.gaussians import GaussianMap
 from gaussian_lic_tpu_torch.ops.adam import AdamState
 from gaussian_lic_tpu_torch.ops.rasterize import render_map
 
@@ -55,21 +53,6 @@ def train_golden(request):
 @pytest.fixture(scope="module", params=GOLDEN_SOURCES)
 def engine_golden(request):
     return load_golden("engine", request.param)
-
-
-def initial_state(d):
-    """The golden's initial map, keyframes and zero Adam moments (the port's)."""
-    intr, cfg = small_rig()
-    count = int(d["count"])
-    gm = GaussianMap.empty(cfg.initial_capacity, cfg.sh_degree)
-    for f in MAP_FIELDS:
-        getattr(gm, f)[:count] = torch.tensor(d[f"init_{f}"])
-    gm.count = torch.tensor(count, dtype=torch.int32)
-    kf = KeyframeBuffer.empty(cfg.max_train_keyframes, intr)
-    for i, fr in enumerate(frames_from(d)):
-        kf.set_frame(i, build_camera(intr, fr), fr.image_u8())
-    opt = {k: AdamState.zeros_like(v) for k, v in gm.trainable().items()}
-    return intr, cfg, count, gm, kf, opt
 
 
 @pytest.fixture(scope="module")

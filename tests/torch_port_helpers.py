@@ -92,3 +92,23 @@ def frames_from(d: dict):
                    d["frame_images"][i], d["frame_points"][i], d["frame_colors"][i])
         for i in range(len(d["frame_images"]))
     ]
+
+
+def initial_state(d: dict):
+    """The train golden's initial map, keyframes and zero Adam moments, as
+    the port's: (intr, cfg, count, gm, kf, opt)."""
+    from gaussian_lic_tpu_torch.engine.dataset import KeyframeBuffer, build_camera
+    from gaussian_lic_tpu_torch.models.gaussians import GaussianMap
+    from gaussian_lic_tpu_torch.ops.adam import AdamState
+
+    intr, cfg = small_rig()
+    count = int(d["count"])
+    gm = GaussianMap.empty(cfg.initial_capacity, cfg.sh_degree)
+    for f in ("xyz", "dc", "sh_rest", "log_scale", "quat", "opa_logit"):
+        getattr(gm, f)[:count] = torch.tensor(d[f"init_{f}"])
+    gm.count = torch.tensor(count, dtype=torch.int32)
+    kf = KeyframeBuffer.empty(cfg.max_train_keyframes, intr)
+    for i, fr in enumerate(frames_from(d)):
+        kf.set_frame(i, build_camera(intr, fr), fr.image_u8())
+    opt = {k: AdamState.zeros_like(v) for k, v in gm.trainable().items()}
+    return intr, cfg, count, gm, kf, opt

@@ -10,6 +10,9 @@ mode, on small seeded scenes, and returns (or writes) the inputs and outputs as
               of each tile (the port's utils/synthetic.nan_opacity_list);
   train.npz   1 and 10 steps of `_make_train_step(with_grads=True)`;
   engine.npz  a 3-keyframe `MappingEngine.add_frame` run;
+  bundle.npz  a 4-step `_make_train_bundle` from train.npz's initial state,
+              `_decompose_bundles` on seeded cases, and a 5-keyframe engine
+              run with opt_bundle_sizes (4, 2) and its compile count;
   finalize.npz  a 9-frame run with a 64-point skybox (every 3rd frame a
               keyframe), then `finalize` with randinit LPIPS: the skybox's
               uniform draws, the eval results and the PLY file's bytes;
@@ -228,13 +231,15 @@ GM_FIELDS = ("xyz", "dc", "sh_rest", "log_scale", "quat", "opa_logit")
 GROUPS = ("xyz", "dc", "sh_rest", "opacity", "log_scale", "quat")
 
 
-def make_train(n_steps: int = 10) -> dict:
+def _train_init():
+    """The train case's JAX state: (cfg, intr, frames, map, keyframes, zero
+    Adam moments)."""
     _jax_cpu()
     import jax.numpy as jnp
 
     from gaussian_lic_tpu.camera import Intrinsics
     from gaussian_lic_tpu.engine.dataset import KeyframeBuffer, build_camera
-    from gaussian_lic_tpu.engine.trainer import PARAM_GROUPS, _make_train_step
+    from gaussian_lic_tpu.engine.trainer import PARAM_GROUPS
     from gaussian_lic_tpu.models.gaussians import initialize_map
     from gaussian_lic_tpu.ops import adam as adam_ops
 
@@ -257,6 +262,15 @@ def make_train(n_steps: int = 10) -> dict:
     opt = {n: adam_ops.AdamState(jnp.zeros_like(gm.trainable()[n]),
                                  jnp.zeros_like(gm.trainable()[n]))
            for n in PARAM_GROUPS}
+    return cfg, intr, frames, gm, kf, opt
+
+
+def make_train(n_steps: int = 10) -> dict:
+    import jax.numpy as jnp
+
+    from gaussian_lic_tpu.engine.trainer import _make_train_step
+
+    cfg, intr, frames, gm, kf, opt = _train_init()
     n = int(gm.count)
     out = dict(_frames_dict(frames), count=np.int32(n),
                idxs=np.random.default_rng(SEED).integers(0, 3, n_steps).astype(np.int32))
@@ -327,6 +341,73 @@ def make_engine(n_frames: int = 6) -> dict:
                 "max_tiles_per_gaussian", "seed")
         })),
     )
+
+
+# ---------------------------------------------------------------------------
+# k-step train bundles
+# ---------------------------------------------------------------------------
+
+BUNDLE_K = 4
+BUNDLE_ENGINE_SIZES = (4, 2)
+BUNDLE_METRICS = ("loss", "n_visible", "visible_sum", "budget_lost", "truncated", "overflow")
+
+
+def decompose_cases(n_cases: int = 64):
+    """Seeded (n, sizes) for `_decompose_bundles`: n in [0, 300), 1-4 sizes
+    in [1, 80)."""
+    rng = np.random.default_rng(SEED + 3)
+    return [(int(rng.integers(0, 300)), tuple(int(v) for v in rng.integers(1, 80,
+                                                                            rng.integers(1, 5))))
+            for _ in range(n_cases)]
+
+
+def make_bundle() -> dict:
+    """JAX `_make_train_bundle(intr, cfg, 4)` from the train case's initial
+    state on 4 seeded keyframe ids; `_decompose_bundles` on
+    `decompose_cases()`; and a 10-frame `MappingEngine` run with
+    opt_bundle_sizes (4, 2) (5 keyframes, lists of 1-5 steps, those of 3-5
+    in several bundles; the keyframe buffer grows at the 5th), with its
+    optimize lists, counts, losses and `timers.compiles`."""
+    import jax.numpy as jnp
+
+    from gaussian_lic_tpu.engine.trainer import (
+        MappingEngine, _decompose_bundles, _make_train_bundle,
+    )
+
+    cfg, intr, _, gm, kf, opt = _train_init()
+    n = int(gm.count)
+    idxs = np.random.default_rng(SEED + 5).integers(0, 3, BUNDLE_K).astype(np.int32)
+    gm_b, _, m = _make_train_bundle(intr, cfg, BUNDLE_K)(
+        gm, opt, kf, jnp.asarray(idxs), jnp.asarray(1, jnp.int32))
+    out = dict(bundle_idxs=idxs)
+    for name in GM_FIELDS:
+        out[f"bundle_{name}"] = np.asarray(getattr(gm_b, name))[:n]
+    for k in BUNDLE_METRICS:
+        out[f"bundle_m_{k}"] = np.asarray(m[k])
+
+    cases = decompose_cases()
+    outs = [_decompose_bundles(c, sizes) for c, sizes in cases]
+    out.update(dec_n=np.array([c for c, _ in cases], np.int32),
+               dec_sizes=np.concatenate([s for _, s in cases]).astype(np.int32),
+               dec_sizes_len=np.array([len(s) for _, s in cases], np.int32),
+               dec_out=np.concatenate([np.asarray(o, np.int32) for o in outs]),
+               dec_out_len=np.array([len(o) for o in outs], np.int32))
+
+    frames = _small_world_frames(10, SEED + 4)
+    eng = MappingEngine(small_params(opt_bundle_sizes=BUNDLE_ENGINE_SIZES))
+    eng.rng = _RecordingRng(eng.rng)
+    counts, losses = [], []
+    for f in frames:
+        if eng.add_frame(f):
+            counts.append(int(eng.gm.count))
+            losses.append(eng.last_metrics["loss"])
+    out.update(_frames_dict(frames), counts=np.array(counts, np.int32),
+               losses=np.array(losses, np.float32),
+               opt_lists=np.concatenate(eng.rng.lists),
+               opt_list_lens=np.array([len(x) for x in eng.rng.lists], np.int32),
+               compiles=np.int32(eng.timers.compiles),
+               overflow=np.float32(eng.last_metrics["overflow"]))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -541,7 +622,8 @@ def make_parallel() -> dict:
 
 
 CASES = {"blend": make_blend, "nan_row": make_nan_row, "train": make_train,
-         "engine": make_engine, "finalize": make_finalize, "parallel": make_parallel}
+         "engine": make_engine, "bundle": make_bundle, "finalize": make_finalize,
+         "parallel": make_parallel}
 
 
 def main() -> int:

@@ -13,9 +13,12 @@ Usage:
     python tools/soak_torch.py --tiny --device cpu --frames 10 --skybox 64 --iters 2
 
 PASS at the end: train PSNR > 17.0, no binning overflow in the second half
-of the keyframes, and at most 8 + log2(gaussians) growths of a static shape
-(`PhaseTimers.compiles`: capacity, keyframe buffer, splat budget), so churn
-would show as O(keyframes) growths. A keyframe's wall time ends in the host
+of the keyframes, and at most 8 + log2(gaussians) recompiles
+(`PhaseTimers.compiles`, what the JAX engine compiles: each bundle size and
+extend bucket, and the capacity, keyframe-buffer and splat-budget growths),
+so churn would show as O(keyframes) recompiles. On the card the steps run as
+CUDA-graph bundles, whose captures (seconds, graph pool) end the run's
+output beside the card's line. A keyframe's wall time ends in the host
 fetch of its last step's loss (`MappingEngine.optimize`); the PSNR probe is
 not billed to the stream. "Steady" keyframes are those past
 max_iters_per_keyframe / 2, as in tools/soak.py.
@@ -184,8 +187,10 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         from gaussian_lic_tpu_torch.utils.cuda_timing import card_line
 
+        caps = " ".join(f"{k}:{sec:.3f}" for k, sec, _ in eng.graphs.captures)
         print(f"card: {card_line()}; peak memory "
-              f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB")
+              f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB; graph captures "
+              f"(k:seconds) {caps}; graph pool {eng.graphs.pool_bytes / 2**20:.1f} MiB")
     print(json.dumps(summary))
     ok = soak_passes(summary, t.compiles, int(eng.gm.count))
     print("SOAK", "PASS" if ok else "FAIL")
