@@ -69,9 +69,12 @@ exit code is not 0:
      render, K1 launched D times; (c) on a one-rank NCCL process group, the
      sharded train step against `train_step` for 2 steps (loss, gradients
      and params by tests/test_parallel.py's rule), then 20 timed steps of
-     each in turns (ms/step, peak memory); (d) MappingEngine on that group
-     over phase 3's stream, the launch counters zeroed just before and read
-     just after, train PSNR within 0.1 dB of phase 3's; (e) `run.main
+     each in turns (ms/step, peak memory), then 100 sharded steps eagerly
+     and as the sharded bundles 64+16+16+4 (CUDA graphs over NCCL) in turns
+     as phase 4 runs them, with phase 4's loss and launch checks; (d)
+     MappingEngine on that group over phase 3's stream, its bundles CUDA
+     graphs (the captures printed), the launch counters zeroed just before
+     and read just after, train PSNR within 0.1 dB of phase 3's; (e) `run.main
      --mesh-devices 1` on phase 5's 64x64 application, metrics within
      1e-4 of phase 5's card run. One card cannot run two NCCL ranks: the
      exchange between ranks is tested on the CPU (tests/test_torch_parallel.py);
@@ -805,35 +808,29 @@ def graph_line(g) -> str:
             f"{g.warmup_launches}")
 
 
-def phase_steps(dev, card: str, state: dict, steps: int = BUNDLE_STEPS) -> dict:
-    """`steps` train steps from the 1M state, eagerly one by one and as the
-    engine's bundles (CUDA graphs), in turns (eager, bundle, bundle, eager)
-    after an untimed pass that captures the graphs. Each turn starts from
-    the same state and keyframe ids; its window ends in synchronize() and
-    the loss's host fetch. The bundles' losses must lie within the eager
-    runs' spread, and their K1/K2 launches must equal the eager loop's."""
+def bundle_turns(dev, card: str, tag: str, what: str, step, make_bundle, graphs, gm0, opt0,
+                 kf, sizes, steps: int) -> dict:
+    """`steps` steps of `step` from (gm0, opt0), eagerly one by one and as
+    the bundles `make_bundle(k)` of `sizes` (CUDA graphs in `graphs`), in
+    turns (eager, bundle, bundle, eager) after an untimed pass that
+    captures the graphs. Each turn starts from the same state and keyframe
+    ids; its window ends in synchronize() and the loss's host fetch. The
+    bundles' losses must lie within the eager runs' spread, and their K1/K2
+    launches must equal the eager loop's."""
     import torch
 
-    from gaussian_lic_tpu_torch.engine.trainer import (
-        BundleGraphs, _decompose_bundles, _make_train_bundle, train_step,
-    )
     from gaussian_lic_tpu_torch.ops import blend
 
-    n, cfg, intr, gm0, kf, opt0 = (state[k] for k in ("n", "cfg", "intr", "gm", "kf", "opt"))
-    del state["gm"], state["opt"]   # the runs start from gm0/opt0
-    gc.collect()                    # engines of phase 3 held in reference cycles
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated(dev)
     idxs = torch.as_tensor(np.random.default_rng(5).integers(0, kf.images.shape[0], steps),
                            device=dev)
-    sizes = _decompose_bundles(steps, cfg.opt_bundle_sizes)
-    graphs = BundleGraphs()
-    bundles = {k: _make_train_bundle(intr, cfg, k, graphs) for k in set(sizes)}
+    bundles = {k: make_bundle(k) for k in set(sizes)}
 
     def eager():
         gm, opt, m = gm0, opt0, None
         for i in range(steps):
-            gm, opt, m = train_step(gm, opt, kf, idxs[i], i + 1, intr=intr, cfg=cfg)
+            gm, opt, m = step(gm, opt, kf, idxs[i], i + 1)
         return m
 
     def bundled():
@@ -858,12 +855,12 @@ def phase_steps(dev, card: str, state: dict, steps: int = BUNDLE_STEPS) -> dict:
                     truncated=int(m["truncated"]), n_visible=int(m["n_visible"]))
 
     first = turn(bundled)           # captures the graphs
-    log(f"[4] bundles {'+'.join(map(str, sizes))} of {steps} steps: first pass (captures "
+    log(f"[{tag}] bundles {'+'.join(map(str, sizes))} of {steps} steps: first pass (captures "
         f"included) {first['ms']:.3f} ms/step; {graph_line(graphs)}")
     runs = [(name, turn(fn)) for name, fn in (("eager", eager), ("bundle", bundled),
                                                ("bundle", bundled), ("eager", eager))]
     for name, r in runs:
-        log(f"[4] {n} Gaussians 640x512 ({card}), {name}: {r['ms']:.3f} ms/step, "
+        log(f"[{tag}] {what} ({card}), {name}: {r['ms']:.3f} ms/step, "
             f"{1e3 / r['ms']:.3f} it/s, peak memory {r['peak'] / 2**30:.3f} GiB "
             f"({held / 2**30:.3f} GiB held before; reserved {r['reserved'] / 2**30:.3f} GiB, "
             f"the graph pool's included), loss {r['loss']:.7f}, visible "
@@ -874,7 +871,7 @@ def phase_steps(dev, card: str, state: dict, steps: int = BUNDLE_STEPS) -> dict:
     spread = max(eager_l) - min(eager_l)
     tol = max(SPREAD_FACTOR * spread, LOSS_RTOL_FLOOR * abs(eager_l[0]))
     gap = max(abs(b - e) for b in bundle_l for e in eager_l)
-    log(f"[4] {steps}-step loss: eager {eager_l}, bundles {bundle_l}; eager gap "
+    log(f"[{tag}] {steps}-step loss: eager {eager_l}, bundles {bundle_l}; eager gap "
         f"{spread:.3e}, bundles vs eager at most {gap:.3e} (tolerance {tol:.3e}: "
         f"{SPREAD_FACTOR} x the eager gap, at least {LOSS_RTOL_FLOOR} relative)")
     if not all(math.isfinite(v) for v in eager_l + bundle_l):
@@ -888,6 +885,23 @@ def phase_steps(dev, card: str, state: dict, steps: int = BUNDLE_STEPS) -> dict:
     ms = {name: [r["ms"] for nm, r in runs if nm == name] for name in ("eager", "bundle")}
     return dict(ms_per_step=ms, losses=dict(eager=eager_l, bundle=bundle_l), first=first,
                 captures=list(graphs.captures), pool_bytes=graphs.pool_bytes)
+
+
+def phase_steps(dev, card: str, state: dict, steps: int = BUNDLE_STEPS) -> dict:
+    """`steps` train steps from the 1M state, eagerly and as the engine's
+    bundles (CUDA graphs), in turns (bundle_turns)."""
+    from gaussian_lic_tpu_torch.engine.trainer import (
+        BundleGraphs, _decompose_bundles, _make_train_bundle, train_step,
+    )
+
+    n, cfg, intr, gm0, kf, opt0 = (state[k] for k in ("n", "cfg", "intr", "gm", "kf", "opt"))
+    del state["gm"], state["opt"]   # the runs start from gm0/opt0
+    gc.collect()                    # engines of phase 3 held in reference cycles
+    graphs = BundleGraphs()
+    return bundle_turns(
+        dev, card, "4", f"{n} Gaussians 640x512", functools.partial(train_step, intr=intr, cfg=cfg),
+        lambda k: _make_train_bundle(intr, cfg, k, graphs), graphs, gm0, opt0, kf,
+        _decompose_bundles(steps, cfg.opt_bundle_sizes), steps)
 
 
 # ---------------------------------------------------------------------------
@@ -1294,12 +1308,32 @@ def check_sharded_step(state: dict, mesh) -> dict:
     return res
 
 
+def check_sharded_bundles(dev, card: str, state: dict, mesh, steps: int = BUNDLE_STEPS) -> dict:
+    """`steps` sharded steps from the 1M state's shard, eagerly and as the
+    sharded bundles (CUDA graphs over the mesh's NCCL group), in turns
+    (bundle_turns)."""
+    from gaussian_lic_tpu_torch.engine.trainer import BundleGraphs, _decompose_bundles
+    from gaussian_lic_tpu_torch.parallel import (
+        make_sharded_train_bundle, make_sharded_train_step, shard_state,
+    )
+
+    cfg, intr = state["cfg"], state["intr"]
+    gs, os_ = shard_state(state["gm"], state["opt"], mesh)
+    graphs = BundleGraphs()
+    return bundle_turns(
+        dev, card, "6c", f"sharded, D = 1, {state['n']} Gaussians 640x512",
+        make_sharded_train_step(intr, cfg, mesh),
+        lambda k: make_sharded_train_bundle(intr, cfg, mesh, k, graphs), graphs, gs, os_,
+        state["kf"], _decompose_bundles(steps, cfg.opt_bundle_sizes), steps)
+
+
 def phase_sharded(dev, card: str, slice_res: dict, app_res: dict, tmp: str) -> dict:
     """The multi-GPU path on one card: (a) K1/K2 at the band geometry's
     fallback tiles and on NaN-opacity rows; (b) D = 2, 4, 8 bands rendered
     one by one and stitched; (c) the sharded step on a one-rank NCCL mesh
-    against the single-device step; (d) MappingEngine on that mesh over phase
-    3's stream; (e) `run.main --mesh-devices 1` on phase 5's 64x64 app."""
+    against the single-device step, and its bundles (CUDA graphs) against
+    its eager steps; (d) MappingEngine on that mesh over phase 3's stream;
+    (e) `run.main --mesh-devices 1` on phase 5's 64x64 app."""
     import torch
     import torch.distributed as dist
 
@@ -1323,6 +1357,7 @@ def phase_sharded(dev, card: str, slice_res: dict, app_res: dict, tmp: str) -> d
     log(f"[6c] mesh: {dist.get_backend(mesh.group)} process group of {mesh.size} rank on "
         f"{mesh.device} ({card})")
     steps = check_sharded_step(state, mesh)
+    bundles = check_sharded_bundles(dev, card, state, mesh)
     del state
     gc.collect()
     log(f"[6c] seconds {time.perf_counter() - t0:.2f}")
@@ -1334,9 +1369,12 @@ def phase_sharded(dev, card: str, slice_res: dict, app_res: dict, tmp: str) -> d
     psnr = engine_train_psnr(eng)
     log(f"[6d] engine on the mesh over phase 3's stream: train PSNR {psnr:.4f} dB against "
         f"{slice_res['train_psnr']:.4f} single-device; gaussians {int(eng.gm.count)}; "
-        f"launches {launches} ({time.perf_counter() - t0:.2f} s)")
+        f"launches {launches}; compiles {eng.timers.compiles}; {graph_line(eng.graphs)} "
+        f"({time.perf_counter() - t0:.2f} s)")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel never launched on the sharded path: {launches}")
+    if not eng.graphs.captures:
+        raise AssertionError("the mesh engine ran its bundles without CUDA graphs")
     if not abs(psnr - slice_res["train_psnr"]) < ENGINE_PSNR_DB:
         raise AssertionError(f"the mesh engine's train PSNR {psnr} is not within "
                              f"{ENGINE_PSNR_DB} dB of phase 3's")
@@ -1358,7 +1396,7 @@ def phase_sharded(dev, card: str, slice_res: dict, app_res: dict, tmp: str) -> d
     if max(rel.values()) > APP_SMALL_RTOL:
         raise AssertionError("--mesh-devices 1 disagrees with the single-device application")
     dist.destroy_process_group()
-    return dict(steps=steps, engine_psnr=psnr)
+    return dict(steps=steps, bundles=bundles, engine_psnr=psnr)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,8 @@ thread, mapping.cpp:124-200, and gaussian.cpp:499-719):
   * `_make_train_bundle` — k train steps as one dispatch, the counterpart of
     the JAX package's lax.scan bundle: on the card one CUDA graph of the k
     steps (`BundleGraphs`), captured once per static shape and replayed; on
-    the CPU the k eager steps.
+    the CPU the k eager steps. `parallel.make_sharded_train_bundle` is its
+    sharded twin, on the same `BundleGraphs`.
   * `MappingEngine` — the host-side driver with the reference's keyframe
     cadence (every k-th frame trains, the others become held-out test views,
     gaussian.cpp:75-108) and <=100 random-past-keyframe steps per keyframe
@@ -22,13 +23,14 @@ thread, mapping.cpp:124-200, and gaussian.cpp:499-719):
     64 + 16 + 16 + 4); at the end of the run `finalize` (eval on train and
     held-out views, PLY export) and `measure_phase_split` (the
     forward/backward/optimizer split of a step). With a `mesh`
-    (parallel.sharded) its steps run tile-band-sharded over the ranks, one
-    by one.
+    (parallel.sharded) its steps run tile-band-sharded over the ranks, in
+    the same bundles (on the card: CUDA graphs over NCCL).
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 import os
 import time
 from dataclasses import dataclass
@@ -36,6 +38,7 @@ from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gaussian_lic_tpu_torch.camera import Camera, Intrinsics, matvec
 from gaussian_lic_tpu_torch.config import Params
@@ -233,7 +236,16 @@ class BundleGraphs:
     nothing) and adds them at every replay; the warm-up's are set aside in
     `warmup_launches`. A capture or replay that fails raises: nothing here
     falls back to the eager steps. `captures` holds (k, seconds, bytes the
-    set's pool reserves after it) per capture."""
+    set's pool reserves after it) per capture.
+
+    A sharded step's set (`mesh` given) is this rank's shard; its graphs
+    hold the step's NCCL collectives, which the warm-up issues once first
+    (it creates the communicator, which a capture must not do). Every rank
+    captures and replays the same graphs in the same order, since every
+    rank takes the same host decisions. Captures run in "thread_local"
+    error mode: an illegal call of the capturing thread still fails the
+    capture; other threads' calls (NCCL's watchdog polls the events of
+    earlier collectives) do not count against it."""
 
     def __init__(self):
         self.key = None
@@ -245,11 +257,12 @@ class BundleGraphs:
         self.warmup_launches = dict.fromkeys(blend.LAUNCHES, 0)
 
     def run(self, step: Step, cfg: Params, k: int, gm: GaussianMap, opt_state: dict,
-            kf: KeyframeBuffer, idxs, es0):
-        """The bundle of the k steps of `step` (train_step at `cfg`) on CUDA
-        tensors: copy-in where needed, set the ids and es0, replay (capture
-        first at a new k) -> (gm', opt', metrics copied out of the graph)."""
-        key = (cfg, gm.device,
+            kf: KeyframeBuffer, idxs, es0, mesh=None):
+        """The bundle of the k steps of `step` (train_step at `cfg`, or the
+        sharded step on `mesh`) on CUDA tensors: copy-in where needed, set
+        the ids and es0, replay (capture first at a new k) -> (gm', opt',
+        metrics copied out of the graph)."""
+        key = (cfg, mesh, gm.device,
                tuple(tuple(getattr(gm, f).shape) for f in MAP_FIELDS),
                tuple((name, tuple(st.exp_avg.shape)) for name, st in opt_state.items()),
                tuple((t.data_ptr(), tuple(t.shape))
@@ -307,16 +320,29 @@ class BundleGraphs:
             torch.cuda.current_stream(dev).wait_stream(side)
             for name, n in warm.items():
                 self.warmup_launches[name] += n
+        # A CUDA graph destroyed while another is being captured invalidates
+        # the capture, and the collector may reach a dead reference cycle
+        # that holds one (an engine dropped earlier) at any allocation:
+        # collect first and not during the capture (torch.cuda.graph no
+        # longer collects by itself)
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with blend.launches_apart() as launches:
-            with torch.cuda.graph(graph, pool=self.pool):
-                # entering synchronised and emptied the cache: what the
-                # allocator reserves from here on is this capture's pool
-                reserved = torch.cuda.memory_reserved(dev)
-                gm_k, opt_k, outs = _run_steps(step, gm_s, opt_s, kf, ids, self.state["es0"])
-                self._store(gm_k, opt_k)
-                del gm_k, opt_k
+        try:
+            with blend.launches_apart() as launches:
+                with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
+                    # entering synchronised and emptied the cache: what the
+                    # allocator reserves from here on is this capture's pool
+                    reserved = torch.cuda.memory_reserved(dev)
+                    gm_k, opt_k, outs = _run_steps(step, gm_s, opt_s, kf, ids,
+                                                   self.state["es0"])
+                    self._store(gm_k, opt_k)
+                    del gm_k, opt_k
+        finally:
+            if collecting:
+                gc.enable()
         if self.pool is None:
             self.pool = graph.pool()
         self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
@@ -324,18 +350,19 @@ class BundleGraphs:
         self.captures.append((k, time.perf_counter() - t0, self.pool_bytes))
 
 
-def _make_train_bundle(intr: Intrinsics, cfg: Params, k: int,
-                       graphs: Optional[BundleGraphs] = None):
-    """k train steps as one dispatch, the JAX package's `_make_train_bundle`:
-    (gm, opt, kf, idxs (k,), es0) -> (gm', opt', metrics), metrics
+def _bundle_of(step: Step, cfg: Params, k: int, graphs: Optional[BundleGraphs] = None,
+               mesh=None):
+    """The k steps of `step` (made at `cfg`; the sharded step when `mesh` is
+    given) as one dispatch: (gm, opt, kf, idxs (k,), es0) -> (gm', opt',
+    metrics), step i on keyframe idxs[i] with exposure step es0 + i, metrics
     aggregated over the bundle as `_bundle_metrics` says.
 
     Dispatch by the state's device, as the kernel wrappers do: CUDA tensors
     run one CUDA graph of the k steps, captured on the first call against
     the static tensors of `graphs` (shared by an engine's bundles; a
     private set when None) and replayed; CPU tensors run the k eager steps,
-    which give the same floats as k calls of `train_step`."""
-    step = functools.partial(train_step, intr=intr, cfg=cfg)
+    which give the same floats as k calls of `step`. A mesh whose group
+    cannot be captured (gloo) raises on CUDA tensors."""
     graphs = BundleGraphs() if graphs is None else graphs
 
     def train_bundle(gm: GaussianMap, opt_state: dict, kf: KeyframeBuffer, idxs, es0):
@@ -346,9 +373,21 @@ def _make_train_bundle(intr: Intrinsics, cfg: Params, k: int,
             return _run_steps(step, gm, opt_state, kf, idxs, es0)
         if kind != "cuda":
             raise ValueError(f"train bundles run on CPU or CUDA tensors, got {gm.device}")
-        return graphs.run(step, cfg, k, gm, opt_state, kf, idxs, es0)
+        if mesh is not None:
+            backend = str(dist.get_backend(mesh.group))
+            if "nccl" not in backend:
+                raise ValueError(f"a CUDA graph cannot capture the collectives of a {backend} "
+                                 "process group: run CUDA tensors on an NCCL group")
+        return graphs.run(step, cfg, k, gm, opt_state, kf, idxs, es0, mesh=mesh)
 
     return train_bundle
+
+
+def _make_train_bundle(intr: Intrinsics, cfg: Params, k: int,
+                       graphs: Optional[BundleGraphs] = None):
+    """k train steps as one dispatch, the JAX package's `_make_train_bundle`
+    (`_bundle_of` of `train_step`)."""
+    return _bundle_of(functools.partial(train_step, intr=intr, cfg=cfg), cfg, k, graphs)
 
 
 @torch.no_grad()
@@ -419,12 +458,12 @@ class MappingEngine:
 
     With a `mesh` (parallel.make_mesh; every rank makes its own engine and
     feeds it the same frames) the run lives on the mesh's device and each
-    optimize() runs the sharded step (parallel.make_sharded_train_step) on
-    this rank's shard of the map, then gathers the map back whole. Every
-    rank holds the whole map between keyframes and takes the same host
-    decisions (the same frames, numpy RNG and summed overflow counters), so
-    extend, finalize and checkpoints run as without a mesh; only rank 0
-    writes files and prints."""
+    optimize() runs the sharded bundles (parallel.make_sharded_train_bundle;
+    on the card CUDA graphs over NCCL) on this rank's shard of the map, then
+    gathers the map back whole. Every rank holds the whole map between
+    keyframes and takes the same host decisions (the same frames, numpy RNG
+    and summed overflow counters), so extend, finalize and checkpoints run
+    as without a mesh; only rank 0 writes files and prints."""
 
     def __init__(self, cfg: Params, result_path: Optional[str] = None,
                  lpips_path: Optional[str] = None, device: Device = DEFAULT_DEVICE,
@@ -586,15 +625,14 @@ class MappingEngine:
         compile, as JAX's jit of it; the cache is dropped when the splat
         budget grows). On the card its CUDA graph is captured at its first
         call, against `self.graphs`' static set, and again when the map's
-        or the keyframe buffer's shape changes. With a mesh: k sharded
-        steps, one by one."""
+        or the keyframe buffer's shape changes. With a mesh: the sharded
+        bundle on this rank's shard, its graphs in the same set."""
         fn = self._bundles.get(k)
         if fn is None:
             if self.mesh is not None:
-                from gaussian_lic_tpu_torch.parallel import make_sharded_train_step
+                from gaussian_lic_tpu_torch.parallel import make_sharded_train_bundle
 
-                fn = functools.partial(_run_steps,
-                                       make_sharded_train_step(self.intr, self.cfg, self.mesh))
+                fn = make_sharded_train_bundle(self.intr, self.cfg, self.mesh, k, self.graphs)
             else:
                 fn = _make_train_bundle(self.intr, self.cfg, k, self.graphs)
             self._bundles[k] = fn

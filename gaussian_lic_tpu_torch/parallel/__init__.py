@@ -8,6 +8,7 @@ from gaussian_lic_tpu_torch.parallel.sharded import (
     gather_state,
     make_mesh,
     make_sharded_render,
+    make_sharded_train_bundle,
     make_sharded_train_step,
     render_band,
     shard_state,
@@ -19,6 +20,7 @@ __all__ = [
     "gather_state",
     "make_mesh",
     "make_sharded_render",
+    "make_sharded_train_bundle",
     "make_sharded_train_step",
     "render_band",
     "shard_state",

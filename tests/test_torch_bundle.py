@@ -285,3 +285,43 @@ def test_graph_bundle_on_the_card(cuda_device):
     assert float(md["loss"]) == pytest.approx(float(mb["loss"]), rel=1e-4)
     assert gm_d.xyz is gm_b.xyz and len(graphs.captures) == 1
     assert blend.LAUNCHES["backward"] == 12
+
+
+@pytest.mark.requires_cuda
+def test_capture_survives_a_dead_cycle_of_graphs(cuda_device):
+    """Destroying a CUDA graph while another is captured invalidates the
+    capture, and the collector can reach a dead reference cycle that holds
+    graphs at any allocation inside a capture (torch.cuda.graph no longer
+    collects first). A set's second capture, with such a cycle alive and a
+    step that collects as an automatic collection would, must still capture
+    and replay: BundleGraphs collects before a capture."""
+    import functools
+    import gc
+    import math
+
+    from gaussian_lic_tpu_torch.utils.synthetic import make_bench_state
+
+    cfg = Params(width=64, height=64, fx=40.0, fy=40.0, cx=32.0, cy=32.0,
+                 skybox_points_num=0, initial_capacity=2048, max_tiles_per_gaussian=16)
+    intr, gm0, kf, opt0 = make_bench_state(cfg, 2000, cuda_device)
+    idxs = torch.tensor([2, 0, 1, 1], device=cuda_device)
+    graphs = trainer.BundleGraphs()
+    _make_train_bundle(intr, cfg, 4, graphs)(gm0, opt0, kf, idxs, 1)
+
+    def collecting_step(*args, **kw):
+        gc.collect()
+        return train_step(*args, **kw)
+
+    gc.disable()   # keeps the cycle below alive until a collection is asked for
+    try:
+        dead = trainer.BundleGraphs()
+        _make_train_bundle(intr, cfg, 1, dead)(gm0, opt0, kf, idxs[:1], 1)
+        dead.cycle = dead
+        del dead
+        bundle = trainer._bundle_of(functools.partial(collecting_step, intr=intr, cfg=cfg),
+                                    cfg, 2, graphs)
+        _, _, m = bundle(gm0, opt0, kf, idxs[:2], 1)
+        torch.cuda.synchronize()
+    finally:
+        gc.enable()
+    assert [k for k, _, _ in graphs.captures] == [4, 2] and math.isfinite(float(m["loss"]))

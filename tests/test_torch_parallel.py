@@ -5,37 +5,50 @@ on 2- and 4-device CPU meshes and against the port's own single-device path.
 The JAX side is the `parallel` golden (tools/make_torch_goldens.py --only
 parallel; `live` reruns it, minutes): the setup scene of
 tests/test_parallel.py (128x64 in 8x128 tiles, 512 Gaussians), its tied-depth
-scene, and two sharded train steps. The port's side runs in one
-`parallel.spawn` per world size that does every case and returns numpy
-results. Tolerances are those of tests/test_parallel.py:
+scene, and two sharded train steps; and the `sharded_bundle` golden (`--only
+sharded_bundle`): a 3-step make_sharded_train_bundle on that scene and its 3
+steps one by one. The port's side runs in one `parallel.spawn` per world
+size that does every case and returns numpy results. Tolerances are those of
+tests/test_parallel.py:
   * binning: the sorted lists, tile ranges and counters exactly;
   * render: image and final_T atol 1e-5; on tied depths 2e-6 (a tie-order
     swap shows as ~1e-2);
   * train step: loss within 1e-6, pre-Adam gradients rtol 3e-4 / atol 3e-7,
     updated params within 2e-5 on the gradient-carrying lanes (lanes whose
     gradient is float noise, < 3e-6 in both runs, take sparse Adam's
-    sign-like first step: they are held to 10 lr).
+    sign-like first step: they are held to 10 lr);
+  * the bundle: against k calls of the port's own sharded step exactly;
+    against JAX's steps by the train step's rule for the two steps that
+    rule was set for, and its result against JAX's bundle by
+    tests/test_torch_bundle.py's rule (loss rel 1e-4, the ten-step rule
+    for the map, the counters and visible_sum exactly).
 """
 
 import os
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import GOLDEN_SOURCES, frames_from, load_golden
+from torch_port_helpers import (  # noqa: F401 (cuda_device: a fixture)
+    GOLDEN_SOURCES, cuda_device, frames_from, load_golden,
+)
 
 from gaussian_lic_tpu_torch.camera import Intrinsics
 from gaussian_lic_tpu_torch.config import Params
 from gaussian_lic_tpu_torch.engine.dataset import KeyframeBuffer, build_camera
-from gaussian_lic_tpu_torch.engine.trainer import PARAM_GROUPS, MappingEngine, train_step
+from gaussian_lic_tpu_torch import parallel
+from gaussian_lic_tpu_torch.engine.trainer import (
+    PARAM_GROUPS, MappingEngine, _bundle_metrics, train_step,
+)
 from gaussian_lic_tpu_torch.models.gaussians import GaussianMap, LearningRates
 from gaussian_lic_tpu_torch.ops.adam import AdamState
 from gaussian_lic_tpu_torch.ops.rasterize import render_map
 from gaussian_lic_tpu_torch.parallel import (
     bin_gaussians_sharded, gather_state, make_mesh, make_sharded_render,
-    make_sharded_train_step, shard_state, spawn,
+    make_sharded_train_bundle, make_sharded_train_step, shard_state, spawn,
 )
 from gaussian_lic_tpu_torch.parallel.collectives import all_gather, halo_exchange
 from gaussian_lic_tpu_torch.parallel.sharded import _band_geometry
@@ -44,6 +57,8 @@ from gaussian_lic_tpu_torch.ops import tiles as ttiles
 MESHES = (2, 4)
 SPAWN_TIMEOUT = 600   # seconds; a hung collective fails the test, not the suite
 MAP_FIELDS = ("xyz", "dc", "sh_rest", "log_scale", "quat", "opa_logit")
+BUNDLE_METRICS = ("loss", "n_visible", "visible_sum", "budget_lost", "truncated", "overflow")
+BUNDLE_IDS = (0, 1, 0)     # the sharded_bundle golden's keyframes, from exposure step 1
 BIN_FIELDS = ("sorted_gauss", "tile_starts", "tile_lens", "cnt", "num_valid",
               "budget_lost", "truncated")
 RIG = dict(width=128, height=64, fx=60.0, fy=60.0, cx=64.0, cy=32.0)
@@ -126,6 +141,38 @@ def two_steps(step, gm, opt, kf, mesh=None, n_steps=2):
     return out
 
 
+def numpy_state(gm, opt, mesh):
+    """The gathered map fields, exposure and Adam moments as numpy."""
+    gm, opt = gather_state(gm, opt, mesh)
+    out = {f: getattr(gm, f).detach().numpy() for f in MAP_FIELDS + ("exposure",)}
+    out.update({f"{c}_{k}": getattr(st, a).numpy() for k, st in opt.items()
+                for c, a in (("m", "exp_avg"), ("v", "exp_avg_sq"))})
+    return out
+
+
+def bundle_vs_steps(intr, cfg, gm, opt, kf, mesh):
+    """A 3-step make_sharded_train_bundle on BUNDLE_IDS from exposure step 1
+    and the same 3 make_sharded_train_step calls (with_grads: the gradients
+    tell the noise lanes; the update is the plain step's): (the bundle's
+    state and metrics, the steps' records, their final state)."""
+    gs, os_ = shard_state(gm, opt, mesh)
+    gb, ob, mb = make_sharded_train_bundle(intr, cfg, mesh, len(BUNDLE_IDS))(
+        gs, os_, kf, torch.tensor(BUNDLE_IDS), 1)
+    step = make_sharded_train_step(intr, cfg, mesh, with_grads=True)
+    steps, metrics = [], []
+    for i, idx in enumerate(BUNDLE_IDS):
+        gs, os_, m = step(gs, os_, kf, idx, i + 1)
+        metrics.append(m)
+        steps.append(dict(loss=float(m["loss"]), n_visible=int(m["n_visible"]),
+                          grads={k: v.numpy() for k, v in m["grads"].items()},
+                          params={f: getattr(gather_state(gs, os_, mesh)[0], f).numpy()
+                                  for f in MAP_FIELDS}))
+    want = _bundle_metrics(metrics)
+    return dict(state=numpy_state(gb, ob, mesh), steps_state=numpy_state(gs, os_, mesh),
+                metrics={k: mb[k].numpy() for k in BUNDLE_METRICS},
+                steps_metrics={k: want[k].numpy() for k in BUNDLE_METRICS}, steps=steps)
+
+
 # ------------------------------------------------------- the ranks' work
 
 def rank_cases(mesh, d):
@@ -168,6 +215,17 @@ def rank_cases(mesh, d):
     out["exposure"] = dict(loss=float(m["loss"]), exp_avg=os_["exposure"].exp_avg.numpy(),
                            grads={k: v.numpy() for k, v in m["grads"].items()})
 
+    # the bundle, from zero moments, on the band loss and with exposure
+    out["bundle"] = bundle_vs_steps(intr, cfg, gm, zero_moments(gm), kf, mesh)
+    out["bundle_exposure"] = bundle_vs_steps(intr_e, cfg_e, gm_e, opt_e, kf_e, mesh)
+    # a map on the card reaching the bundle of a gloo group (no card here:
+    # the bundle reads only the map's device before it refuses)
+    try:
+        make_sharded_train_bundle(intr, cfg, mesh, 1)(OnTheCard(), {}, kf, [0], 1)
+        out["gloo_on_the_card"] = None
+    except ValueError as e:
+        out["gloo_on_the_card"] = str(e)
+
     intr_o, cfg_o, gm_o, kf_o = overflow_scene()
     _, _, m = make_sharded_train_step(intr_o, cfg_o, mesh)(
         *shard_state(gm_o, zero_moments(gm_o), mesh), kf_o, 0, 1)
@@ -182,6 +240,10 @@ def rank_cases(mesh, d):
     out["collectives"] = dict(up=up.detach().numpy(), dn=dn.detach().numpy(),
                               g_band=g_band.numpy(), g_x=g_x.numpy())
     return out
+
+
+class OnTheCard:
+    device = torch.device("cuda", 0)
 
 
 def exposure_matrix():
@@ -344,6 +406,146 @@ class TestShardedTrainStep:
         assert all(o["overflow"] == m for o in res)   # summed over the ranks
 
 
+@pytest.fixture(scope="module", params=GOLDEN_SOURCES)
+def bundle_golden(request):
+    return load_golden("sharded_bundle", request.param)
+
+
+def golden_bundle_steps(g, D):
+    """JAX's 3 sharded steps of the sharded_bundle golden, as records."""
+    return [dict(loss=float(g[f"step{D}_{i}_loss"]), n_visible=int(g[f"step{D}_{i}_n_visible"]),
+                 grads={k: g[f"step{D}_{i}_grad_{k}"] for k in PARAM_GROUPS},
+                 params={f: g[f"step{D}_{i}_{f}"] for f in MAP_FIELDS})
+            for i in range(len(BUNDLE_IDS))]
+
+
+class TestShardedTrainBundle:
+    @pytest.mark.parametrize("case", ["bundle", "bundle_exposure"])
+    def test_equals_the_steps(self, ranks, case):
+        """make_sharded_train_bundle(k=3) on keyframes (0, 1, 0) is three
+        calls of make_sharded_train_step, bit for bit: the map, the exposure,
+        every Adam moment and every aggregated metric."""
+        D, _, res = ranks
+        for r, out in enumerate(res):
+            b = out[case]
+            assert set(b["state"]) == set(b["steps_state"]) and "m_xyz" in b["state"]
+            for k, v in b["steps_state"].items():
+                np.testing.assert_array_equal(b["state"][k], v, err_msg=f"rank {r} {k}")
+            for k in BUNDLE_METRICS:
+                np.testing.assert_array_equal(b["metrics"][k], b["steps_metrics"][k],
+                                              err_msg=f"rank {r} {k}")
+            assert int(b["metrics"]["visible_sum"]) > int(b["metrics"]["n_visible"]) > 0
+        if case == "bundle_exposure":
+            assert np.abs(res[0][case]["state"]["m_exposure"]).max() > 0
+
+    def test_matches_jax(self, ranks, bundle_golden):
+        """Against JAX's make_sharded_train_bundle(intr, cfg, make_mesh(D), 3)
+        and its 3 steps one by one. The first two steps by the sharded step's
+        rule (assert_steps_match, the two steps tests/test_parallel.py holds);
+        from the third on, sparse Adam's sign-like first moves on the
+        float-noise lanes differ across the packages (JAX's loss is 1.36e-6
+        off at step 3, 1.5e-5 relative, as the single-device port's is), so
+        the bundle's result is held by the rule of a bundle against JAX's
+        (tests/test_torch_bundle.py): loss rel 1e-4, the map by the ten-step
+        rule, n_visible, visible_sum and the overflow counters exactly."""
+        from test_torch_bundle import assert_params_close
+
+        D, d, res = ranks
+        g = bundle_golden
+        assert int(g["map_count"]) == int(d["map_count"])
+        assert tuple(g["idxs"]) == BUNDLE_IDS
+        _, cfg, _, _ = setup_scene(d)
+        want = golden_bundle_steps(g, D)
+        for out in res:
+            b = out["bundle"]
+            assert_steps_match(b["steps"][:2], want[:2], lr_map_of(cfg))
+            assert float(b["metrics"]["loss"]) == pytest.approx(
+                float(g[f"bundle{D}_m_loss"]), rel=1e-4)
+            for k in ("n_visible", "visible_sum", "budget_lost", "truncated", "overflow"):
+                assert int(b["metrics"][k]) == int(g[f"bundle{D}_m_{k}"]), k
+            assert_params_close(SimpleNamespace(**b["state"]),
+                                {f: g[f"bundle{D}_{f}"] for f in MAP_FIELDS},
+                                int(d["map_count"]))
+
+    def test_steps_match_single_device(self, ranks):
+        """The bundle's 3 sharded steps against 3 single-device train steps
+        of the port, by the sharded step's rule at every step."""
+        D, d, res = ranks
+        ref, cfg = single_device_steps(d, n_steps=len(BUNDLE_IDS))
+        for out in res:
+            assert_steps_match(out["bundle"]["steps"], ref, lr_map_of(cfg))
+
+
+    def test_cuda_map_on_gloo_raises(self, ranks):
+        """A graph cannot capture gloo's collectives: a CUDA map reaching the
+        bundle of a gloo group raises, naming the backend, and does not run
+        the eager steps instead."""
+        _, _, res = ranks
+        for out in res:
+            assert out["gloo_on_the_card"] is not None and "gloo" in out["gloo_on_the_card"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("apply_exposure", [False, True], ids=["plain", "exposure"])
+def test_sharded_graph_bundle_on_the_card(cuda_device, apply_exposure):
+    """make_sharded_train_bundle on a one-rank NCCL mesh, one CUDA graph of 4
+    sharded steps and their collectives, against the 4 eager sharded steps
+    on the card from a seeded 2,000-Gaussian bench state at 64x64: the loss
+    and map by tests/test_torch_bundle.py's rules (K2's atomics sum in
+    another order each run), the exposure and its moments likewise, the
+    eager steps' K1/K2 launches counted at the replay; the next bundle takes
+    the returned state with nothing copied; a gloo group on the card raises."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from test_torch_bundle import assert_params_close
+
+    from gaussian_lic_tpu_torch.engine.trainer import BundleGraphs
+    from gaussian_lic_tpu_torch.ops import blend
+    from gaussian_lic_tpu_torch.utils.synthetic import make_bench_state
+
+    cfg = Params(width=64, height=64, fx=40.0, fy=40.0, cx=32.0, cy=32.0, skybox_points_num=0,
+                 initial_capacity=2048, max_tiles_per_gaussian=16, apply_exposure=apply_exposure)
+    intr, gm0, kf, opt0 = make_bench_state(cfg, 2000, cuda_device)
+    if apply_exposure:
+        gm0 = gm0.replace(exposure=exposure_matrix().to(cuda_device))
+        opt0 = dict(opt0, exposure=AdamState.zeros_like(gm0.exposure))
+    mesh = make_mesh(1, device=cuda_device)
+    try:
+        gs0, os0 = shard_state(gm0, opt0, mesh)
+        idxs = torch.tensor([2, 0, 1, 1], device=cuda_device)
+        step = make_sharded_train_step(intr, cfg, mesh)
+        blend.reset_launches()
+        g, o = gs0, os0
+        for i in range(4):
+            g, o, m = step(g, o, kf, int(idxs[i]), 1 + i)
+        eager = dict(blend.LAUNCHES)
+        graphs = BundleGraphs()
+        bundle = make_sharded_train_bundle(intr, cfg, mesh, 4, graphs)
+        blend.reset_launches()
+        gb, ob, mb = bundle(gs0, os0, kf, idxs, 1)
+        torch.cuda.synchronize()
+        assert blend.LAUNCHES == eager == {"forward": 4, "forward_no_color": 0, "backward": 4}
+        assert graphs.warmup_launches["forward"] == 1 and len(graphs.captures) == 1
+        assert float(mb["loss"]) == pytest.approx(float(m["loss"]), rel=1e-4)
+        assert int(mb["n_visible"]) == int(m["n_visible"])
+        assert_params_close(gb, {f: getattr(g, f).cpu().numpy() for f in MAP_FIELDS}, 2000)
+        if apply_exposure:
+            torch.testing.assert_close(gb.exposure, g.exposure, rtol=1e-4, atol=1e-6)
+            torch.testing.assert_close(ob["exposure"].exp_avg, o["exposure"].exp_avg,
+                                       rtol=1e-3, atol=1e-8)
+            assert not torch.equal(gb.exposure, gm0.exposure)
+        gc_, _, _ = bundle(gb, ob, kf, idxs, 5)
+        assert gc_.xyz is gb.xyz and len(graphs.captures) == 1
+        assert blend.LAUNCHES["backward"] == 8
+
+        gloo = dataclasses.replace(mesh, group=dist.new_group(backend="gloo"))
+        with pytest.raises(ValueError, match="gloo"):
+            make_sharded_train_bundle(intr, cfg, gloo, 4)(gs0, os0, kf, idxs, 1)
+    finally:
+        dist.destroy_process_group()
+
+
 class TestCollectives:
     def test_halo_exchange_and_all_gather(self, ranks):
         D, _, res = ranks
@@ -451,29 +653,62 @@ def engine_frames():
 
 
 def run_engine(cfg, mesh=None, result_path=None):
+    """(finalize's results, the Gaussian count, timers.compiles, the engine)."""
     eng = MappingEngine(cfg, device="cpu", mesh=mesh, result_path=result_path)
     for f in engine_frames():
         eng.add_frame(f)
-    return eng.finalize(), int(eng.gm.count)
+    return eng.finalize(), int(eng.gm.count), eng.timers.compiles, eng
 
 
 def engine_rank(mesh, tmp):
-    return run_engine(Params(**ENGINE_CFG), mesh, os.path.join(tmp, f"rank{mesh.rank}"))
+    """run_engine on this rank, recording the bundles the engine asks of
+    parallel.make_sharded_train_bundle: (results, count, compiles, the
+    bundle sizes made, whether the engine's bundle cache holds those)."""
+    made = {}
+    make = parallel.make_sharded_train_bundle
+
+    def recording(intr, cfg, mesh_, k, graphs=None):
+        made[k] = make(intr, cfg, mesh_, k, graphs)
+        return made[k]
+
+    parallel.make_sharded_train_bundle = recording
+    try:
+        res, n, compiles, eng = run_engine(Params(**ENGINE_CFG), mesh,
+                                           os.path.join(tmp, f"rank{mesh.rank}"))
+    finally:
+        parallel.make_sharded_train_bundle = make
+    return res, n, compiles, sorted(made), all(eng._bundles[k] is made[k] for k in eng._bundles)
+
+
+@pytest.fixture(scope="module")
+def engine_runs(tmp_path_factory):
+    """(tmp, each rank's engine_rank, the single-device run_engine): one
+    spawn of 2 gloo ranks for the class."""
+    tmp = tmp_path_factory.mktemp("engine")
+    ranks_ = spawn(engine_rank, 2, "cpu", args=(str(tmp),), timeout=SPAWN_TIMEOUT)
+    return tmp, ranks_, run_engine(Params(**ENGINE_CFG))
 
 
 class TestEngineWithMesh:
-    def test_streaming_engine_sharded(self, tmp_path):
+    def test_streaming_engine_sharded(self, engine_runs):
         """MappingEngine over 2 gloo ranks: the train PSNR within 0.1 dB of
         the single-device engine's, the same Gaussian count, and only rank 0
         writes its result path."""
-        (r0, n0), (r1, n1) = spawn(engine_rank, 2, "cpu", args=(str(tmp_path),),
-                                   timeout=SPAWN_TIMEOUT)
-        ref, n_ref = run_engine(Params(**ENGINE_CFG))
+        tmp_path, ((r0, n0, *_), (r1, n1, *_)), (ref, n_ref, _, _) = engine_runs
         assert n0 == n1 == n_ref
         assert abs(r0["train_psnr"] - ref["train_psnr"]) < 0.1
         assert r0["train_psnr"] > 14.0 and r0 == r1
         assert os.path.exists(tmp_path / "rank0" / "point_cloud.ply")
         assert not os.path.exists(tmp_path / "rank1")
+
+    def test_bundles_are_sharded_bundles(self, engine_runs):
+        """The mesh engine's bundles come from make_sharded_train_bundle (its
+        bundle cache holds them), and it counts the single-device engine's
+        compiles on the same stream."""
+        _, ranks_, (_, _, compiles_ref, _) = engine_runs
+        for _, _, compiles, made, cached in ranks_:
+            assert made and cached
+            assert compiles == compiles_ref
 
 
 class TestCli:

@@ -17,7 +17,10 @@ mode, on small seeded scenes, and returns (or writes) the inputs and outputs as
               keyframe), then `finalize` with randinit LPIPS: the skybox's
               uniform draws, the eval results and the PLY file's bytes;
   parallel.npz  the sharded binning, render and two train steps
-              (`parallel/sharded.py`) on 2- and 4-device CPU meshes.
+              (`parallel/sharded.py`) on 2- and 4-device CPU meshes;
+  sharded_bundle.npz  a 3-step `make_sharded_train_bundle` on the parallel
+              case's setup scene at D = 2 and 4, and the same 3 steps of
+              `make_sharded_train_step(with_grads=True)`.
 
 Interpret-mode Pallas is slow on a CPU (tens of seconds to minutes per case),
 which is why the port's fast tests read these files instead of running the JAX
@@ -621,9 +624,61 @@ def make_parallel() -> dict:
     return out
 
 
+SHARDED_BUNDLE_IDS = (0, 1, 0)
+
+
+def make_sharded_bundle() -> dict:
+    """JAX's make_sharded_train_bundle(intr, cfg, make_mesh(D), 3) at D = 2
+    and 4 on the parallel case's setup scene (parallel.npz holds it) from
+    zero moments, keyframes SHARDED_BUNDLE_IDS, exposure step 1: the final
+    map and the bundle's metrics; and the same 3 steps of
+    make_sharded_train_step(with_grads=True), whose gradients tell the
+    tests' float-noise lanes."""
+    _jax_cpu()
+    import jax.numpy as jnp
+
+    from gaussian_lic_tpu.camera import Intrinsics
+    from gaussian_lic_tpu.engine.trainer import PARAM_GROUPS
+    from gaussian_lic_tpu.ops import adam as adam_ops
+    from gaussian_lic_tpu.parallel import (
+        make_mesh, make_sharded_train_bundle, make_sharded_train_step,
+    )
+
+    cfg = parallel_params()
+    intr = Intrinsics(**PARALLEL_RIG)
+    gm, frames = parallel_scene()
+    kf = _keyframes(intr, frames, cfg.max_train_keyframes)
+    zeros = {name: adam_ops.AdamState(jnp.zeros_like(gm.trainable()[name]),
+                                      jnp.zeros_like(gm.trainable()[name]))
+             for name in PARAM_GROUPS}
+    k = len(SHARDED_BUNDLE_IDS)
+    out = dict(idxs=np.array(SHARDED_BUNDLE_IDS, np.int32), map_count=np.int32(int(gm.count)))
+    for D in PARALLEL_MESHES:
+        mesh = make_mesh(D)
+        gm_b, _, m = make_sharded_train_bundle(intr, cfg, mesh, k)(
+            gm, zeros, kf, jnp.asarray(SHARDED_BUNDLE_IDS, jnp.int32), jnp.asarray(1, jnp.int32))
+        for name in GM_FIELDS:
+            out[f"bundle{D}_{name}"] = np.asarray(getattr(gm_b, name))
+        for name in BUNDLE_METRICS:
+            out[f"bundle{D}_m_{name}"] = np.asarray(m[name])
+        step = make_sharded_train_step(intr, cfg, mesh, with_grads=True)
+        gm_s, opt_s = gm, zeros
+        for i, idx in enumerate(SHARDED_BUNDLE_IDS):
+            gm_s, opt_s, m = step(gm_s, opt_s, kf, jnp.asarray(idx, jnp.int32),
+                                  jnp.asarray(i + 1, jnp.int32))
+            tag = f"step{D}_{i}"
+            out[f"{tag}_loss"] = np.float32(m["loss"])
+            out[f"{tag}_n_visible"] = np.int32(m["n_visible"])
+            for g in PARAM_GROUPS:
+                out[f"{tag}_grad_{g}"] = np.asarray(m["grads"][g])
+            for name in GM_FIELDS:
+                out[f"{tag}_{name}"] = np.asarray(getattr(gm_s, name))
+    return out
+
+
 CASES = {"blend": make_blend, "nan_row": make_nan_row, "train": make_train,
          "engine": make_engine, "bundle": make_bundle, "finalize": make_finalize,
-         "parallel": make_parallel}
+         "parallel": make_parallel, "sharded_bundle": make_sharded_bundle}
 
 
 def main() -> int:
