@@ -9,7 +9,8 @@ exit code is not 0:
   1. device and build: the card's name and power limit, TF32 switched off,
      the CUDA kernels built with nvcc from csrc/ (seconds, ptxas report);
      K2's entry loop in the SASS (cuobjdump) must issue at most a third of
-     the shuffle and shared-memory instructions of the first design's;
+     the shuffle and shared-memory instructions of the first design's (its
+     counts as that design's SASS showed them);
   2. kernel vs plain: K1 blend_forward (color and no_color) and K2
      blend_backward at 640x512, each held against its plain PyTorch version
      with both times (CUDA events), on two inputs: a seeded ~20k-Gaussian
@@ -18,21 +19,28 @@ exit code is not 0:
      staged batches and its early exit). K1 must match bit for bit outside
      termination ties; the share of (entry, warp block) pairs its cull keeps
      is read from its plain emulation (warp_cull_keep), and at each input K1
-     is timed in turns beside its first design (K3 base). K2 returns
-     per-Gaussian sums and is held per column against the plain per-entry
-     version + index_add_; at each input it is timed in turns beside the
-     first design (K4 base + index_add_). Every kernel's bounds come from the
+     is timed in turns beside K3 base, the same kernel launched through the
+     probe's entry (a check that the probes time the production kernel). K2
+     returns per-Gaussian sums and is held per column against the plain
+     per-entry version + index_add_; at each input it is timed in turns
+     beside K4 base, likewise. Every kernel's bounds come from the
      (entry, pixel) pairs of the train step's inputs (blend_pairs), the
      card's SM count and max clock: bound_ms on the pairs the result needs,
      walk_bound_ms on every pair a plain walk tests;
-  2b. the blend probes K3/K4 (ops/blend_probe.py): every variant on phase
-     2's two inputs, held against K1's outputs and K2's plain per-entry
-     output of phase 2 where it keeps their numerics (dbuf2 also against
-     K4 base), and against its own plain version (every variant on the
-     20k scene, the others at 1M); then the probes' own path, the run()
-     of tools/probe_torch_kernel.py and tools/probe_torch_bwd.py on the probe
-     scene (1M Gaussians, camera 0), with the probe launch counters zeroed
-     just before and read just after: every variant must show;
+  2b. the blend probes K3/K4 (ops/blend_probe.py), instantiations of K1's
+     and K2's own kernel templates: every variant on phase 2's two inputs.
+     The variants that compute K1's outputs (base, nocull, batch256,
+     direct) must equal phase 2's K1 output bit for bit; those that compute
+     K2's (base, sbuf, smematomic, cull) must agree per column with K2's
+     plain per-Gaussian output of phase 2 (and base with K2's); the others
+     (noexp, noattr, noblend, nored, noatomic) with their own plain
+     versions, as every variant on the 20k scene. The built SASS of K3/K4
+     base is set beside K1's/K2's. Then the probes' own path, the run() of
+     tools/probe_torch_kernel.py and tools/probe_torch_bwd.py on the probe
+     scene (1M Gaussians, camera 0: every variant's time, its difference
+     from base and its deviation from its plain version; K2's tile order),
+     with the probe launch counters zeroed just before and read just after:
+     every variant must show;
   3. the slice: MappingEngine.add_frame over a 40-frame synthetic stream at
      the fastlivo rig (640x512, SH 3, 16 tile slots, capacity 262144), its
      steps in bundles (CUDA graphs); the launch counters are zeroed just
@@ -123,12 +131,13 @@ APP_PSNR_FLOOR = 17.0      # phase 5 train PSNR floor: first H100 run 18.73 dB
 APP_SMALL_RTOL = 1e-4      # phase 5 64x64 app, card vs CPU eval metrics: first H100 run 3.6e-6
 NOBLEND_RTOL = 1e-5        # K3 noblend vs plain, relative to the max: sums of ~1e4 powers
 NORED_RTOL = 1e-4          # K4 nored vs plain, relative to the max: 4-pixel sums
-# K4 variants vs K2's plain per-entry version of phase 2 (fused: summed per
-# Gaussian), relative to the max: they sum the pixels in another order
-BWD_RTOL_VS_PLAIN = {"base": GRAD_RTOL, "dbuf2": GRAD_RTOL, "smematomic": GRAD_RTOL,
-                     "fused": GRAD_RTOL}
-DBUF2_RTOL_VS_BASE = 1e-6  # dbuf2 keeps K4 base's arithmetic and order
-FWD_K1_NUMERICS = ("base", "batch512", "direct")   # K3 variants held to K1 bit for bit
+FWD_K1_NUMERICS = ("base", "nocull", "batch256", "direct")   # K3 variants: K1 bit for bit
+# K4 variants held to K2's plain per-Gaussian output, per column within
+# GRAD_RTOL (they sum the pixels in another order)
+BWD_K2_NUMERICS = ("base", "sbuf", "smematomic", "cull")
+# K2's entry loop in the first design's SASS, as cuobjdump showed it while
+# that design was built: SHFL, STS, LDS
+FIRST_K2_LOOP = {"SHFL": 45, "STS": 18, "LDS": 9}
 
 # Bounds: the least time the card could take for a kernel's work on this
 # run's inputs, the larger of its bytes over the memory rate and of its
@@ -232,13 +241,16 @@ def blend_bytes(sc, output: str) -> int:
     """Bytes a blend kernel must move on scene `sc`: the used splat columns,
     the tile ranges, the per-pixel inputs, and its output (`output`: image
     (color, final_T, n_contrib), `entry` (M_pad, 9) or `gauss` (P, 9) grads;
-    the backward also reads sorted_gauss for `gauss`)."""
+    the backward also reads sorted_gauss for `gauss`; `bands`, K4
+    noatomic's (4, M_pad, 9) band records)."""
     m, g = sc["splats"].shape[0], sc["grid"]
     px = g.padded_width * g.padded_height
     n = m * ROW_BYTES + 8 * g.n_tx * g.n_ty
     if output == "image":
         return n + 20 * px
     n += 20 * px   # dL/dpix, final_T, n_contrib
+    if output == "bands":
+        return n + 4 * m * ROW_BYTES
     return n + (m * ROW_BYTES if output == "entry" else m * 4 + sc["n_gauss"] * ROW_BYTES)
 
 
@@ -266,20 +278,25 @@ def sass_loop_counts(sass: str, kernel: str, ops=("SHFL", "STS", "LDS")) -> dict
     raise AssertionError(f"no kernel {kernel!r} with a SHFL loop in the SASS")
 
 
-def check_k2_reduction(lib_path: str) -> None:
-    """K2's entry loop must issue at most a third of the shuffle and shared
-    memory instructions of the first design's (K4 base), in the built SASS."""
+def built_sass(lib_path: str) -> str:
+    """cuobjdump -sass of the built kernel library."""
     import subprocess
 
     from gaussian_lic_tpu_torch import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+    return subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
                           check=True).stdout
-    new = sass_loop_counts(sass, "blend_backward_kernel")
-    old = sass_loop_counts(sass, "probe_backward_kernelILi0E")
+
+
+def check_k2_reduction(lib_path: str) -> None:
+    """K2's entry loop must issue at most a third of the shuffle and shared
+    memory instructions of the first design's (FIRST_K2_LOOP), in the built
+    SASS."""
+    new = sass_loop_counts(built_sass(lib_path), "blend_backward_kernelILi0E")
+    old = FIRST_K2_LOOP
     ratio = sum(new[o] for o in ("SHFL", "STS", "LDS")) / sum(old[o] for o in ("SHFL", "STS", "LDS"))
-    log(f"[1] SASS of the entry loop: K2 {new}; first design (K4 base) {old}; "
+    log(f"[1] SASS of the entry loop: K2 {new}; first design {old}; "
         f"SHFL+STS+LDS ratio {ratio:.3f}")
     if not ratio <= 1 / 3:
         raise AssertionError(f"K2's loop issues {ratio:.3f} of the first design's shuffle and "
@@ -441,8 +458,8 @@ def compare_kernels(sc: dict, tag: str) -> dict:
     def plain_bwd():
         return blend.sum_per_gaussian(blend.blend_backward_plain(*bargs, **kw), sg, P)
 
-    def first_design():   # the first K2 (K4 base) and the per-Gaussian index_add_ after it
-        return blend.sum_per_gaussian(bp.probe_backward("base", *bargs, **kw), sg, P)
+    def k4_base():   # K2 launched through the probe's entry
+        return bp.probe_backward("base", *bargs, sg, **gkw)
 
     res = {
         "forward": (max(err_img, err_ft),
@@ -458,21 +475,20 @@ def compare_kernels(sc: dict, tag: str) -> dict:
     }
     for k, (_, tk, tp) in res.items():
         log(f"[2] {tag} time {k}: kernel {tk:.4f} ms  plain {tp:.4f} ms")
-    # the new K1 beside its first design, in turns
-    k1_first = lambda: bp.probe_forward("base", *args, **kw)   # noqa: E731
-    k1_vs = [cuda_ms(f, 20) for f in (k1_first, lambda: blend.blend_forward(*args, **kw),
-                                      lambda: blend.blend_forward(*args, **kw), k1_first)]
-    log(f"[2] {tag} K1 vs the first design (K3 base), in turns old new new old: "
+    # K1 beside K3 base and K2 beside K4 base, in turns: the same kernels
+    k3_base = lambda: bp.probe_forward("base", *args, **kw)   # noqa: E731
+    k1_vs = [cuda_ms(f, 20) for f in (k3_base, lambda: blend.blend_forward(*args, **kw),
+                                      lambda: blend.blend_forward(*args, **kw), k3_base)]
+    log(f"[2] {tag} K1 beside K3 base (the same kernel), in turns K3 K1 K1 K3: "
         + " ".join(f"{v:.4f}" for v in k1_vs) + " ms")
-    # the new K2 beside the first design, in turns
-    k2_vs = [cuda_ms(f, 20) for f in (first_design, lambda: blend.blend_backward(*bargs, sg, **gkw),
-                                      lambda: blend.blend_backward(*bargs, sg, **gkw), first_design)]
-    log(f"[2] {tag} K2 vs the first design (K4 base + index_add_), in turns old new new old: "
+    k2_vs = [cuda_ms(f, 20) for f in (k4_base, lambda: blend.blend_backward(*bargs, sg, **gkw),
+                                      lambda: blend.blend_backward(*bargs, sg, **gkw), k4_base)]
+    log(f"[2] {tag} K2 beside K4 base (the same kernel), in turns K4 K2 K2 K4: "
         + " ".join(f"{v:.4f}" for v in k2_vs) + " ms")
-    sc.update(k1=out_k, ties=ties, k2_plain=gp_entry, k2_in=bargs[3:], times=res,
-              k1_first_ms=(k1_vs[0] + k1_vs[3]) / 2, k1_kept=kept,
-              k2_first_ms=(k2_vs[0] + k2_vs[3]) / 2,
-              entry_plain_ms=cuda_ms(lambda: blend.blend_backward_plain(*bargs, **kw), 3))
+    sc.update(k1=out_k, ties=ties, k2=gk, k2_plain=gp, k2_in=bargs[3:], times=res,
+              k3_base_ms=(k1_vs[0] + k1_vs[3]) / 2, k1_turns_ms=(k1_vs[1] + k1_vs[2]) / 2,
+              k1_kept=kept, k4_base_ms=(k2_vs[0] + k2_vs[3]) / 2,
+              k2_turns_ms=(k2_vs[1] + k2_vs[2]) / 2)
     return res
 
 
@@ -502,10 +518,10 @@ def phase_kernels(dev, state: dict, rates: dict, n: int = 20000):
                         ms=step[key][1], plain_ms=step[key][2], **b, library_ms=None))
         log(f"[2] {name}: {step[key][1]:.4f} ms against a bound of {b['bound_ms']:.4f} ms "
             f"({b['bound_by']}; walk bound {b['walk_bound_ms']:.4f} ms)")
-    log(f"[2] K1 at the train step: {step['forward'][1]:.4f} ms; the first design (K3 base) "
-        f"{step_sc['k1_first_ms']:.4f} ms in the same run; kept share {step_sc['k1_kept']:.6f}")
-    log(f"[2] K2 at the train step: {step['backward'][1]:.4f} ms; the first design (K4 base + "
-        f"index_add_) {step_sc['k2_first_ms']:.4f} ms in the same run")
+    log(f"[2] K1 at the train step: {step['forward'][1]:.4f} ms; in turns {step_sc['k1_turns_ms']:.4f}"
+        f" beside K3 base {step_sc['k3_base_ms']:.4f} ms; kept share {step_sc['k1_kept']:.6f}")
+    log(f"[2] K2 at the train step: {step['backward'][1]:.4f} ms; in turns "
+        f"{step_sc['k2_turns_ms']:.4f} beside K4 base {step_sc['k4_base_ms']:.4f} ms")
     return out, (light_sc, step_sc)
 
 
@@ -516,8 +532,8 @@ def phase_kernels(dev, state: dict, rates: dict, n: int = 20000):
 def check_probe_forward(tag, v, against, out, ref, tol, ties) -> float:
     """Max abs error of K3 variant `v`'s outputs against `ref` (named
     `against`), outside the pixels that `ties()` names (asked for only when
-    some pixel disagrees); raises beyond `tol` or on an n_contrib mismatch
-    outside them."""
+    some pixel disagrees; None: no pixel is excused); raises beyond `tol` or
+    on an n_contrib mismatch outside them."""
     import torch
 
     if v == "noblend":
@@ -533,83 +549,120 @@ def check_probe_forward(tag, v, against, out, ref, tol, ties) -> float:
     px_err = torch.maximum((out[0] - ref[0]).abs().amax(0), (out[1] - ref[1]).abs())
     nc_bad = out[2] != ref[2]
     bad = nc_bad | (px_err > tol)
-    excused = ties() if bool(bad.any()) else torch.zeros_like(bad)
+    excused = ties() if ties is not None and bool(bad.any()) else torch.zeros_like(bad)
     err = float(px_err[~excused].max())
     log(f"[2b] {tag} K3 {v} vs {against}: max|d image|,|d final_T| {err:.3e}  n_contrib mismatches "
         f"{int(nc_bad.sum())} (tie pixels excused {int(excused.sum())})")
     if bool((bad & ~excused).any()):
         raise AssertionError(f"{tag}: K3 {v} disagrees with {against} beyond {tol} at "
-                             f"{int((bad & ~excused).sum())} pixels that are not ties")
+                             f"{int((bad & ~excused).sum())} pixels"
+                             + (" that are not ties" if ties is not None else ""))
     return err
 
 
 def check_probe_backward(tag, v, against, out, ref, tol) -> float:
     """Max abs error of K4 variant `v`'s grads against `ref` (named
-    `against`); raises beyond `tol` relative to the max of `ref`."""
-    err = float((out - ref).abs().max())
-    rel = err / max(float(ref.abs().max()), 1e-30)
-    log(f"[2b] {tag} K4 {v} vs {against}: max|d grad| {err:.3e}  relative to max {rel:.3e}")
-    if not rel <= tol:
+    `against`); raises beyond `tol` relative to each column's max (nored:
+    to the max of `ref`)."""
+    out, ref = out.reshape(-1, out.shape[-1]), ref.reshape(-1, ref.shape[-1])
+    d = (out - ref).abs()
+    err = float(d.max())
+    if v == "nored":
+        rels = [err / max(float(ref.abs().max()), 1e-30)]
+    else:
+        rels = (d.amax(0) / ref.abs().amax(0).clamp_min(1e-30)).tolist()
+    log(f"[2b] {tag} K4 {v} vs {against}: max|d grad| {err:.3e}  relative to "
+        + ("max " if v == "nored" else "each column's max ") + " ".join(f"{r:.2e}" for r in rels))
+    if not max(rels) <= tol:
         raise AssertionError(f"{tag}: K4 {v} disagrees with {against} beyond {tol} relative")
     return err
 
 
 def compare_probes(sc: dict, tag: str, full: bool) -> dict:
-    """Every K3/K4 variant on scene `sc` of phase 2. The variants that keep
-    K1/K2's numerics are held against phase 2's K1 output and K2's plain
-    per-entry output; with `full`,
-    every variant is also held against its plain version, and otherwise only
-    the others run their plain version, once (the rest take phase 2's plain
-    time). Returns {(direction, variant): (max abs err, ms, plain ms)}."""
+    """Every K3/K4 variant on scene `sc` of phase 2. The variants that
+    compute K1's outputs are held bit for bit against phase 2's K1 output,
+    those that compute K2's per column against K2's plain per-Gaussian output
+    (base also against K2's); with `full`, every variant is also held against
+    its plain version, and otherwise only the others run their plain
+    version, once (the rest take phase 2's plain time). Returns
+    {(direction, variant): (max abs err, ms, plain ms)}; logs each
+    variant's time and the mean entries its walk visited per tile."""
+    import torch
+
     from gaussian_lic_tpu_torch.ops import blend_probe as bp
     from gaussian_lic_tpu_torch.utils.cuda_timing import cuda_ms
 
     g = sc["grid"]
     kw = dict(n_tx=g.n_tx, n_ty=g.n_ty, tile_h=g.tile_h, tile_w=g.tile_w)
     args = (sc["splats"], sc["starts"], sc["lens"])
-    res = {}
+    walked = torch.zeros(g.n_tx * g.n_ty, dtype=torch.int32, device=sc["splats"].device)
+    res, mean_walked = {}, {}
     for v in bp.FORWARD_VARIANTS:
         plain = functools.partial(bp.probe_forward_plain, v)
-        out = bp.probe_forward(v, *args, **kw)
+        out = bp.probe_forward(v, *args, walked=walked, **kw)
+        mean_walked[("forward", v)] = float(walked.double().mean())
         errs, plain_ms = [], sc["times"]["forward"][2]
         if full or v not in FWD_K1_NUMERICS:
             ref, plain_ms = timed(lambda: plain(*args, **kw))
             errs.append(check_probe_forward(tag, v, "plain", out, ref, IMG_ATOL,
                                             lambda: tie_pixels(plain, sc, kw)))
+            del ref
         if v in FWD_K1_NUMERICS:
-            errs.append(check_probe_forward(tag, v, "K1", out, sc["k1"], 0.0,
-                                            lambda: sc["ties"]))
+            errs.append(check_probe_forward(tag, v, "K1", out, sc["k1"], K1_ATOL, None))
         res[("forward", v)] = (max(errs), cuda_ms(lambda: bp.probe_forward(v, *args, **kw), 20),
                                plain_ms)
+        del out
 
-    bargs = args + sc["k2_in"]   # phase 2's dL/dpix, final_T and n_contrib
-    fkw = dict(kw, sorted_gauss=sc["sorted_gauss"], n_gauss=sc["n_gauss"])
-    k2_plain = sc["k2_plain"]    # phase 2's plain per-entry K2
-    k2_plain_sum = k2_plain.new_zeros((sc["n_gauss"] + 1, k2_plain.shape[1])).index_add_(
-        0, sc["sorted_gauss"].long(), k2_plain)
-    outs = {}
+    bargs = args + sc["k2_in"] + (sc["sorted_gauss"],)   # phase 2's dL/dpix, final_T, n_contrib
+    gkw = dict(kw, n_gauss=sc["n_gauss"])
     for v in bp.BACKWARD_VARIANTS:
-        out = outs[v] = bp.probe_backward(v, *bargs, **fkw)
-        errs = []
-        plain_ms = sc["times"]["backward"][2] if v == "fused" else sc["entry_plain_ms"]
-        if full or v == "nored":
-            ref, plain_ms = timed(lambda: bp.probe_backward_plain(v, *bargs, **fkw))
+        out = bp.probe_backward(v, *bargs, walked=walked, **gkw)
+        mean_walked[("backward", v)] = float(walked.double().mean())
+        errs, plain_ms = [], sc["times"]["backward"][2]
+        if full or v not in BWD_K2_NUMERICS:
+            ref, plain_ms = timed(lambda: bp.probe_backward_plain(v, *bargs, **gkw))
             errs.append(check_probe_backward(tag, v, "plain", out, ref,
                                              NORED_RTOL if v == "nored" else GRAD_RTOL))
-        if v == "fused":
-            errs.append(check_probe_backward(tag, v, "K2 plain + index_add_", out, k2_plain_sum,
-                                             BWD_RTOL_VS_PLAIN[v]))
-        elif v in BWD_RTOL_VS_PLAIN:
-            errs.append(check_probe_backward(tag, v, "K2 plain", out, k2_plain,
-                                             BWD_RTOL_VS_PLAIN[v]))
-        if v == "dbuf2":
-            errs.append(check_probe_backward(tag, v, "K4 base", out, outs["base"],
-                                             DBUF2_RTOL_VS_BASE))
+            del ref
+        if v in BWD_K2_NUMERICS:
+            errs.append(check_probe_backward(tag, v, "K2 plain", out, sc["k2_plain"], GRAD_RTOL))
+        if v == "base":
+            errs.append(check_probe_backward(tag, v, "K2", out, sc["k2"], GRAD_RTOL))
         res[("backward", v)] = (max(errs),
-                                cuda_ms(lambda: bp.probe_backward(v, *bargs, **fkw), 20), plain_ms)
+                                cuda_ms(lambda: bp.probe_backward(v, *bargs, **gkw), 20), plain_ms)
+        del out
     for (d, v), (_, tk, tp) in res.items():
-        log(f"[2b] {tag} time {d} {v}: kernel {tk:.4f} ms  plain {tp:.4f} ms")
+        log(f"[2b] {tag} time {d} {v}: kernel {tk:.4f} ms (vs base "
+            f"{tk - res[(d, 'base')][1]:+.4f})  plain {tp:.4f} ms  walked/tile "
+            f"{mean_walked[(d, v)]:.1f}")
     return res
+
+
+def sass_opcodes(sass: str, kernel: str) -> list:
+    """The opcode sequence of every SASS function whose name holds `kernel`."""
+    import re
+
+    out = []
+    for part in sass.split("Function : ")[1:]:
+        if kernel in part.split("\n", 1)[0]:
+            out.append([t.split()[0] for t in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([^;]*);",
+                                                         part) if t.strip()])
+    return out
+
+
+def check_base_is_production(lib_path: str) -> None:
+    """K1 and K3 base are one template instantiation (kFwdBase of
+    blend_forward.cuh) built in two sources, K2 and K4 base likewise: the
+    built SASS of each pair must hold the same opcodes in the same order."""
+    sass = built_sass(lib_path)
+    for name, kernel in (("K1 / K3 base", "blend_forward_kernelILi0E"),
+                         ("K2 / K4 base", "blend_backward_kernelILi0E")):
+        bodies = sass_opcodes(sass, kernel)
+        same = len(bodies) == 2 and bodies[0] == bodies[1]
+        log(f"[2b] SASS of {name}: {len(bodies)} functions of "
+            f"{' / '.join(str(len(b)) for b in bodies)} instructions, identical opcodes {same}")
+        if not same:
+            raise AssertionError(f"{name}: the probe's base is not the production kernel's code")
 
 
 def load_tool(name: str):
@@ -621,12 +674,15 @@ def load_tool(name: str):
 
 
 def phase_probes(state: dict, scenes, iters: int = 3) -> list:
-    """K3/K4 against their plain versions on phase 2's scenes, then the
-    probes' own path: the two probe tools' run() on the probe scene, between
-    a reset and a read of the probe launch counters."""
+    """K3/K4 against K1/K2 and their plain versions on phase 2's scenes,
+    base's SASS beside K1's and K2's, then the probes' own path: the two
+    probe tools' run() on the probe scene, between a reset and a read of the
+    probe launch counters."""
+    from gaussian_lic_tpu_torch import _build
     from gaussian_lic_tpu_torch.ops import blend_probe as bp
     from gaussian_lic_tpu_torch.utils.synthetic import probe_scene
 
+    check_base_is_production(_build.load().path)
     light_sc, step_sc = scenes
     light = compare_probes(light_sc, f"{light_sc['n_gauss']}-Gaussian scene", full=True)
     step = compare_probes(step_sc, f"{state['n']}-Gaussian train step", full=False)
@@ -643,8 +699,7 @@ def phase_probes(state: dict, scenes, iters: int = 3) -> list:
 
     pairs = step_sc["pairs"]
     g = step_sc["grid"]
-    const = step_sc["splats"].clone()
-    const[:, :len(bp.NOATTR_SPLAT)] = const.new_tensor(bp.NOATTR_SPLAT)
+    const = bp.noattr_list(step_sc["splats"])
     pairs["noattr"] = blend_pairs(const, step_sc["starts"], step_sc["lens"], g)
     pairs["noexp"] = blend_pairs(step_sc["splats"], step_sc["starts"], step_sc["lens"], g,
                                  exp=bp._noexp)
@@ -662,7 +717,7 @@ def phase_probes(state: dict, scenes, iters: int = 3) -> list:
         for v in variants:
             key = (d, v)
             which, cost, tested = work.get(key, ("base", d, d))
-            output = "image" if d == "forward" else ("gauss" if v == "fused" else "entry")
+            output = "image" if d == "forward" else ("bands" if v == "noatomic" else "gauss")
             b = bounds(state["rates"], blend_bytes(step_sc, output), pairs[which], cost,
                        tested)
             rows.append(dict(name=f"probe_{d}_{v}", route="cuda", source=src + cu,

@@ -49,9 +49,9 @@ _SIGNATURES = {
     # n_tx, n_ty, tile_w, tile_h, konst (9 host floats or null), stream
     "glic_blend_probe_forward": (_I, _VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP,
                                  _I, _I, _I, _I, _VP, _VP),
-    # variant, rows, m_pad, starts, lens, dl_dcolor, final_t, n_contrib, grads,
-    # sorted_gauss, walked, n_tx, n_ty, tile_w, tile_h, stream
-    "glic_blend_probe_backward": (_I, _VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+    # variant, rows, m_pad, starts, lens, tile_order, dl_dcolor, final_t, n_contrib,
+    # sorted_gauss, out, walked, n_tx, n_ty, tile_w, tile_h, stream
+    "glic_blend_probe_backward": (_I, _VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                   _I, _I, _I, _I, _VP),
 }
 

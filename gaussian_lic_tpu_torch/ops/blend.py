@@ -30,8 +30,9 @@ Each launch adds one to `LAUNCHES` (a CUDA graph adds its recorded launches
 at each replay, `launches_apart`). Both kernels bulk-copy whole rows, so
 on the card `splats` must be 16-byte aligned.
 
-K1 skips an entry in a warp's pixel block (`k1_block`: 8x16, or 16x8 in the
-8x128 tile) when the entry's footprint box misses the block (`cull_boxes`):
+K1 skips an entry in a warp's pixel block (`k1_block`: 8x16 in tiles of 16
+rows and 8 columns or more, else 128 pixels as wide or as narrow as the tile
+asks) when the entry's footprint box misses the block (`cull_boxes`):
 the box holds every pixel at which the per-pixel arithmetic above could
 apply the entry, so a skipped pair is one the test would reject, and K1's
 outputs are those of the plain version, which tests every pair. `warp_cull_keep` is the plain emulation of that rule, for
@@ -58,11 +59,14 @@ TILE_PIX = 1024           # pixels per tile; the kernels spread them over 256 th
 GAUSS_TABLE_STRIDE = 12   # floats per row of K2's per-Gaussian table (three float4s)
 WARP_PIX = 128            # pixels of one warp's block in K1 (32 threads x 4)
 
-# K1's cull box (csrc/blend_forward.cu, cull_box): the bounding box of
+# K1's cull box (csrc/blend_common.cuh, cull_box): the bounding box of
 # q(d) <= (ln(255 opa) + CULL_POWER_ABS) / (1 - CULL_POWER_REL kappa), kappa =
 # (A + C)^2 / det, widened by CULL_BOX_REL of its half-widths + CULL_BOX_ABS px.
+# K3 noexp's box (`linear`) takes (0.9 - (1/255) / opa) / 0.1 + CULL_LINEAR_ABS
+# in place of ln(255 opa) + CULL_POWER_ABS.
 CULL_POWER_REL = 1e-6     # above the 6 roundings' 3.6e-7 of the float power, per kappa q
 CULL_POWER_ABS = 2e-6     # above expf's 2 ulp + the product's half ulp (3e-7)
+CULL_LINEAR_ABS = 1e-5    # above the linear G's 3 roundings, 2e-6 in power
 CULL_BOX_REL = 1e-3
 CULL_BOX_ABS = 0.01
 
@@ -169,7 +173,6 @@ def blend_forward(
                                    n_ty=n_ty, tile_h=tile_h, tile_w=tile_w,
                                    no_color=no_color)
     _check_aligned(splats, "K1")
-    k1_block(tile_h, tile_w)
     from gaussian_lic_tpu_torch import _build
 
     lib = _build.load()
@@ -317,12 +320,13 @@ def _walked(trigger, lens, batch):
 
 
 def _to_image(per_tile: torch.Tensor, n_tx, n_ty, tile_h, tile_w) -> torch.Tensor:
-    """(T, ..., 1024) tile-major -> (..., Hp, Wp)."""
+    """(T, ..., 1024) tile-major -> (..., Hp, Wp), contiguous (a one-row or
+    one-column tile would otherwise leave a strided view, which K2 rejects)."""
     lead = per_tile.shape[1:-1]
     x = per_tile.reshape((n_ty, n_tx) + lead + (tile_h, tile_w))
     nl = len(lead)
     perm = tuple(range(2, 2 + nl)) + (0, 2 + nl, 1, 3 + nl)
-    return x.permute(perm).reshape(lead + (n_ty * tile_h, n_tx * tile_w))
+    return x.permute(perm).reshape(lead + (n_ty * tile_h, n_tx * tile_w)).contiguous()
 
 
 def _to_tiles(img: torch.Tensor, n_tx, n_ty, tile_h, tile_w) -> torch.Tensor:
@@ -336,7 +340,7 @@ def _to_tiles(img: torch.Tensor, n_tx, n_ty, tile_h, tile_w) -> torch.Tensor:
 
 def blend_forward_plain(
     splats, tile_starts, tile_lens, *, n_tx, n_ty, tile_h=32, tile_w=32,
-    no_color=False, t_eps=T_EPS, exp=torch.exp, walked=None, walk_batch=256,
+    no_color=False, t_eps=T_EPS, exp=torch.exp, walked=None, walk_batch=128,
 ):
     """Plain version of K1 (same signature and outputs). Front-to-back
     termination is emulated with cumulative products and a 'dead after the
@@ -391,20 +395,28 @@ def _round_out(v: torch.Tensor, down: bool) -> torch.Tensor:
     return torch.where(past, torch.nextafter(f, step), f)
 
 
-def cull_boxes(splats: torch.Tensor) -> torch.Tensor:
+def cull_boxes(splats: torch.Tensor, linear: bool = False) -> torch.Tensor:
     """(M, 4) float32 (x_lo, x_hi, y_lo, y_hi) per gathered row: K1's
     cull_box. Outside the box no pixel centre can apply the entry: the box of
     the alpha >= 1/255 ellipse q(d) <= ln(255 opa), widened by the float
     error of the per-pixel test (CULL_* above). Every pixel when a used
     attribute is not finite, the conic is not positive definite or kappa is
-    too large for the bound; no pixel when 255 opa < 1 (with a margin)."""
+    too large for the bound; no pixel when 255 opa < 1 (with a margin).
+    `linear`: the box of K3 noexp's test, opa (0.1 power + 0.9) >= 1/255
+    (no pixel when 0.9 opa < 1/255)."""
     x, y, A, B, C, opa = (splats[:, i].double() for i in range(6))
     inf = math.inf
     finite = torch.isfinite(splats[:, :6]).all(1)
-    none = opa * 255.0 * (1.0 + 1e-6) < 1.0
     det = A * C - B * B
     shrink = 1.0 - CULL_POWER_REL * (A + C) * (A + C) / det
-    t = torch.clamp_min(torch.log(255.0 * opa) + CULL_POWER_ABS, 0.0) / shrink
+    if linear:   # the test's float32 constants, in double
+        c09, c01, thr = torch.tensor([0.9, 0.1, OPACITY_THRESHOLD], dtype=torch.float32).tolist()
+        none = opa * c09 * (1.0 + 1e-5) < thr
+        q = (c09 - thr / opa) / c01 + CULL_LINEAR_ABS
+    else:
+        none = opa * 255.0 * (1.0 + 1e-6) < 1.0
+        q = torch.log(255.0 * opa) + CULL_POWER_ABS
+    t = torch.clamp_min(q, 0.0) / shrink
     s = 2.0 * t / det
     wx = torch.sqrt(s * C) * (1.0 + CULL_BOX_REL) + CULL_BOX_ABS
     wy = torch.sqrt(s * A) * (1.0 + CULL_BOX_REL) + CULL_BOX_ABS
@@ -420,12 +432,14 @@ def cull_boxes(splats: torch.Tensor) -> torch.Tensor:
 
 def k1_block(tile_h: int, tile_w: int) -> Tuple[int, int]:
     """(width, height) of K1's warp pixel blocks in a tile_h x tile_w tile,
-    as csrc/blend_forward.cu picks them from the tile's shape: 8x16 where
-    tile_h is a multiple of 16, 16x8 in a tile 8 rows high. Raises for the
-    tiles K1 does not take (fewer than 8 rows)."""
-    block_w = 8 if tile_h % 16 == 0 else (16 if tile_h == 8 else 0)
-    if block_w == 0 or tile_w % block_w:
-        raise ValueError(f"K1 takes tiles of 8 or a multiple of 16 rows, got {tile_h}x{tile_w}")
+    as csrc/blend_common.cuh (k1_block_w) picks them from the tile's shape:
+    8x16 in tiles of 16 rows or more and 8 columns or more; in a tile of
+    fewer rows one block row spans 128 / tile_h columns (16x8, 32x4, 64x2,
+    128x1); in a tile of fewer columns the block is as wide as the tile (4x32,
+    2x64, 1x128). Raises for a tile that does not hold TILE_PIX pixels."""
+    if tile_h <= 0 or tile_w <= 0 or tile_h * tile_w != TILE_PIX:
+        raise ValueError(f"K1 takes tiles of {TILE_PIX} pixels, got {tile_h}x{tile_w}")
+    block_w = WARP_PIX // tile_h if tile_h < 16 else min(8, tile_w)
     return block_w, WARP_PIX // block_w
 
 
@@ -440,12 +454,12 @@ def _pixel_blocks(tile_h, tile_w, device) -> torch.Tensor:
 
 
 def warp_cull_keep(
-    splats, tile_starts, tile_lens, *, n_tx, n_ty, tile_h=32, tile_w=32,
+    splats, tile_starts, tile_lens, *, n_tx, n_ty, tile_h=32, tile_w=32, linear=False,
 ) -> torch.Tensor:
     """Plain emulation of K1's cull: (T, L, 1024 / WARP_PIX) bool, L the
     longest range, True where the warp owning that block of the tile walks
     the tile's l-th entry (its cull box meets the block); False where K1
-    skips the pair, and past the tile's range."""
+    skips the pair, and past the tile's range. `linear`: K3 noexp's boxes."""
     block_w, block_h = k1_block(tile_h, tile_w)
     dev = splats.device
     n_tiles = n_tx * n_ty
@@ -453,7 +467,7 @@ def warp_cull_keep(
     ar = torch.arange(L, device=dev)
     valid = ar[None, :] < tile_lens.long()[:, None]
     idx = torch.where(valid, tile_starts.long()[:, None] + ar[None, :], 0)
-    box = cull_boxes(splats)[idx]                                    # (T, L, 4)
+    box = cull_boxes(splats, linear)[idx]                            # (T, L, 4)
     tiles = torch.arange(n_tiles, device=dev)
     blocks = torch.arange(TILE_PIX // WARP_PIX, device=dev)
     per_row = tile_w // block_w

@@ -1,37 +1,64 @@
 """Substitution probes of the blend kernels: K3 (forward) and K4 (backward).
 
 The counterparts of the JAX package's Pallas probes, `make_fwd(...).run` in
-tools/probe_kernel.py and `make_bwd(...).run` in tools/probe_bwd.py. Each
-variant is K1 (`blend.blend_forward`) or K2 in its first design (per-entry
-grads, the per-Gaussian sum left to an index_add_; `blend.blend_backward` was
-redesigned since) with one cost centre swapped out; the time it removes from `base` is what that centre
-costs. Some variants compute something else on purpose, and every variant
-has a plain PyTorch version of exactly what it computes.
+tools/probe_kernel.py and `make_bwd(...).run` in tools/probe_bwd.py. As
+there, a probe is the production kernel with one cost centre swapped out,
+and the time it removes from `base` is what that centre costs: each variant
+is an instantiation of K1's or K2's own kernel template
+(csrc/blend_forward.cuh, csrc/blend_backward.cuh), and `base` is the
+instantiation the main path launches. Some variants compute something else
+on purpose, and every variant has a plain PyTorch version of exactly what it
+computes.
 
-Forward variants (csrc/blend_probe_forward.cu), outputs as K1's:
-  base      K1's walk, bit for bit
+Forward variants (K1's design: 128-pixel warp blocks, 2 bands a tile,
+batches of 128 rows by bulk copy into a double buffer, the per-warp
+footprint cull), outputs as K1's:
+  base      K1, bit for bit
+  nocull    no box test and no ballot: every warp walks every entry of its
+            band (K1's outputs, bit for bit)
   noexp     G = 0.1 power + 0.9 in place of exp(power)
-  noattr    no attribute staging or loads: every in-range entry is NOATTR_SPLAT
-  noblend   color += (power, power/2, power/4) over every in-range entry, with
-            no tests, no termination and no early exit (final_T 1, n_contrib 0)
-  batch512  512 entries staged per round, 2 per thread, in place of 256
-  direct    every thread reads the attributes from device memory; no staging
+  noattr    no staging and no attribute loads: every in-range entry is
+            NOATTR_SPLAT
+  noblend   no tests and no blend: color += (power, power/2, power/4) over
+            every in-range entry, with no termination and no early exit
+            (final_T 1, n_contrib 0)
+  batch256  256 rows a batch in place of 128 (K1's outputs)
+  direct    no bulk-copy staging: the lanes read the rows from device memory
+            (K1's outputs)
+K1's cull box holds the pixels where opa exp(power) can reach 1/255, and the
+substitutions apply entries outside it, so each has the cull its own
+function allows: noexp a box from its linear test's own threshold
+(`blend.cull_boxes(linear=True)`), noattr the box of NOATTR_SPLAT, noblend
+none (every warp walks every entry).
 
-Backward variants (csrc/blend_probe_backward.cu), per-entry grads as the first K2:
-  base        the first K2, bit for bit
-  dbuf2       the next batch is copied with cp.async into a second shared
-              buffer while the current one is walked
-  nored       no reduction: each entry's record comes from thread 0's four
-              pixels alone, the flat pixels NORED_PIXELS of the tile
-  smematomic  warp shuffles, then shared-memory atomicAdd into one buffer
-  fused       records atomicAdded into per-Gaussian grads (P+1, 9) at
-              `sorted_gauss`; no per-entry write and no index_add_
+Backward variants (K2's design: 4 bands of 256 pixels, 64 threads a band,
+the bulk-copy double buffer, the 12-shuffle reduce-scatter, per-Gaussian
+vector atomics, the tiles launched longest first), per-Gaussian grads (P, 9)
+as K2's unless named:
+  base        K2
+  sbuf        one buffer, refilled synchronously after each batch
+  nored       no reduce-scatter and no warp-partials pass: each band's record
+              of an entry comes from its first lane's four pixels alone, so
+              the result sums the tile's NORED_PIXELS (every pixel's math and
+              T/Sdl updates still run)
+  smematomic  the reduce-scatter replaced by shared-memory atomics: every
+              lane adds its sums into one buffer of the band
+  noatomic    no per-Gaussian atomics: each band stores its partial record of
+              every walked entry into a (BWD_BANDS, M_pad, 9) buffer with
+              plain stores; its plain version is the per-entry grads of each
+              band's pixels
+  cull        K1's per-warp footprint cull on K2's walk: each warp owns one of
+              K1's compact warp blocks (`blend.k1_block`; K2's own warps
+              span 7 rows of 32, interleaved) and skips the entries whose box
+              misses it. Sums in another order than K2's
+Every backward variant launches the tiles in `tile_order` (default: K2's
+`blend.longest_first`, computed on every call as K2 computes it).
 
 Dispatch as in ops/blend.py: a CPU tensor takes the plain version
 (`probe_forward_plain`, `probe_backward_plain`); a CUDA tensor launches the
 kernel or raises. Each launch adds one to `LAUNCHES[f"{direction}_{variant}"]`.
 Both directions can write the entries each tile's walk visited into a (T,)
-int32 `walked`.
+int32 `walked`: the larger count of the tile's bands.
 """
 
 from __future__ import annotations
@@ -43,14 +70,18 @@ import torch
 
 from gaussian_lic_tpu_torch.ops import blend
 
-# The order is the kernels' variant numbering.
-FORWARD_VARIANTS = ("base", "noexp", "noattr", "noblend", "batch512", "direct")
-BACKWARD_VARIANTS = ("base", "dbuf2", "nored", "smematomic", "fused")
+# The order is the kernels' variant numbering (ForwardVariant, BackwardVariant).
+FORWARD_VARIANTS = ("base", "nocull", "noexp", "noattr", "noblend", "batch256", "direct")
+BACKWARD_VARIANTS = ("base", "sbuf", "nored", "smematomic", "noatomic", "cull")
+FWD_BATCH = {"batch256": 256}   # rows a batch where not K1's 128
+BWD_BANDS = 4                   # K2's pixel bands a tile, 256 pixels each
+BWD_BAND_THREADS = 64
 
 # noattr's splat: x, y, A, B, C, opacity, r, g, b (tools/probe_kernel.py:153-154)
 NOATTR_SPLAT = (1.0, 2.0, 0.01, 0.001, 0.01, 0.5, 0.2, 0.3, 0.4)
-# nored's pixels: thread 0's four, flat = threadIdx.x + k * 256
-NORED_PIXELS = (0, 256, 512, 768)
+# nored's pixels: each band's first thread's four, flat = band * 256 + 64 k
+NORED_PIXELS = tuple(b * blend.TILE_PIX // BWD_BANDS + BWD_BAND_THREADS * k
+                     for b in range(BWD_BANDS) for k in range(4))
 
 LAUNCHES = {f"{d}_{v}": 0 for d, vs in (("forward", FORWARD_VARIANTS),
                                         ("backward", BACKWARD_VARIANTS)) for v in vs}
@@ -100,6 +131,7 @@ def probe_forward(
     kw = dict(n_tx=n_tx, n_ty=n_ty, tile_h=tile_h, tile_w=tile_w)
     if blend._device_kind(splats) == "cpu":
         return probe_forward_plain(variant, splats, tile_starts, tile_lens, walked=walked, **kw)
+    blend._check_aligned(splats, "K3")
     from gaussian_lic_tpu_torch import _build
 
     lib = _build.load()
@@ -108,6 +140,8 @@ def probe_forward(
     color = torch.empty((3, Hp, Wp), dtype=torch.float32, device=dev)
     final_t = torch.empty((Hp, Wp), dtype=torch.float32, device=dev)
     n_contrib = torch.empty((Hp, Wp), dtype=torch.int32, device=dev)
+    if walked is not None:
+        walked.zero_()   # the bands take the larger count with atomicMax
     konst = (ctypes.c_float * len(NOATTR_SPLAT))(*NOATTR_SPLAT)
     blend._launch(lib.cdll.glic_blend_probe_forward, index, blend._ptr(splats),
                   ctypes.c_longlong(splats.shape[0]), blend._ptr(tile_starts),
@@ -126,18 +160,20 @@ def probe_backward(
     dl_dcolor: torch.Tensor,    # (3, Hp, Wp) float32
     final_t: torch.Tensor,      # (Hp, Wp) float32
     n_contrib: torch.Tensor,    # (Hp, Wp) int32
+    sorted_gauss: torch.Tensor, # (M_pad,) int32 Gaussian id of each entry, in [0, P]
     *,
-    sorted_gauss: Optional[torch.Tensor] = None,  # (M_pad,) int32, for fused
-    n_gauss: Optional[int] = None,                # P, for fused
+    n_gauss: int,               # P; id P is the dead id
     n_tx: int,
     n_ty: int,
     tile_h: int = 32,
     tile_w: int = 32,
     walked: Optional[torch.Tensor] = None,
+    tile_order: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K4. Returns per-entry grads (M_pad, 9) for (x, y, A, B, C, opa, r, g,
-    b), or for `fused` per-Gaussian grads (P+1, 9): entry e added to row
-    sorted_gauss[e], the dead id P to row P. sorted_gauss must lie in [0, P]."""
+    """K4. Returns K2's per-Gaussian grads (P, 9) for (x, y, A, B, C, opa,
+    r, g, b) as the variant computes them; `noatomic`: (BWD_BANDS, M_pad, 9),
+    each band's per-entry grads. `tile_order` (T,) int32: the launch order
+    of the tiles (the card only; default K2's, longest first)."""
     index = _variant_index(variant, BACKWARD_VARIANTS)
     blend._check_common(splats, tile_starts, tile_lens, n_tx, n_ty, tile_h, tile_w)
     Hp, Wp = n_ty * tile_h, n_tx * tile_w
@@ -145,32 +181,38 @@ def probe_backward(
     blend._check("dl_dcolor", dl_dcolor, (3, Hp, Wp), torch.float32, dev)
     blend._check("final_t", final_t, (Hp, Wp), torch.float32, dev)
     blend._check("n_contrib", n_contrib, (Hp, Wp), torch.int32, dev)
+    blend._check("sorted_gauss", sorted_gauss, (splats.shape[0],), torch.int32, dev)
+    if n_gauss < 0:
+        raise ValueError(f"need n_gauss >= 0, got {n_gauss}")
     _check_walked(walked, n_tx * n_ty, dev)
-    if variant == "fused":
-        if sorted_gauss is None or n_gauss is None or n_gauss < 0:
-            raise ValueError("the fused variant needs sorted_gauss and n_gauss >= 0")
-        blend._check("sorted_gauss", sorted_gauss, (splats.shape[0],), torch.int32, dev)
+    if tile_order is not None:
+        blend._check("tile_order", tile_order, (n_tx * n_ty,), torch.int32, dev)
     kw = dict(n_tx=n_tx, n_ty=n_ty, tile_h=tile_h, tile_w=tile_w)
     if blend._device_kind(splats) == "cpu":
         return probe_backward_plain(variant, splats, tile_starts, tile_lens, dl_dcolor,
-                                    final_t, n_contrib, sorted_gauss=sorted_gauss,
-                                    n_gauss=n_gauss, walked=walked, **kw)
-    if variant == "dbuf2" and splats.data_ptr() % 16:
-        raise ValueError("dbuf2 copies 16-byte pieces of each row: splats must be "
-                         "16-byte aligned")
+                                    final_t, n_contrib, sorted_gauss, n_gauss=n_gauss,
+                                    walked=walked, **kw)
+    blend._check_aligned(splats, "K4")
     from gaussian_lic_tpu_torch import _build
 
     lib = _build.load()
-    rows = n_gauss + 1 if variant == "fused" else splats.shape[0]
-    grads = torch.zeros((rows, blend.N_ATTR), dtype=torch.float32, device=dev)
+    order = blend.longest_first(tile_lens) if tile_order is None else tile_order
+    if variant == "noatomic":
+        out = torch.zeros((BWD_BANDS, splats.shape[0], blend.N_ATTR), dtype=torch.float32,
+                          device=dev)
+    else:
+        out = torch.zeros((n_gauss + 1, blend.GAUSS_TABLE_STRIDE), dtype=torch.float32,
+                          device=dev)
+    if walked is not None:
+        walked.zero_()   # the bands take the larger count with atomicMax
     blend._launch(lib.cdll.glic_blend_probe_backward, index, blend._ptr(splats),
                   ctypes.c_longlong(splats.shape[0]), blend._ptr(tile_starts),
-                  blend._ptr(tile_lens), blend._ptr(dl_dcolor), blend._ptr(final_t),
-                  blend._ptr(n_contrib), blend._ptr(grads),
-                  _opt_ptr(sorted_gauss if variant == "fused" else None), _opt_ptr(walked),
-                  n_tx, n_ty, tile_w, tile_h, blend._stream(dev))
+                  blend._ptr(tile_lens), blend._ptr(order), blend._ptr(dl_dcolor),
+                  blend._ptr(final_t), blend._ptr(n_contrib), blend._ptr(sorted_gauss),
+                  blend._ptr(out), _opt_ptr(walked), n_tx, n_ty, tile_w, tile_h,
+                  blend._stream(dev))
     LAUNCHES[f"backward_{variant}"] += 1
-    return grads
+    return out if variant == "noatomic" else out[:n_gauss, :blend.N_ATTR]
 
 
 # ---------------------------------------------------------------------------
@@ -181,25 +223,31 @@ def _noexp(power: torch.Tensor) -> torch.Tensor:
     return power * 0.1 + 0.9
 
 
+def noattr_list(splats: torch.Tensor) -> torch.Tensor:
+    """`splats` with every row's attributes replaced by NOATTR_SPLAT: what
+    the noattr variant walks."""
+    const = splats.new_zeros(splats.shape)
+    const[:, :blend.N_ATTR] = splats.new_tensor(NOATTR_SPLAT)
+    return const
+
+
 def probe_forward_plain(
     variant, splats, tile_starts, tile_lens, *, n_tx, n_ty, tile_h=32, tile_w=32,
     t_eps=blend.T_EPS, walked=None,
 ):
     """Plain version of K3 (same outputs); `t_eps` as in
-    `blend.blend_forward_plain`, for the tie check."""
+    `blend.blend_forward_plain`, for the tie check. The culls change no
+    output: the plain versions test every pair."""
     _variant_index(variant, FORWARD_VARIANTS)
     grid = dict(n_tx=n_tx, n_ty=n_ty, tile_h=tile_h, tile_w=tile_w)
     if variant == "noblend":
         return _noblend_plain(splats, tile_starts, tile_lens, walked=walked, **grid)
-    kw = dict(grid, t_eps=t_eps, walked=walked)
+    kw = dict(grid, t_eps=t_eps, walked=walked, walk_batch=FWD_BATCH.get(variant, 128))
     if variant == "noattr":
-        const = splats.new_zeros(splats.shape)
-        const[:, :blend.N_ATTR] = splats.new_tensor(NOATTR_SPLAT)
-        return blend.blend_forward_plain(const, tile_starts, tile_lens, **kw)
+        return blend.blend_forward_plain(noattr_list(splats), tile_starts, tile_lens, **kw)
     if variant == "noexp":
         return blend.blend_forward_plain(splats, tile_starts, tile_lens, exp=_noexp, **kw)
-    batch = 512 if variant == "batch512" else 256
-    return blend.blend_forward_plain(splats, tile_starts, tile_lens, walk_batch=batch, **kw)
+    return blend.blend_forward_plain(splats, tile_starts, tile_lens, **kw)
 
 
 def _noblend_plain(splats, tile_starts, tile_lens, *, n_tx, n_ty, tile_h, tile_w, walked):
@@ -221,22 +269,26 @@ def _noblend_plain(splats, tile_starts, tile_lens, *, n_tx, n_ty, tile_h, tile_w
             torch.zeros((Hp, Wp), dtype=torch.int32, device=dev))
 
 
+def band_pixels(band: int, device=None) -> torch.Tensor:
+    """The flat pixels of K2's pixel band `band` of a tile."""
+    n = blend.TILE_PIX // BWD_BANDS
+    return torch.arange(band * n, (band + 1) * n, device=device)
+
+
 def probe_backward_plain(
-    variant, splats, tile_starts, tile_lens, dl_dcolor, final_t, n_contrib, *,
-    sorted_gauss=None, n_gauss=None, n_tx, n_ty, tile_h=32, tile_w=32, walked=None,
+    variant, splats, tile_starts, tile_lens, dl_dcolor, final_t, n_contrib, sorted_gauss, *,
+    n_gauss, n_tx, n_ty, tile_h=32, tile_w=32, walked=None,
 ):
     """Plain version of K4 (same outputs)."""
     _variant_index(variant, BACKWARD_VARIANTS)
     kw = dict(n_tx=n_tx, n_ty=n_ty, tile_h=tile_h, tile_w=tile_w)
-    pixels = None
-    if variant == "nored":
-        pixels = torch.tensor(NORED_PIXELS, device=splats.device)
-    grads = blend.blend_backward_plain(splats, tile_starts, tile_lens, dl_dcolor, final_t,
-                                       n_contrib, pixels=pixels, **kw)
+    args = (splats, tile_starts, tile_lens, dl_dcolor, final_t, n_contrib)
     if walked is not None:
-        nmax = blend._to_tiles(n_contrib, n_tx, n_ty, tile_h, tile_w).amax(1)
-        walked.copy_(torch.minimum(nmax, tile_lens))
-    if variant != "fused":
-        return grads
-    out = grads.new_zeros((n_gauss + 1, blend.N_ATTR))
-    return out.index_add_(0, sorted_gauss.long(), grads)
+        nmax = blend._to_tiles(n_contrib, **kw).amax(1)
+        walked.copy_(torch.clamp_min(torch.minimum(nmax, tile_lens), 0))
+    if variant == "noatomic":
+        return torch.stack([blend.blend_backward_plain(*args, pixels=band_pixels(b, splats.device),
+                                                       **kw) for b in range(BWD_BANDS)])
+    pixels = torch.tensor(NORED_PIXELS, device=splats.device) if variant == "nored" else None
+    grads = blend.blend_backward_plain(*args, pixels=pixels, **kw)
+    return blend.sum_per_gaussian(grads, sorted_gauss, n_gauss)

@@ -14,14 +14,16 @@
     AD of the dense oracle, <= 1e-4 relative (test_rasterize_tiled.py:199-233),
     and the blend's own VJP against JAX's `_make_blend` VJP, 1e-4 relative.
 (d) K1's cull (`blend.warp_cull_keep`, the plain emulation of the footprint
-    test K1 runs per entry and 8x16 warp block): on the golden and on rows at
-    the edges of the rule, no pair the plain arithmetic applies lies in a
-    skipped block, so the plain forward with the skipped pairs left untested
-    is the plain forward bit for bit.
+    test K1 runs per entry and warp block): on the golden, on rows at the
+    edges of the rule and at every tile shape of 1024 pixels (1x1024 to
+    1024x1), no pair the plain arithmetic applies lies in a skipped block, so
+    the plain forward with the skipped pairs left untested is the plain
+    forward bit for bit. The plain K1 and K2 against the Pallas kernels at
+    tiles of 4x256 and 1x1024 (tile_shapes golden), at (a)'s tolerances.
 (e) The CUDA kernels against their plain versions, on the card only: K1 bit
     for bit on the golden, the edge rows, tiles of many staged batches, at
-    each tile shape of the multi-GPU band geometry (32x32, 16x64, 8x128) and
-    with NaN-opacity rows; K2 per column on the same.
+    every tile shape of 1024 pixels and with NaN-opacity rows; K2 per column
+    on the same.
 (f) NaN opacity: the plain forward and backward skip a NaN-opacity row as
     the Pallas kernels do (the nan_row golden), and the row changes nothing.
 
@@ -452,7 +454,7 @@ class TestWarpCull:
         assert bool((far[:, 0] > far[:, 1]).all()) and bool((far[:, 2] > far[:, 3]).all())
 
 
-TILES = [(32, 32), (16, 64), (8, 128)]
+TILES = [(1 << i, 1024 >> i) for i in range(11)]   # every tile of 1024 pixels
 
 
 def tile_scene(tile, device="cpu"):
@@ -474,16 +476,37 @@ def tile_scene(tile, device="cpu"):
 
 
 class TestTileShapes:
-    """K1 takes every tile the multi-GPU band geometry uses (32x32, 16x64,
-    8x128): its warp blocks come from the tile's shape (8x16, or 16x8 in an
-    8-row tile)."""
+    """K1 takes every tile of 1024 pixels, as the JAX package does
+    (config.py's tile_h, tile_w): its warp blocks of 128 pixels come from
+    the tile's shape (8x16, or as wide or as narrow as the tile asks)."""
 
     def test_k1_block(self):
-        assert blend.k1_block(32, 32) == blend.k1_block(16, 64) == (8, 16)
-        assert blend.k1_block(8, 128) == (16, 8)
-        for bad in ((4, 256), (2, 512), (1, 1024), (1024, 1)):
+        want = {(1, 1024): (128, 1), (2, 512): (64, 2), (4, 256): (32, 4), (8, 128): (16, 8),
+                (16, 64): (8, 16), (32, 32): (8, 16), (64, 16): (8, 16), (128, 8): (8, 16),
+                (256, 4): (4, 32), (512, 2): (2, 64), (1024, 1): (1, 128)}
+        assert sorted(want) == sorted(TILES)
+        for (th, tw), block in want.items():
+            assert blend.k1_block(th, tw) == block
+            assert th % block[1] == 0 and tw % block[0] == 0   # whole blocks tile the tile
+            blocks = blend._pixel_blocks(th, tw, "cpu")
+            assert (torch.bincount(blocks) == blend.WARP_PIX).all()   # 8 blocks of 128
+        for bad in ((16, 16), (0, 1024), (3, 341)):
             with pytest.raises(ValueError, match=f"{bad[0]}x{bad[1]}"):
                 blend.k1_block(*bad)
+
+    @pytest.mark.parametrize("tile", TILES, ids=lambda s: f"{s[0]}x{s[1]}")
+    def test_plain_forward_feeds_the_backward(self, tile):
+        """At every tile shape the plain forward's outputs are contiguous
+        images that K2's entry takes, and the per-Gaussian grads are the
+        per-entry ones summed (a one-row or one-column tile left strided
+        views, which blend_backward rejected)."""
+        args, kw, ids, P, dl = tile_scene(tile)
+        color, ft, nc = blend.blend_forward(*args, **kw)
+        assert color.is_contiguous() and ft.is_contiguous() and nc.is_contiguous()
+        g = blend.blend_backward(*args, dl, ft, nc, ids, n_gauss=P, **kw)
+        per_entry = blend.blend_backward_plain(*args, dl, ft, nc, **kw)
+        assert torch.equal(g, blend.sum_per_gaussian(per_entry, ids, P))
+        assert float(g.abs().max()) > 0
 
     @pytest.mark.parametrize("tile", TILES, ids=lambda s: f"{s[0]}x{s[1]}")
     def test_no_applied_pair_is_skipped(self, tile):
@@ -493,6 +516,38 @@ class TestTileShapes:
         keep, bad = contrib_outside_keep(*args, kw)
         assert bad == 0 and int(args[2].sum()) > 500
         assert 0.0 < float(keep.sum()) / (int(args[2].sum()) * keep.shape[2]) < 1.0
+
+
+def shape_args(d, tag, device="cpu"):
+    """The tile_shapes golden's list and grid at tile shape `tag`."""
+    n_tx, n_ty, th, tw = (int(v) for v in d[f"{tag}_grid"])
+    args = (t(d["splats"]).to(device), t(d[f"{tag}_tile_starts"]).to(device),
+            t(d[f"{tag}_tile_lens"]).to(device))
+    return args, dict(n_tx=n_tx, n_ty=n_ty, tile_h=th, tile_w=tw)
+
+
+class TestTileShapesAgainstPallas:
+    """The plain K1 and K2 against the Pallas kernels at tiles of 4x256 and
+    1x1024 pixels (tile_shapes golden: a 1024x8 image whose every tile walks
+    the whole 160-row list), at (a)'s tolerances: image and final_T atol
+    1e-5, n_contrib exact, per-entry grads 1e-4 of each column's max."""
+
+    @pytest.mark.parametrize("source", GOLDEN_SOURCES)
+    @pytest.mark.parametrize("tag", ["4x256", "1x1024"])
+    def test_forward_and_backward(self, tag, source):
+        d = load_golden("tile_shapes", source)
+        args, kw = shape_args(d, tag)
+        color, final_t, n_contrib = blend.blend_forward_plain(*args, **kw)
+        assert (d[f"{tag}_final_t"] < 1e-3).sum() > 0, "no terminated pixel"
+        np.testing.assert_allclose(n(color), d[f"{tag}_color"], atol=IMG_ATOL, rtol=0)
+        np.testing.assert_allclose(n(final_t), d[f"{tag}_final_t"], atol=IMG_ATOL, rtol=0)
+        np.testing.assert_array_equal(n(n_contrib), d[f"{tag}_n_contrib"])
+        grads = n(blend.blend_backward_plain(*args, t(d["dl_dcolor"]), final_t, n_contrib,
+                                             **kw))
+        ref = d[f"{tag}_entry_grads"]
+        assert np.abs(ref).max() > 0
+        for i in range(blend.N_ATTR):
+            assert rel_max(grads[:, i], ref[:, i]) < GRAD_RTOL, i
 
 
 class TestNanOpacity:
@@ -647,10 +702,19 @@ class TestKernelsOnTheCard:
         for i in range(blend.N_ATTR):
             assert rel_max(n(g)[:, i], n(gp)[:, i]) < GRAD_RTOL, i
 
-    def test_rejects_tiles_under_8_rows(self, cuda_device):
-        args, kw, *_ = tile_scene((8, 128), cuda_device)
-        with pytest.raises(ValueError, match="4x256"):
-            blend.blend_forward(*args, **dict(kw, n_tx=1, n_ty=16, tile_h=4, tile_w=256))
+    def test_renders_tiles_under_8_rows(self, cuda_device):
+        """A 4x256 tile (32x4 warp blocks) renders bit for bit against the
+        plain version, color and no_color, on the tile_shapes golden's list."""
+        d = load_golden("tile_shapes", "file")
+        args, kw = shape_args(d, "4x256", cuda_device)
+        for no_color in (False, True):
+            out = blend.blend_forward(*args, no_color=no_color, **kw)
+            ref = blend.blend_forward_plain(*args, no_color=no_color, **kw)
+            torch.cuda.synchronize()
+            for a, b in zip(out, ref):
+                np.testing.assert_array_equal(n(a), n(b))
+        _, final_t, n_contrib = blend.blend_forward_plain(*args, **kw)
+        assert int(n_contrib.max()) > 0 and bool((final_t < 1e-3).any())
 
     def test_nan_opacity_row(self, cuda_device):
         """K1 skips the NaN-opacity rows bit for bit as its plain version

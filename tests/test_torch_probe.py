@@ -5,23 +5,30 @@ CPU: they use TPU DMA semaphores and SMEM scratch, and build a 1M-Gaussian
 state inside main(). So each plain variant is held, on the golden splat list
 (tests/torch_goldens/blend.npz), against what it stands for:
 
-(a) the variants that keep K1/K2's numerics (base, batch512, direct; base,
-    dbuf2, smematomic) against the Pallas goldens, at the tolerances of
-    tests/test_torch_blend.py: image and final_T atol 1e-5, n_contrib exact,
-    grads 1e-4 relative to the max; `fused` against the goldens' per-entry
-    grads summed per Gaussian, 1e-4 relative;
+(a) the variants that keep K1/K2's numerics (base, nocull, batch256, direct;
+    base, sbuf, smematomic, cull) against the Pallas goldens, at the
+    tolerances of tests/test_torch_blend.py: image and final_T atol 1e-5,
+    n_contrib exact; the per-Gaussian grads against the goldens' per-entry
+    grads summed per Gaussian over seeded ids, 1e-4 relative to the max;
+    `noatomic` summed over its bands against the goldens' per-entry grads,
+    1e-4 relative; nocull and cull are also their base's plain version
+    exactly;
 (b) noexp, noattr, noblend and nored against a jax.numpy transcription of the
     probes' per-entry bodies (probe_kernel.py:168-196, probe_bwd.py:188-258)
     walked over each tile's in-range entries. noexp and noattr: image and
     final_T atol 1e-5 and n_contrib exact outside termination ties (pixels
     the port's plain version decides differently with 1e-4 moved by 1 ulp);
     noblend (sums of ~70 powers of up to ~1e3) 1e-5 relative to the max;
-    nored (sums over 4 pixels) 1e-4 relative to the max. The transcription
-    with the production reduction reproduces the Pallas goldens first, at
-    (a)'s tolerances;
-(c) dispatch: CPU tensors take the plain version and count no launch;
-    unknown variants and a fused call without sorted_gauss raise;
-(d) every kernel variant against its plain version, on the card only.
+    nored (sums over NORED_PIXELS, per Gaussian) 1e-4 relative to the max.
+    The transcription with the production reduction reproduces the Pallas
+    goldens first, at (a)'s tolerances;
+(c) the culls the kernels run: each variant's box rule keeps every pair its
+    own arithmetic applies (K1's rule at K1's warp blocks for base, batch256,
+    direct and K4 cull; noexp's linear rule; the box of noattr's splat);
+(d) `walked` at K1's batch of 128 (256 for batch256) and K2's walk;
+(e) dispatch: CPU tensors take the plain version and count no launch;
+    unknown variants and bad ids raise;
+(f) every kernel variant against its plain version, on the card only.
 """
 
 import functools
@@ -39,7 +46,9 @@ IMG_ATOL = 1e-5
 GRAD_RTOL = 1e-4
 NOBLEND_RTOL = 1e-5
 NORED_RTOL = 1e-4
-N_GAUSS = 300     # ids of the synthetic sorted_gauss for `fused`
+N_GAUSS = 300     # ids of the synthetic sorted_gauss
+K1_NUMERICS = ("base", "nocull", "batch256", "direct")    # K3 variants computing K1's outputs
+K2_NUMERICS = ("base", "sbuf", "smematomic", "cull")      # K4 variants computing K2's grads
 
 
 @pytest.fixture(scope="module")
@@ -59,17 +68,24 @@ def pixel_args(d, device="cpu"):
 
 
 def sorted_gauss(d):
-    """A seeded entry -> Gaussian map for `fused`; all-zero rows (the list's
-    padding) take the dead id N_GAUSS."""
+    """A seeded entry -> Gaussian map; all-zero rows (the list's padding)
+    take the dead id N_GAUSS."""
     ids = np.random.default_rng(0).integers(0, N_GAUSS, len(d["splats"])).astype(np.int32)
     ids[~d["splats"].any(1)] = N_GAUSS
     return ids
 
 
+def bwd_args(d, device="cpu"):
+    """probe_backward's positional arguments and grid on the golden."""
+    args, kw = golden_args(d, device)
+    return args + pixel_args(d, device) + (t(sorted_gauss(d)).to(device),), \
+        dict(kw, n_gauss=N_GAUSS)
+
+
 def per_gaussian(entry_grads, ids):
     out = np.zeros((N_GAUSS + 1, entry_grads.shape[1]), np.float64)
     np.add.at(out, ids, entry_grads)
-    return out
+    return out[:N_GAUSS]
 
 
 def tie_pixels(variant, args, kw):
@@ -228,7 +244,7 @@ def jax_backward_probe(d, pixels=None):
 
 # --------------------------------------------------------------------- (a)
 
-@pytest.mark.parametrize("variant", ["base", "batch512", "direct"])
+@pytest.mark.parametrize("variant", K1_NUMERICS)
 def test_forward_k1_numerics_vs_pallas(golden, variant):
     args, kw = golden_args(golden)
     color, final_t, n_contrib = bp.probe_forward_plain(variant, *args, **kw)
@@ -237,20 +253,41 @@ def test_forward_k1_numerics_vs_pallas(golden, variant):
     np.testing.assert_array_equal(n(n_contrib), golden["n_contrib"])
 
 
-@pytest.mark.parametrize("variant", ["base", "dbuf2", "smematomic"])
+@pytest.mark.parametrize("variant", K2_NUMERICS)
 def test_backward_k2_numerics_vs_pallas(golden, variant):
-    args, kw = golden_args(golden)
-    grads = bp.probe_backward_plain(variant, *args, *pixel_args(golden), **kw)
-    assert rel_max(n(grads), golden["entry_grads"]) < GRAD_RTOL
+    """The per-Gaussian grads against the Pallas per-entry grads summed per
+    Gaussian over the same ids."""
+    args, kw = bwd_args(golden)
+    grads = bp.probe_backward_plain(variant, *args, **kw)
+    ref = per_gaussian(golden["entry_grads"], sorted_gauss(golden))
+    assert grads.shape == (N_GAUSS, blend.N_ATTR) and np.abs(ref).max() > 0
+    assert rel_max(n(grads), ref) < GRAD_RTOL
 
 
-def test_fused_vs_pallas_summed_per_gaussian(golden):
-    args, kw = golden_args(golden)
-    ids = sorted_gauss(golden)
-    grads = bp.probe_backward_plain("fused", *args, *pixel_args(golden),
-                                    sorted_gauss=t(ids), n_gauss=N_GAUSS, **kw)
-    assert grads.shape == (N_GAUSS + 1, blend.N_ATTR)
-    assert rel_max(n(grads), per_gaussian(golden["entry_grads"], ids)) < GRAD_RTOL
+def test_noatomic_vs_pallas_summed_over_bands(golden):
+    """noatomic's band records, summed over the bands, against the Pallas
+    per-entry grads; each band's record is not the whole."""
+    args, kw = bwd_args(golden)
+    grads = n(bp.probe_backward_plain("noatomic", *args, **kw))
+    assert grads.shape == (bp.BWD_BANDS, len(golden["splats"]), blend.N_ATTR)
+    assert rel_max(grads.sum(0), golden["entry_grads"]) < GRAD_RTOL
+    assert all(rel_max(g, golden["entry_grads"]) > 1e-2 for g in grads)
+
+
+@pytest.mark.parametrize("variant,base", [("nocull", "base"), ("cull", "base")])
+def test_cull_variants_are_base(golden, variant, base):
+    """nocull's function is K1's and cull's is K2's: their plain versions are
+    base's, bit for bit (the kernels differ from base only in the pairs
+    they skip, which apply nowhere; on the card cull sums in another order)."""
+    if variant == "nocull":
+        args, kw = golden_args(golden)
+        for a, b in zip(bp.probe_forward_plain(variant, *args, **kw),
+                        bp.probe_forward_plain(base, *args, **kw)):
+            assert torch.equal(a, b)
+    else:
+        args, kw = bwd_args(golden)
+        assert torch.equal(bp.probe_backward_plain(variant, *args, **kw),
+                           bp.probe_backward_plain(base, *args, **kw))
 
 
 # --------------------------------------------------------------------- (b)
@@ -288,13 +325,78 @@ def test_noblend_vs_jax(golden):
 
 
 def test_nored_vs_jax(golden):
-    args, kw = golden_args(golden)
-    grads = n(bp.probe_backward_plain("nored", *args, *pixel_args(golden), **kw))
-    ref = jax_backward_probe(golden, pixels=bp.NORED_PIXELS)
-    assert np.abs(ref).max() > 0, "no record from thread 0's pixels"
+    """nored per Gaussian: the transcription's per-entry records over
+    NORED_PIXELS, summed per Gaussian over the same ids."""
+    args, kw = bwd_args(golden)
+    grads = n(bp.probe_backward_plain("nored", *args, **kw))
+    ids = sorted_gauss(golden)
+    ref = per_gaussian(jax_backward_probe(golden, pixels=bp.NORED_PIXELS), ids)
+    assert np.abs(ref).max() > 0, "no record from the first lanes' pixels"
     assert rel_max(grads, ref) < NORED_RTOL
-    assert rel_max(grads, golden["entry_grads"]) > 1e-2   # it is not the full reduction
+    full = per_gaussian(golden["entry_grads"], ids)
+    assert rel_max(grads, full) > 1e-2   # it is not the full reduction
 
+
+# --------------------------------------------------------------------- (c)
+
+def contrib_outside_keep(splats, starts, lens, kw, exp=torch.exp, linear=False):
+    """The (entry, pixel) pairs that `exp`'s arithmetic applies in a warp
+    block that the cull (`linear`: noexp's rule) skips."""
+    keep = blend.warp_cull_keep(splats, starts, lens, linear=linear, **kw)
+    blocks = blend._pixel_blocks(kw["tile_h"], kw["tile_w"], splats.device)
+    bad = 0
+    for tiles, L in blend._tile_chunks(lens):
+        e, _, valid = blend._gather_entries(splats, starts, lens, tiles, L)
+        px, py = blend._pixel_coords(tiles, kw["n_tx"], kw["tile_h"], kw["tile_w"])
+        contrib = blend._alpha(e, px, py, exp)[5] & valid[..., None]
+        bad += int((contrib & ~keep[tiles, :L][:, :, blocks]).sum())
+    return keep, bad
+
+
+def wide_rows():
+    """Splats at the edges of noexp's linear rule: opacities from just above
+    its 'applies nowhere' bound (0.9 opa = 1/255) up, wide and narrow conics,
+    spread over a 64x64 image; each listed in all 4 tiles."""
+    rng = np.random.default_rng(3)
+    m = 200
+    thr = np.float32(1.0 / 255.0)
+    opa = np.concatenate([thr / np.float32(0.9) * np.float32(1.0001) * np.ones(20),
+                          rng.uniform(0.005, 0.05, 80), rng.uniform(0.05, 1.0, 100)])
+    rows = np.zeros((m, blend.SPLAT_ROWS), np.float32)
+    rows[:, 0:2] = rng.uniform(-4, 68, (m, 2))
+    s = rng.uniform(0.3, 8.0, (m, 2))
+    rows[:, 2], rows[:, 3], rows[:, 4] = 1 / s[:, 0] ** 2, rng.uniform(-0.02, 0.02, m), \
+        1 / s[:, 1] ** 2
+    rows[:, 5] = opa
+    rows[:, 6:9] = 0.5
+    args = (t(rows), torch.zeros(4, dtype=torch.int32), torch.full((4,), m, dtype=torch.int32))
+    return args, dict(n_tx=2, n_ty=2, tile_h=32, tile_w=32)
+
+
+@pytest.mark.parametrize("rule", ["base", "noexp", "noattr"])
+@pytest.mark.parametrize("scene", ["golden", "wide"])
+def test_variant_cull_keeps_every_applied_pair(golden, rule, scene):
+    """Each cull skips only pairs its variant's arithmetic does not apply,
+    so the kernel walking the kept pairs computes its plain version, and it
+    does skip some."""
+    args, kw = golden_args(golden) if scene == "golden" else wide_rows()
+    if rule == "noattr":
+        args = (bp.noattr_list(args[0]),) + args[1:]
+    keep, bad = contrib_outside_keep(*args, kw, exp=bp._noexp if rule == "noexp" else torch.exp,
+                                     linear=rule == "noexp")
+    assert bad == 0
+    assert 0.0 < float(keep.sum()) / (int(args[2].sum()) * keep.shape[2]) < 1.0
+
+
+def test_noexp_box_holds_more_than_k1s(golden):
+    """The linear G passes far below K1's threshold (power ~ -9, not
+    ~ -ln(255 opa)): K1's box would skip pairs noexp applies."""
+    args, kw = golden_args(golden)
+    _, bad = contrib_outside_keep(*args, kw, exp=bp._noexp, linear=False)
+    assert bad > 0
+
+
+# --------------------------------------------------------------------- (d)
 
 @pytest.mark.parametrize("variant", bp.FORWARD_VARIANTS)
 def test_forward_walked(golden, variant):
@@ -302,36 +404,44 @@ def test_forward_walked(golden, variant):
     args, kw = golden_args(golden)
     walked = torch.full((len(golden["tile_lens"]),), -1, dtype=torch.int32)
     bp.probe_forward_plain(variant, *args, walked=walked, **kw)
-    assert golden["tile_lens"].max() <= 256   # one batch holds each range
+    assert golden["tile_lens"].max() <= 128   # one batch holds each range
     np.testing.assert_array_equal(n(walked), golden["tile_lens"])
 
 
-def test_backward_walked(golden):
-    args, kw = golden_args(golden)
+@pytest.mark.parametrize("variant", bp.BACKWARD_VARIANTS)
+def test_backward_walked(golden, variant):
+    """K2's walk: every variant starts at min(max n_contrib, len)."""
+    args, kw = bwd_args(golden)
     walked = torch.zeros(len(golden["tile_lens"]), dtype=torch.int32)
-    bp.probe_backward_plain("base", *args, *pixel_args(golden), walked=walked, **kw)
-    nmax = blend._to_tiles(t(golden["n_contrib"]), **kw).amax(1)
+    bp.probe_backward_plain(variant, *args, walked=walked, **kw)
+    nmax = blend._to_tiles(t(golden["n_contrib"]), **golden_args(golden)[1]).amax(1)
     np.testing.assert_array_equal(n(walked), np.minimum(n(nmax), golden["tile_lens"]))
     assert (n(walked) < golden["tile_lens"]).any()   # the walk starts below the range end
 
 
 def test_walked_stops_at_the_batch_of_the_last_stop():
-    """A tile whose pixels all stop within the first 256 entries walks 256 of
-    its 600, and 512 with batch512."""
+    """A tile whose pixels all stop within the first 128 entries walks 128
+    of its 600, and 256 with batch256."""
     L = 600
     splats = torch.zeros((L, blend.SPLAT_ROWS))
     # opacity 0.95 over the whole tile: every pixel stops at the 4th entry
     splats[:, :9] = torch.tensor([16.0, 16.0, 1e-6, 0.0, 1e-6, 0.95, 0.5, 0.5, 0.5])
     args = (splats, torch.zeros(1, dtype=torch.int32), torch.full((1,), L, dtype=torch.int32))
     kw = dict(n_tx=1, n_ty=1, tile_h=32, tile_w=32)
-    for variant, expect in (("base", 256), ("batch512", 512), ("noblend", L)):
+    for variant, expect in (("base", 128), ("nocull", 128), ("batch256", 256), ("noblend", L)):
         walked = torch.zeros(1, dtype=torch.int32)
         _, final_t, _ = bp.probe_forward_plain(variant, *args, walked=walked, **kw)
         assert int(walked) == expect, variant
     assert float(final_t.max()) == 1.0   # noblend never stops
 
 
-# --------------------------------------------------------------------- (c)
+def test_nored_pixels_are_each_bands_first_thread():
+    assert len(bp.NORED_PIXELS) == 16 and bp.NORED_PIXELS[:5] == (0, 64, 128, 192, 256)
+    for b in range(bp.BWD_BANDS):
+        assert set(bp.NORED_PIXELS[4 * b:4 * b + 4]) <= set(bp.band_pixels(b).tolist())
+
+
+# --------------------------------------------------------------------- (e)
 
 class TestDispatch:
     @pytest.mark.parametrize("variant", bp.FORWARD_VARIANTS)
@@ -345,42 +455,62 @@ class TestDispatch:
 
     @pytest.mark.parametrize("variant", bp.BACKWARD_VARIANTS)
     def test_backward_cpu_takes_the_plain_version(self, golden, variant):
-        args, kw = golden_args(golden)
-        fkw = dict(kw, sorted_gauss=t(sorted_gauss(golden)), n_gauss=N_GAUSS)
+        args, kw = bwd_args(golden)
         before = dict(bp.LAUNCHES)
-        out = bp.probe_backward(variant, *args, *pixel_args(golden), **fkw)
-        assert torch.equal(out, bp.probe_backward_plain(variant, *args, *pixel_args(golden),
-                                                        **fkw))
+        out = bp.probe_backward(variant, *args, **kw)
+        assert torch.equal(out, bp.probe_backward_plain(variant, *args, **kw))
         assert bp.LAUNCHES == before
 
     def test_unknown_variants_and_missing_ids_raise(self, golden):
         args, kw = golden_args(golden)
+        bargs, bkw = bwd_args(golden)
         with pytest.raises(ValueError):
-            bp.probe_forward("chunk512", *args, **kw)
+            bp.probe_forward("batch512", *args, **kw)
         with pytest.raises(ValueError):
-            bp.probe_backward("mxuall", *args, *pixel_args(golden), **kw)
+            bp.probe_backward("fused", *bargs, **bkw)
+        with pytest.raises(TypeError):   # every variant takes K2's entry -> Gaussian ids
+            bp.probe_backward("base", *bargs[:-1], **bkw)
         with pytest.raises(ValueError):
-            bp.probe_backward("fused", *args, *pixel_args(golden), **kw)
+            bp.probe_backward("base", *bargs[:-1], bargs[-1].long(), **bkw)
         with pytest.raises(ValueError):
-            bp.probe_backward("fused", *args, *pixel_args(golden),
-                              sorted_gauss=t(sorted_gauss(golden)), n_gauss=-1, **kw)
+            bp.probe_backward("base", *bargs, **dict(bkw, n_gauss=-1))
+        with pytest.raises(ValueError):
+            bp.probe_backward("base", *bargs, tile_order=torch.zeros(3, dtype=torch.int32),
+                              **bkw)
         with pytest.raises(ValueError):
             bp.probe_forward("base", *args, walked=torch.zeros(3, dtype=torch.int32), **kw)
 
 
-# --------------------------------------------------------------------- (d)
+# --------------------------------------------------------------------- (f)
+
+def check_backward(variant, g, ref, skipped=None):
+    """A K4 variant's grads against its plain version: per column within
+    GRAD_RTOL of the column's max (nored: NORED_RTOL of the max); rows in
+    `skipped` (NaN-opacity ones) must be 0 on the card and are left out."""
+    g, ref = n(g).reshape(-1, blend.N_ATTR), n(ref).reshape(-1, blend.N_ATTR)
+    assert np.isfinite(g).all()
+    if skipped is not None:
+        assert not g[skipped].any()
+        g, ref = g[~skipped], ref[~skipped]
+    if variant == "nored":
+        assert rel_max(g, ref) < NORED_RTOL
+        return
+    for i in range(blend.N_ATTR):
+        assert rel_max(g[:, i], ref[:, i]) < GRAD_RTOL, i
+
 
 @pytest.mark.requires_cuda
 class TestProbesOnTheCard:
     """Every K3/K4 variant on the card against its plain version on the same
-    card: the K1/K2-numerics variants as tests/test_torch_blend.py holds
-    K1/K2, the others at (b)'s tolerances, and `walked` exactly."""
+    card, `walked` exactly; the variants that compute K1's outputs also
+    against K1 bit for bit, those that compute K2's against K2 per column."""
 
     @pytest.mark.parametrize("variant", bp.FORWARD_VARIANTS)
     def test_forward_variant(self, golden, cuda_device, variant):
         args, kw = golden_args(golden, cuda_device)
         tiles = len(golden["tile_lens"])
-        wk, wp = (torch.zeros(tiles, dtype=torch.int32, device=cuda_device) for _ in range(2))
+        wk, wp = (torch.full((tiles,), -1, dtype=torch.int32, device=cuda_device)
+                  for _ in range(2))
         before = bp.LAUNCHES[f"forward_{variant}"]
         out = [n(x) for x in bp.probe_forward(variant, *args, walked=wk, **kw)]
         ref = [n(x) for x in bp.probe_forward_plain(variant, *args, walked=wp, **kw)]
@@ -393,25 +523,34 @@ class TestProbesOnTheCard:
             np.testing.assert_allclose(out[0], ref[0], atol=IMG_ATOL, rtol=0)
             np.testing.assert_allclose(out[1], ref[1], atol=IMG_ATOL, rtol=0)
         np.testing.assert_array_equal(out[2], ref[2])
+        if variant in K1_NUMERICS:
+            for a, b in zip(out, blend.blend_forward(*args, **kw)):
+                np.testing.assert_array_equal(a, n(b))
 
     @pytest.mark.parametrize("variant", bp.BACKWARD_VARIANTS)
     def test_backward_variant(self, golden, cuda_device, variant):
-        args, kw = golden_args(golden, cuda_device)
-        fkw = dict(kw, sorted_gauss=t(sorted_gauss(golden)).to(cuda_device), n_gauss=N_GAUSS)
-        pix = pixel_args(golden, cuda_device)
+        args, kw = bwd_args(golden, cuda_device)
         tiles = len(golden["tile_lens"])
         wk, wp = (torch.zeros(tiles, dtype=torch.int32, device=cuda_device) for _ in range(2))
-        g = bp.probe_backward(variant, *args, *pix, walked=wk, **fkw)
-        ref = bp.probe_backward_plain(variant, *args, *pix, walked=wp, **fkw)
+        g = bp.probe_backward(variant, *args, walked=wk, **kw)
+        ref = bp.probe_backward_plain(variant, *args, walked=wp, **kw)
         np.testing.assert_array_equal(n(wk), n(wp))
-        assert rel_max(n(g), n(ref)) < (NORED_RTOL if variant == "nored" else GRAD_RTOL)
+        check_backward(variant, g, ref)
+        if variant in K2_NUMERICS:
+            check_backward(variant, g, blend.blend_backward(*args, **kw))
+
+    def test_backward_in_tile_order(self, golden, cuda_device):
+        """base launched in tile order computes K2's grads too."""
+        args, kw = bwd_args(golden, cuda_device)
+        order = torch.arange(len(golden["tile_lens"]), dtype=torch.int32, device=cuda_device)
+        check_backward("base", bp.probe_backward("base", *args, tile_order=order, **kw),
+                       bp.probe_backward_plain("base", *args, **kw))
 
 
 def nan_scene(d, device):
     """The blend golden's list with a NaN-opacity row in front of each tile
     (utils/synthetic.nan_opacity_list), K2's per-pixel inputs on it,
     and an entry -> Gaussian map that gives the NaN rows ids of their own."""
-    from gaussian_lic_tpu_torch.ops import blend
     from gaussian_lic_tpu_torch.utils.synthetic import nan_opacity_list
 
     sp, st, ln, nan_at = nan_opacity_list(d["splats"], d["tile_starts"], d["tile_lens"])
@@ -446,14 +585,16 @@ class TestNanOpacityOnTheCard:
     @pytest.mark.parametrize("variant", bp.BACKWARD_VARIANTS)
     def test_backward(self, golden, cuda_device, variant):
         args, kw, pix, ids, nan_at = nan_scene(golden, cuda_device)
-        fkw = dict(kw, sorted_gauss=ids, n_gauss=N_GAUSS)
-        g = n(bp.probe_backward(variant, *args, *pix, **fkw))
-        ref = n(bp.probe_backward_plain(variant, *args, *pix, **fkw))
-        skipped = np.zeros(len(g), bool)
-        skipped[np.arange(N_GAUSS - 4, N_GAUSS) if variant == "fused" else nan_at] = True
-        assert np.isfinite(g).all() and not g[skipped].any()
-        tol = NORED_RTOL if variant == "nored" else GRAD_RTOL
-        assert rel_max(g[~skipped], ref[~skipped]) < tol
+        bargs, bkw = args + pix + (ids,), dict(kw, n_gauss=N_GAUSS)
+        g = bp.probe_backward(variant, *bargs, **bkw)
+        ref = bp.probe_backward_plain(variant, *bargs, **bkw)
+        if variant == "noatomic":   # the NaN rows of every band
+            skipped = np.zeros((bp.BWD_BANDS, len(ids)), bool)
+            skipped[:, nan_at] = True
+        else:                       # the NaN rows' Gaussians
+            skipped = np.zeros(N_GAUSS, bool)
+            skipped[N_GAUSS - 4:] = True
+        check_backward(variant, g, ref, skipped.reshape(-1))
 
 
 @pytest.mark.parametrize("path", ["gaussian_lic_tpu_torch/ops/blend_probe.py",

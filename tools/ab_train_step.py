@@ -1,6 +1,6 @@
 """Train-step time of several checkouts of the port, in turns, on one GPU.
 
-    python tools/ab_train_step.py OLD_DIR NEW_DIR [--rounds 2]
+    python tools/ab_train_step.py OLD_DIR NEW_DIR [--rounds 2] [--kernels]
 
 Each round runs the checkouts in the order A B B A (for two; forward then
 backward for more), each in a fresh process that imports that checkout's own
@@ -10,7 +10,10 @@ around work that ends in `synchronize()` and a loss fetch. Comparing two
 versions inside one call on one card in turns is what makes their
 difference readable (the card's power limit and the host's load vary
 between calls). Prints each run's phase-4 line (the card's name and power
-limit in it), then each checkout's ms/step in run order. Needs a CUDA
+limit in it), then each checkout's ms/step in run order. With
+`--kernels`, each run times K1 and K2 alone instead (CUDA events, 50
+launches each after a warm-up) on the arguments of that train step
+(`step_scene`), and the lists are of K1's and K2's ms. Needs a CUDA
 device; imports no JAX.
 """
 
@@ -32,12 +35,34 @@ dev = torch.device("cuda:0")
 cs.phase_steps(dev, card_line(), cs.bench_state(dev))
 """
 
+_KERNELS = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from gaussian_lic_tpu_torch.ops import blend
+from gaussian_lic_tpu_torch.utils.cuda_timing import card_line, cuda_ms
+dev = torch.device("cuda:0")
+sc = cs.step_scene(cs.bench_state(dev))
+g = sc["grid"]
+kw = dict(n_tx=g.n_tx, n_ty=g.n_ty, tile_h=g.tile_h, tile_w=g.tile_w)
+args = (sc["splats"], sc["starts"], sc["lens"])
+_, ft, nc = blend.blend_forward(*args, **kw)
+k1 = cuda_ms(lambda: blend.blend_forward(*args, **kw), 50, warmup=3)
+k2 = cuda_ms(lambda: blend.blend_backward(*args, sc["dl"], ft, nc, sc["sorted_gauss"],
+                                          n_gauss=sc["n_gauss"], **kw), 50, warmup=3)
+print(f"[ab] {card_line()}: K1 {k1:.4f} ms  K2 {k2:.4f} ms", flush=True)
+"""
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="+", help="checkout directories (each holds chip_smoke.py)")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--kernels", action="store_true", help="time K1 and K2 alone")
     args = ap.parse_args(argv)
+    child, tag = (_KERNELS, "[ab]") if args.kernels else (_CHILD, "[4]")
+    pattern = r"K1 ([0-9.]+) ms  K2 ([0-9.]+) ms" if args.kernels else r"([0-9.]+) ms/step"
     trees = [os.path.abspath(t) for t in args.trees]
     for t in trees:
         if not os.path.isfile(os.path.join(t, "chip_smoke.py")):
@@ -48,16 +73,17 @@ def main(argv=None) -> int:
         order += trees + trees[::-1]
     ms = {t: [] for t in trees}
     for t in order:
-        out = subprocess.run([sys.executable, "-c", _CHILD, t], capture_output=True, text=True)
-        line = next((s for s in out.stdout.splitlines() if s.startswith("[4]")), None)
+        out = subprocess.run([sys.executable, "-c", child, t], capture_output=True, text=True)
+        line = next((s for s in out.stdout.splitlines() if s.startswith(tag)), None)
         if out.returncode != 0 or line is None:
             print(out.stdout[-2000:] + out.stderr[-2000:], file=sys.stderr)
             print(f"ab_train_step.py: the run of {t} failed ({out.returncode})", file=sys.stderr)
             return 1
         print(f"{t}: {line}", flush=True)
-        ms[t].append(float(re.search(r"([0-9.]+) ms/step", line).group(1)))
+        ms[t].append(tuple(float(v) for v in re.search(pattern, line).groups()))
     for t in trees:
-        print(f"{t}: ms/step " + " ".join(f"{v:.3f}" for v in ms[t]))
+        for i, what in enumerate(("K1 ms", "K2 ms") if args.kernels else ("ms/step",)):
+            print(f"{t}: {what} " + " ".join(f"{v[i]:.4f}" for v in ms[t]))
     return 0
 
 

@@ -8,6 +8,9 @@ mode, on small seeded scenes, and returns (or writes) the inputs and outputs as
               at 64x64 with 128 Gaussians, mapped from tile-major to image space;
   nan_row.npz K1 and K2 on blend.npz's list with a NaN-opacity row in front
               of each tile (the port's utils/synthetic.nan_opacity_list);
+  tile_shapes.npz  K1 and K2 at tiles of 4x256 and 1x1024 pixels of a
+              1024x8 image, each tile walking its own copy of a seeded
+              160-row list;
   train.npz   1 and 10 steps of `_make_train_step(with_grads=True)`;
   engine.npz  a 3-keyframe `MappingEngine.add_frame` run;
   bundle.npz  a 4-step `_make_train_bundle` from train.npz's initial state,
@@ -204,6 +207,72 @@ def make_nan_row() -> dict:
                 final_t=np.asarray(unswizzle_tiles(ft_t, **sw)),
                 n_contrib=np.asarray(unswizzle_tiles(nc_t, **sw)),
                 entry_grads=np.asarray(grads[:9].T))
+
+
+TILE_SHAPES = ((4, 256), (1, 1024))   # (tile_h, tile_w) of the tile_shapes case
+TILE_SHAPES_IMAGE = (8, 1024)         # its image (height, width)
+
+
+def tile_shapes_list(rng: np.random.Generator, n: int = 160) -> np.ndarray:
+    """(n, 16) gathered rows: n seeded splats over a 1024x8 image (a
+    cluster of 24 opaque ones at x ~ 300, so that some pixels reach the
+    T < 1e-4 termination)."""
+    h, w = TILE_SHAPES_IMAGE
+    n_rand = n - 24
+    x = np.concatenate([rng.uniform(0, w, n_rand), rng.normal(300, 2, 24)])
+    y = np.concatenate([rng.uniform(-1, h + 1, n_rand), rng.normal(h / 2, 1, 24)])
+    sx = np.concatenate([rng.uniform(0.8, 6.0, n_rand), rng.uniform(3.0, 5.0, 24)])
+    sy = np.concatenate([rng.uniform(0.5, 3.0, n_rand), rng.uniform(3.0, 5.0, 24)])
+    th = rng.uniform(0, np.pi, n)
+    c, s_ = np.cos(th), np.sin(th)
+    cxx = c * c * sx * sx + s_ * s_ * sy * sy
+    cyy = s_ * s_ * sx * sx + c * c * sy * sy
+    cxy = c * s_ * (sx * sx - sy * sy)
+    det = cxx * cyy - cxy * cxy
+    opa = np.concatenate([rng.uniform(0.2, 0.95, n_rand), rng.uniform(0.9, 0.99, 24)])
+    rows = np.zeros((n, 16), np.float32)
+    rows[:, :9] = np.stack([x, y, cyy / det, -cxy / det, cxx / det, opa,
+                             *rng.uniform(0, 1, (3, n))], 1)
+    return rows
+
+
+def make_tile_shapes() -> dict:
+    """K1 and K2 (Pallas, interpret mode) at each tile shape of TILE_SHAPES:
+    the 8 tiles' ranges are 8 copies of one 160-row list (each entry's
+    gradient row is its tile's), so each tile tests every row at its 1024
+    pixels; outputs mapped to image space."""
+    _jax_cpu()
+    import jax.numpy as jnp
+
+    from gaussian_lic_tpu.ops.blend_pallas import (
+        SPLAT_ROWS, SUB, blend_backward, blend_forward, swizzle_tiles, unswizzle_tiles,
+    )
+
+    rng = np.random.default_rng(SEED + 4)
+    one = tile_shapes_list(rng)
+    rows = np.concatenate([one] * 8)   # 1280 rows: 5 DMA windows of 256
+    h, w = TILE_SHAPES_IMAGE
+    dl = rng.normal(size=(3, h, w)).astype(np.float32)
+    splats = jnp.asarray(rows).reshape(rows.shape[0] // SUB, SUB * SPLAT_ROWS)
+    out = dict(splats=rows, dl_dcolor=dl)
+    for th, tw in TILE_SHAPES:
+        sw = dict(n_tx=w // tw, n_ty=h // th, tile_h=th, tile_w=tw)
+        n_tiles = sw["n_tx"] * sw["n_ty"]
+        st = jnp.arange(n_tiles, dtype=jnp.int32) * len(one)
+        ln = jnp.full((n_tiles,), len(one), jnp.int32)
+        color_t, ft_t, nc_t = blend_forward(splats, st, ln, interpret=True, **sw)
+        grads = blend_backward(splats, st, ln, swizzle_tiles(jnp.asarray(dl), **sw),
+                               ft_t, nc_t, interpret=True, **sw)
+        tag = f"{th}x{tw}"
+        out.update({
+            f"{tag}_grid": np.array([sw["n_tx"], sw["n_ty"], th, tw], np.int32),
+            f"{tag}_tile_starts": np.asarray(st), f"{tag}_tile_lens": np.asarray(ln),
+            f"{tag}_color": np.asarray(unswizzle_tiles(color_t, **sw)),
+            f"{tag}_final_t": np.asarray(unswizzle_tiles(ft_t, **sw)),
+            f"{tag}_n_contrib": np.asarray(unswizzle_tiles(nc_t, **sw)),
+            f"{tag}_entry_grads": np.asarray(grads[:9].T),
+        })
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -676,7 +745,8 @@ def make_sharded_bundle() -> dict:
     return out
 
 
-CASES = {"blend": make_blend, "nan_row": make_nan_row, "train": make_train,
+CASES = {"blend": make_blend, "nan_row": make_nan_row, "tile_shapes": make_tile_shapes,
+         "train": make_train,
          "engine": make_engine, "bundle": make_bundle, "finalize": make_finalize,
          "parallel": make_parallel, "sharded_bundle": make_sharded_bundle}
 

@@ -1,19 +1,21 @@
-"""Backward blend kernel (K2 in its first design) by cost centre: the K4 probes on the card.
+"""Backward blend kernel (K2) by cost centre: the K4 probes on the card.
 
 The PyTorch/CUDA counterpart of tools/probe_bwd.py. Each variant of
-`ops.blend_probe.probe_backward` replaces K2's batch pipeline or its
-reduction (base, dbuf2, nored, smematomic, fused; see that module). On the
-probe scene (`utils.synthetic.probe_scene`: 1M Gaussians of the bench state,
-fastlivo preset, camera 0, dL/dpix ~ N(0, 0.1) from default_rng(0)) it prints
-K2's own time, then per variant the kernel time from CUDA events, the max
-deviation from base (absolute and relative to base's max) and the mean
-number of entries walked per tile. `fused` writes per-Gaussian grads, so it
-is compared with, and timed beside, base + the index_add_ that followed
-the first K2. Today's K2 (csrc/blend_backward.cu) writes per-Gaussian sums
-too, so its time is the one to set beside those two. The first line is the
-card's name and power limit. Needs a CUDA device; imports no JAX.
+`ops.blend_probe.probe_backward` is K2's own kernel with its pipeline, its
+reduction or its output stage swapped out (base, sbuf, nored, smematomic,
+noatomic, cull; see that module); `base` is K2. On the probe scene
+(`utils.synthetic.probe_scene`: 1M Gaussians of the bench state, fastlivo
+preset, camera 0, dL/dpix ~ N(0, 0.1) from default_rng(0)) it prints K2's
+own time, then per variant the kernel time from CUDA events (its wrapper:
+the output's zeros and K2's longest-first argsort included, as K2's), its
+difference from base, the max deviation from the variant's plain version
+(absolute, and relative to each column's max) and the mean number of
+entries walked per tile; then K2's launch order: base in tile order (a
+precomputed identity order) against longest first with its argsort, in
+turns. The first line is the card's name and power limit. Needs a CUDA
+device; imports no JAX.
 
-Usage: python tools/probe_torch_bwd.py [--iters 10] [--variants base,dbuf2,...]
+Usage: python tools/probe_torch_bwd.py [--iters 10] [--variants base,sbuf,...]
 """
 
 from __future__ import annotations
@@ -24,12 +26,14 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_GAUSS = 1 << 20
-VARIANTS = "base,dbuf2,nored,smematomic,fused"
+VARIANTS = "base,sbuf,nored,smematomic,noatomic,cull"
 
 
 def run(sc: dict, iters: int = 10, variants=None, log=print) -> dict:
     """Times K2 and the backward variants on scene `sc`; returns {variant:
-    {ms, walked, dev, rel}}, fused also with `base_index_add_ms`."""
+    {ms, vs_base_ms, walked, dev, rel}}, K2's time under "K2" and the
+    order's turns under "order" ({tile_ms, longest_ms}, each the mean of
+    its two turns)."""
     import torch
 
     from gaussian_lic_tpu_torch.ops import blend
@@ -37,34 +41,33 @@ def run(sc: dict, iters: int = 10, variants=None, log=print) -> dict:
     from gaussian_lic_tpu_torch.utils.cuda_timing import cuda_ms
 
     g = sc["grid"]
-    kw = dict(n_tx=g.n_tx, n_ty=g.n_ty, tile_h=g.tile_h, tile_w=g.tile_w)
-    bargs = (sc["splats"], sc["starts"], sc["lens"], sc["dl"], sc["final_t"], sc["n_contrib"])
-    fkw = dict(kw, sorted_gauss=sc["sorted_gauss"], n_gauss=sc["n_gauss"])
+    kw = dict(n_tx=g.n_tx, n_ty=g.n_ty, tile_h=g.tile_h, tile_w=g.tile_w, n_gauss=sc["n_gauss"])
+    bargs = (sc["splats"], sc["starts"], sc["lens"], sc["dl"], sc["final_t"], sc["n_contrib"],
+             sc["sorted_gauss"])
     walked = torch.empty(g.n_tx * g.n_ty, dtype=torch.int32, device=sc["splats"].device)
-
-    def base_index_add():
-        per_entry = bp.probe_backward("base", *bargs, **kw)
-        out = per_entry.new_zeros((sc["n_gauss"] + 1, blend.N_ATTR))
-        return out.index_add_(0, sc["sorted_gauss"].long(), per_entry)
-
-    k2 = lambda: blend.blend_backward(*bargs, sc["sorted_gauss"], n_gauss=sc["n_gauss"], **kw)
-    log(f"prod K2 blend_backward (per-Gaussian sums in the kernel): "
-        f"{cuda_ms(k2, iters, warmup=2):9.4f} ms")
-    base = bp.probe_backward("base", *bargs, **kw)
-    res = {}
+    res = {"K2": cuda_ms(lambda: blend.blend_backward(*bargs, **kw), iters, warmup=2)}
+    log(f"prod K2 blend_backward: {res['K2']:9.4f} ms")
     for v in variants or bp.BACKWARD_VARIANTS:
-        out = bp.probe_backward(v, *bargs, walked=walked, **fkw)
-        ref = base_index_add() if v == "fused" else base
-        dev = float((out - ref).abs().max())
-        rel = dev / max(float(ref.abs().max()), 1e-30)
-        ms = cuda_ms(lambda: bp.probe_backward(v, *bargs, **fkw), iters, warmup=2)
-        res[v] = dict(ms=ms, walked=float(walked.double().mean()), dev=dev, rel=rel)
-        line = (f"bwd {v:10s}: {ms:9.4f} ms  walked/tile {res[v]['walked']:8.1f}  "
-                f"max dev vs base {dev:.2e} (rel {rel:.2e})")
-        if v == "fused":
-            res[v]["base_index_add_ms"] = cuda_ms(base_index_add, iters, warmup=2)
-            line += f"; base + index_add_ {res[v]['base_index_add_ms']:.4f} ms"
-        log(line)
+        out = bp.probe_backward(v, *bargs, walked=walked, **kw)
+        ref = bp.probe_backward_plain(v, *bargs, **kw)
+        d = (out - ref).abs().reshape(-1, blend.N_ATTR)
+        dev = float(d.max())
+        rel = float((d.amax(0) / ref.abs().reshape(-1, blend.N_ATTR).amax(0)
+                     .clamp_min(1e-30)).max())
+        del out, ref, d
+        ms = cuda_ms(lambda: bp.probe_backward(v, *bargs, **kw), iters, warmup=2)
+        res[v] = dict(ms=ms, vs_base_ms=ms - res.get("base", {"ms": ms})["ms"],
+                      walked=float(walked.double().mean()), dev=dev, rel=rel)
+        log(f"bwd {v:10s}: {ms:9.4f} ms  vs base {res[v]['vs_base_ms']:+9.4f} ms  "
+            f"walked/tile {res[v]['walked']:8.1f}  max dev vs plain {dev:.2e} "
+            f"(rel to column max {rel:.2e})")
+    ident = torch.arange(g.n_tx * g.n_ty, dtype=torch.int32, device=sc["splats"].device)
+    tile = lambda: bp.probe_backward("base", *bargs, tile_order=ident, **kw)   # noqa: E731
+    longest = lambda: bp.probe_backward("base", *bargs, **kw)                  # noqa: E731
+    turns = [cuda_ms(f, iters, warmup=2) for f in (tile, longest, longest, tile)]
+    res["order"] = dict(tile_ms=(turns[0] + turns[3]) / 2, longest_ms=(turns[1] + turns[2]) / 2)
+    log("bwd base launch order, in turns tile longest longest tile (longest first with its "
+        "argsort): " + " ".join(f"{t:.4f}" for t in turns) + " ms")
     return res
 
 
