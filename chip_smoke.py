@@ -8,9 +8,9 @@ exit code is not 0:
 
   1. device and build: the card's name and power limit, TF32 switched off,
      the CUDA kernels built with nvcc from csrc/ (seconds, ptxas report);
-     K2's entry loop in the SASS (cuobjdump) must issue at most a third of
-     the shuffle and shared-memory instructions of the first design's (its
-     counts as that design's SASS showed them);
+     K2's entry loop in the SASS (cuobjdump) must issue exactly the shuffle
+     and shared-memory instructions of today's loop (K2_LOOP_COUNTS: under
+     a third of the first design's, whose counts are printed beside them);
   2. kernel vs plain: K1 blend_forward (color and no_color) and K2
      blend_backward at 640x512, each held against its plain PyTorch version
      with both times (CUDA events), on two inputs: a seeded ~20k-Gaussian
@@ -31,7 +31,7 @@ exit code is not 0:
      and K2's own kernel templates: every variant on phase 2's two inputs.
      The variants that compute K1's outputs (base, nocull, batch256,
      direct) must equal phase 2's K1 output bit for bit; those that compute
-     K2's (base, sbuf, smematomic, cull) must agree per column with K2's
+     K2's (base, sbuf, smematomic, nocull) must agree per column with K2's
      plain per-Gaussian output of phase 2 (and base with K2's); the others
      (noexp, noattr, noblend, nored, noatomic) with their own plain
      versions, as every variant on the 20k scene. The built SASS of K3/K4
@@ -134,10 +134,15 @@ NORED_RTOL = 1e-4          # K4 nored vs plain, relative to the max: 4-pixel sum
 FWD_K1_NUMERICS = ("base", "nocull", "batch256", "direct")   # K3 variants: K1 bit for bit
 # K4 variants held to K2's plain per-Gaussian output, per column within
 # GRAD_RTOL (they sum the pixels in another order)
-BWD_K2_NUMERICS = ("base", "sbuf", "smematomic", "cull")
+BWD_K2_NUMERICS = ("base", "sbuf", "smematomic", "nocull")
 # K2's entry loop in the first design's SASS, as cuobjdump showed it while
 # that design was built: SHFL, STS, LDS
 FIRST_K2_LOOP = {"SHFL": 45, "STS": 18, "LDS": 9}
+# K2's entry loop now (the loop over a ballot's set bits, one entry a pass):
+# the 12-shuffle reduce-scatter, one shared store of a warp sum, and the
+# row's three shared loads; 45 shuffles again would fail the check. The
+# cull's box load and ballot run once per 32 entries, in the loop around it.
+K2_LOOP_COUNTS = {"SHFL": 12, "STS": 1, "LDS": 3}
 
 # Bounds: the least time the card could take for a kernel's work on this
 # run's inputs, the larger of its bytes over the memory rate and of its
@@ -290,17 +295,14 @@ def built_sass(lib_path: str) -> str:
 
 
 def check_k2_reduction(lib_path: str) -> None:
-    """K2's entry loop must issue at most a third of the shuffle and shared
-    memory instructions of the first design's (FIRST_K2_LOOP), in the built
-    SASS."""
+    """K2's entry loop, in the built SASS, must issue exactly K2_LOOP_COUNTS
+    shuffle and shared memory instructions (a third of the first design's
+    FIRST_K2_LOOP or less)."""
     new = sass_loop_counts(built_sass(lib_path), "blend_backward_kernelILi0E")
-    old = FIRST_K2_LOOP
-    ratio = sum(new[o] for o in ("SHFL", "STS", "LDS")) / sum(old[o] for o in ("SHFL", "STS", "LDS"))
-    log(f"[1] SASS of the entry loop: K2 {new}; first design {old}; "
-        f"SHFL+STS+LDS ratio {ratio:.3f}")
-    if not ratio <= 1 / 3:
-        raise AssertionError(f"K2's loop issues {ratio:.3f} of the first design's shuffle and "
-                             "shared-memory instructions (limit 1/3)")
+    log(f"[1] SASS of the entry loop: K2 {new}; expected {K2_LOOP_COUNTS}; first design "
+        f"{FIRST_K2_LOOP}")
+    if any(new[o] != n for o, n in K2_LOOP_COUNTS.items()):
+        raise AssertionError(f"K2's entry loop issues {new}, not {K2_LOOP_COUNTS}")
 
 
 def timed(fn):
@@ -686,6 +688,8 @@ def phase_probes(state: dict, scenes, iters: int = 3) -> list:
     light_sc, step_sc = scenes
     light = compare_probes(light_sc, f"{light_sc['n_gauss']}-Gaussian scene", full=True)
     step = compare_probes(step_sc, f"{state['n']}-Gaussian train step", full=False)
+    log(f"[2b] K4 nocull (K2's walk without the cull) {step[('backward', 'nocull')][1]:.4f} ms "
+        f"against K2 {step_sc['times']['backward'][1]:.4f} ms at the train step")
 
     sc = probe_scene(state["cfg"], state["intr"], state["gm"], state["kf"])
     tools = load_tool("probe_torch_kernel"), load_tool("probe_torch_bwd")

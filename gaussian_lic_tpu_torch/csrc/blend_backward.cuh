@@ -2,22 +2,26 @@
 // (blend_backward.cu) launches kBwdBase, the K4 probes
 // (blend_probe_backward.cu) every variant. One source, so K4 `base` is K2.
 //
-// The design (csrc/blend_backward.cu says why): 4 bands of 256 pixels a
-// tile, one block of 64 threads each, 4 pixels a thread (flat band * 256 +
-// thread + 64 k); batches of 128 gathered rows arrive by 1-D bulk copy into a
-// double buffer and are walked back to front from min(max n_contrib, len);
-// each entry's 9 sums are reduced over a warp by a 12-shuffle reduce-scatter
-// into a per-warp [128][9] buffer, a per-batch pass sums the 2 warps, turns
-// the moments into gradients and adds them per Gaussian with three
-// red.global.add.v4.f32; the tiles are launched in the order the caller
-// passes (K2: longest first).
+// The design (csrc/blend_backward.cu says why): 4 bands a tile, one block of
+// 64 threads each; each warp owns one of K1's compact 128-pixel blocks
+// (warp block band * 2 + warp, k1_block_w), 4 pixels a thread; batches of
+// 128 gathered rows arrive by 1-D bulk copy into a double buffer and are
+// walked back to front from min(max n_contrib, len) over the band's two
+// blocks; a per-batch pass writes each entry's footprint box (cull_box) to
+// shared memory, and each warp applies only the entries whose box meets its
+// block, 32 boxes to a ballot; each applied entry's 9 sums are reduced over
+// the warp by a 12-shuffle reduce-scatter into a per-warp [128][9] buffer
+// (zeroed before each batch: a skipped entry's sums read zero), a per-batch
+// pass sums the 2 warps, turns the moments into gradients and adds them per
+// Gaussian with three red.global.add.v4.f32; the tiles are launched in the
+// order the caller passes (K2: longest first).
 //
-// The variants each change one cost centre:
+// The variants each take one cost centre out of that culled walk:
 //   kBwdSbuf        one buffer, refilled synchronously after each batch
 //                   (gradients K2's)
 //   kBwdNoRed       no reduce-scatter and no warp-partials pass: each entry's
-//                   record is the first lane's own 4 pixels' sums (every
-//                   pixel's arithmetic still runs), added per Gaussian
+//                   record is the band's first thread's own 4 pixels' sums
+//                   (every pixel's arithmetic still runs), added per Gaussian
 //   kBwdSmemAtomic  no reduce-scatter: every lane that applied the entry adds
 //                   its 9 sums into one [128][9] buffer with shared-memory
 //                   atomics, so no per-warp buffer and no warp pass
@@ -25,12 +29,11 @@
 //   kBwdNoAtomic    no per-Gaussian atomics: each band stores its partial
 //                   record of every walked entry into a (bands, M_pad, 9)
 //                   buffer with plain stores
-//   kBwdCull        K1's footprint cull on K2's walk: each warp owns one of
-//                   K1's compact 128-pixel blocks (K2's own warps span 7
-//                   rows of 32 interleaved with the other warp's, which no
-//                   box test culls) and skips the entries whose cull_box
-//                   misses it, 32 boxes to a ballot (gradients K2's, in
-//                   another order)
+//   kBwdNoCull      no box pass, no box test and no ballot: K2's walk before
+//                   the cull, whose band is 256 consecutive pixels of the
+//                   tile (thread t's at t + 64 k, so a warp spans 7 rows of
+//                   32 interleaved with the other warp's) and whose warps
+//                   walk every entry (gradients K2's, in another order)
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,7 +51,7 @@ enum BackwardVariant : int {
   kBwdNoRed = 2,
   kBwdSmemAtomic = 3,
   kBwdNoAtomic = 4,
-  kBwdCull = 5,
+  kBwdNoCull = 5,
 };
 
 constexpr int kBatchB = 128;                         // entries staged per round
@@ -61,13 +64,14 @@ constexpr int kBwdBandWarps = kBwdBandThreads / 32;
 
 // Dynamic shared memory of a block: the staged batches, the cull's boxes,
 // then the per-entry partial sums [warp][entry][9] (one row for the
-// variants that sum into one).
+// variants that sum into one). K2: 2 x 8,192 + 2,048 + 9,216 = 27,648 B.
 template <int V>
 struct BwdSmem {
+  static constexpr bool kCull = V != kBwdNoCull;
   static constexpr int kBufs = V == kBwdSbuf ? 1 : 2;
   static constexpr int kRedRows = (V == kBwdNoRed || V == kBwdSmemAtomic) ? 1 : kBwdBandWarps;
   static constexpr int kBoxOffset = kBufs * kBufBytes;
-  static constexpr int kRedOffset = kBoxOffset + (V == kBwdCull ? kBatchB * 16 : 0);
+  static constexpr int kRedOffset = kBoxOffset + (kCull ? kBatchB * 16 : 0);
   static constexpr int kBytes = kRedOffset + kRedRows * kBatchB * kGrads * 4;
   static_assert(kBytes <= 48 * 1024, "K2's shared memory needs the opt-in attribute");
 };
@@ -125,7 +129,7 @@ __device__ __forceinline__ void add_row(float* dst, const float (&g)[kGrads]) {
 // `out`: the (P+1, 12) per-Gaussian table, or for kBwdNoAtomic the
 // (kBwdBands, m_pad, 9) band records. `walked` (null, or one int per tile,
 // zeros): the entries the tile's walk visited, the larger of its bands'.
-// `block_w`: k1_block_w of the tile (kBwdCull only).
+// `block_w`: k1_block_w of the tile (not read by kBwdNoCull).
 template <int V>
 __global__ void __launch_bounds__(kBwdBandThreads)
 blend_backward_kernel(const float* __restrict__ rows, long long m_pad,
@@ -141,7 +145,7 @@ blend_backward_kernel(const float* __restrict__ rows, long long m_pad,
   using L = BwdSmem<V>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* s_buf = reinterpret_cast<float*>(smem);                  // [kBufs][kBatchB][16]
-  float4* s_box = reinterpret_cast<float4*>(smem + L::kBoxOffset);  // [kBatchB] (cull)
+  float4* s_box = reinterpret_cast<float4*>(smem + L::kBoxOffset);  // [kBatchB] (culled)
   float* s_red = reinterpret_cast<float*>(smem + L::kRedOffset);    // [kRedRows][kBatchB][9]
   __shared__ __align__(8) uint64_t s_bar[2];
   __shared__ int s_nmax;
@@ -160,7 +164,7 @@ blend_backward_kernel(const float* __restrict__ rows, long long m_pad,
 
   WarpBlock wb{};
   float bx0 = 0.0f, bx1 = 0.0f, by0 = 0.0f, by1 = 0.0f;
-  if constexpr (V == kBwdCull) {
+  if constexpr (L::kCull) {
     wb = warp_block(band * kBwdBandWarps + warp, tx * tile_w, ty * tile_h, tile_w, block_w);
     bx0 = static_cast<float>(wb.col0);
     bx1 = static_cast<float>(wb.col0 + block_w - 1);
@@ -175,7 +179,7 @@ blend_backward_kernel(const float* __restrict__ rows, long long m_pad,
 #pragma unroll
   for (int k = 0; k < kPixPerThread; ++k) {
     int row, col;
-    if constexpr (V == kBwdCull) {
+    if constexpr (L::kCull) {
       block_pixel(wb, lane, k, col, row);
     } else {
       const int flat = band * (kPixPerThread * kBwdBandThreads) + threadIdx.x + k * kBwdBandThreads;
@@ -223,12 +227,12 @@ blend_backward_kernel(const float* __restrict__ rows, long long m_pad,
     const int n = hi - lo;
     const float* buf = s_buf + (b & (L::kBufs - 1)) * kBatchB * kRowFloats;
     mbar_wait(&s_bar[b & (L::kBufs - 1)], (b >> (L::kBufs - 1)) & 1);
-    if constexpr (V == kBwdCull || V == kBwdSmemAtomic) {
+    if constexpr (L::kCull || V == kBwdSmemAtomic) {
       // the sums of the entries no lane adds to must read zero
       float4* red4 = reinterpret_cast<float4*>(s_red);
       for (int i = threadIdx.x; i < L::kRedRows * kBatchB * kGrads / 4; i += kBwdBandThreads)
         red4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if constexpr (V == kBwdCull) {
+      if constexpr (L::kCull) {
         for (int j = threadIdx.x; j < n; j += kBwdBandThreads) s_box[j] = cull_box(buf + j * kRowFloats);
       }
       __syncthreads();
@@ -292,7 +296,7 @@ blend_backward_kernel(const float* __restrict__ rows, long long m_pad,
         if (red_idx >= 0) s_red[(warp * kBatchB + j) * kGrads + red_idx] = v;
       }
     };
-    if constexpr (V == kBwdCull) {
+    if constexpr (L::kCull) {
       // back to front, 32 boxes to a ballot; a skipped entry's sums stay zero
       for (int g_hi = n; g_hi > 0; g_hi -= 32) {
         const int g_lo = max(g_hi - 32, 0);

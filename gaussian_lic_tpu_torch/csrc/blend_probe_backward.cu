@@ -40,7 +40,7 @@ extern "C" int glic_blend_probe_backward(int variant, const float* rows, long lo
     GLIC_CASE(kBwdNoRed)
     GLIC_CASE(kBwdSmemAtomic)
     GLIC_CASE(kBwdNoAtomic)
-    GLIC_CASE(kBwdCull)
+    GLIC_CASE(kBwdNoCull)
 #undef GLIC_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -764,8 +764,13 @@ class MappingEngine:
         loss, loss + gradients and the whole step, `iters` times each after
         one warm-up (CUDA events on the card, the host clock on the CPU), and
         differences them: forward = t(loss), backward = t(grad) - t(loss),
-        optimizer = t(step) - t(grad)."""
+        optimizer = t(step) - t(grad). One device only: the sharded step's
+        phases overlap its collectives, so with a mesh it returns {}."""
         if not self.initialized or self.kf_count == 0:
+            return {}
+        if self.mesh is not None:
+            print("[phase-split] sharded step: phases overlap with "
+                  "collectives; reporting whole-step only")
             return {}
         cfg, intr = self.cfg, self.intr
         kw = dict(apply_exposure=cfg.apply_exposure, **_render_kw(cfg, self.gm.capacity))

@@ -35,8 +35,11 @@ rows and 8 columns or more, else 128 pixels as wide or as narrow as the tile
 asks) when the entry's footprint box misses the block (`cull_boxes`):
 the box holds every pixel at which the per-pixel arithmetic above could
 apply the entry, so a skipped pair is one the test would reject, and K1's
-outputs are those of the plain version, which tests every pair. `warp_cull_keep` is the plain emulation of that rule, for
-the tests and chip_smoke.py; the main path never calls it.
+outputs are those of the plain version, which tests every pair. K2 culls
+its walk by the same rule at the same warp blocks (two to each of its 4
+bands), so its gradients are the plain version's summed in another order.
+`warp_cull_keep` is the plain emulation of that rule, for the tests and
+chip_smoke.py; the main path never calls it.
 """
 
 from __future__ import annotations
@@ -453,13 +456,34 @@ def _pixel_blocks(tile_h, tile_w, device) -> torch.Tensor:
             + torch.div(flat % tile_w, block_w, rounding_mode="floor"))
 
 
+def warp_block_pixels(tile_h: int, tile_w: int) -> torch.Tensor:
+    """(8, 32, 4) flat pixel (row-major in the tile) of pixel k of lane l in
+    K1's warp block b, as csrc/blend_common.cuh (block_pixel) lays them out:
+    lanes along a block row (up to 32 of them), a thread's pixels 32 /
+    block_w rows apart in blocks up to 32 wide, 32 columns apart in wider
+    ones."""
+    block_w, block_h = k1_block(tile_h, tile_w)
+    per_row = tile_w // block_w
+    blocks = torch.arange(TILE_PIX // WARP_PIX)[:, None, None]
+    lane = torch.arange(32)[None, :, None]
+    k = torch.arange(WARP_PIX // 32)[None, None, :]
+    lanes_w = min(block_w, 32)
+    per_lane = block_w // lanes_w
+    row = (torch.div(blocks, per_row, rounding_mode="floor") * block_h
+           + torch.div(lane, lanes_w, rounding_mode="floor")
+           + torch.div(k, per_lane, rounding_mode="floor") * (32 // lanes_w))
+    col = (blocks % per_row) * block_w + lane % lanes_w + (k % per_lane) * 32
+    return row * tile_w + col
+
+
 def warp_cull_keep(
     splats, tile_starts, tile_lens, *, n_tx, n_ty, tile_h=32, tile_w=32, linear=False,
 ) -> torch.Tensor:
-    """Plain emulation of K1's cull: (T, L, 1024 / WARP_PIX) bool, L the
-    longest range, True where the warp owning that block of the tile walks
-    the tile's l-th entry (its cull box meets the block); False where K1
-    skips the pair, and past the tile's range. `linear`: K3 noexp's boxes."""
+    """Plain emulation of K1's and K2's cull: (T, L, 1024 / WARP_PIX) bool,
+    L the longest range, True where the warp owning that block of the tile
+    walks the tile's l-th entry (its cull box meets the block); False where
+    the kernels skip the pair, and past the tile's range. `linear`: K3
+    noexp's boxes."""
     block_w, block_h = k1_block(tile_h, tile_w)
     dev = splats.device
     n_tiles = n_tx * n_ty
@@ -483,14 +507,17 @@ def warp_cull_keep(
 
 def blend_backward_plain(
     splats, tile_starts, tile_lens, dl_dcolor, final_t, n_contrib, *,
-    n_tx, n_ty, tile_h=32, tile_w=32, pixels=None,
+    n_tx, n_ty, tile_h=32, tile_w=32, pixels=None, keep=None,
 ):
     """Plain version of K2 (same signature and outputs): T before each entry
     is final_T times the reverse cumulative product of 1/(1-alpha) over the
     applied entries; Sdl is the reverse exclusive cumulative sum of
     w * (rgb . dL/dpix). `pixels`, the probes' hook (ops/blend_probe.py),
-    restricts the sums to those flat pixel indices of each tile."""
+    restricts the sums to those flat pixel indices of each tile. `keep`, the
+    cull's (`warp_cull_keep`'s (T, L, 8) mask), applies an entry only in the
+    warp blocks it keeps, as K2 walks it."""
     dev = splats.device
+    blocks = _pixel_blocks(tile_h, tile_w, dev) if keep is not None else None
     grads = torch.zeros((splats.shape[0], N_ATTR), dtype=torch.float32, device=dev)
     dl_t = _to_tiles(dl_dcolor, n_tx, n_ty, tile_h, tile_w)      # (T, 3, 1024)
     ft_t = _to_tiles(final_t, n_tx, n_ty, tile_h, tile_w)        # (T, 1024)
@@ -499,12 +526,16 @@ def blend_backward_plain(
         e, idx, valid = _gather_entries(splats, tile_starts, tile_lens, tiles, L)
         px, py = _pixel_coords(tiles, n_tx, tile_h, tile_w)
         dl, ft, nc = dl_t[tiles], ft_t[tiles], nc_t[tiles]
+        bl = blocks
         if pixels is not None:
             px, py, dl, ft, nc = px[:, pixels], py[:, pixels], dl[..., pixels], \
                 ft[:, pixels], nc[:, pixels]
+            bl = None if blocks is None else blocks[pixels]
         dx, dy, _, G, alpha, contrib = _alpha(e, px, py)
         pos = torch.arange(1, L + 1, device=dev)[None, :, None]
         applied = contrib & (pos <= nc[:, None, :])
+        if keep is not None:
+            applied = applied & keep[tiles, :L][:, :, bl]
         inv_om = 1.0 / (1.0 - alpha)
         f = torch.where(applied, inv_om, torch.ones_like(inv_om))
         T = ft[:, None, :] * torch.cumprod(f.flip(1), 1).flip(1)

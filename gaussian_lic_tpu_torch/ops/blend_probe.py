@@ -31,26 +31,30 @@ function allows: noexp a box from its linear test's own threshold
 (`blend.cull_boxes(linear=True)`), noattr the box of NOATTR_SPLAT, noblend
 none (every warp walks every entry).
 
-Backward variants (K2's design: 4 bands of 256 pixels, 64 threads a band,
-the bulk-copy double buffer, the 12-shuffle reduce-scatter, per-Gaussian
-vector atomics, the tiles launched longest first), per-Gaussian grads (P, 9)
-as K2's unless named:
+Backward variants (K2's design: 4 bands of two of K1's warp blocks, 64
+threads a band, the bulk-copy double buffer, each warp's footprint cull
+(the boxes of a batch, 32 to a ballot), the 12-shuffle reduce-scatter,
+per-Gaussian vector atomics, the tiles launched longest first), each taking
+one cost centre out of that culled walk; per-Gaussian grads (P, 9) as K2's
+unless named:
   base        K2
   sbuf        one buffer, refilled synchronously after each batch
   nored       no reduce-scatter and no warp-partials pass: each band's record
-              of an entry comes from its first lane's four pixels alone, so
-              the result sums the tile's NORED_PIXELS (every pixel's math and
+              of an entry comes from its first thread's four pixels alone
+              (`nored_pixels`: lane 0 of the band's first warp block), so the
+              result sums the tile's 16 such pixels (every pixel's math and
               T/Sdl updates still run)
   smematomic  the reduce-scatter replaced by shared-memory atomics: every
               lane adds its sums into one buffer of the band
   noatomic    no per-Gaussian atomics: each band stores its partial record of
               every walked entry into a (BWD_BANDS, M_pad, 9) buffer with
               plain stores; its plain version is the per-entry grads of each
-              band's pixels
-  cull        K1's per-warp footprint cull on K2's walk: each warp owns one of
-              K1's compact warp blocks (`blend.k1_block`; K2's own warps
-              span 7 rows of 32, interleaved) and skips the entries whose box
-              misses it. Sums in another order than K2's
+              band's pixels (`band_pixels`)
+  nocull      no box pass, no box test and no ballot: K2's walk before the
+              cull, whose band is 256 consecutive pixels of the tile (thread
+              t's at band * 256 + t + 64 k, a warp spanning 7 rows of 32
+              interleaved with the other warp's) and whose warps walk every
+              entry. Sums in another order than K2's
 Every backward variant launches the tiles in `tile_order` (default: K2's
 `blend.longest_first`, computed on every call as K2 computes it).
 
@@ -72,16 +76,23 @@ from gaussian_lic_tpu_torch.ops import blend
 
 # The order is the kernels' variant numbering (ForwardVariant, BackwardVariant).
 FORWARD_VARIANTS = ("base", "nocull", "noexp", "noattr", "noblend", "batch256", "direct")
-BACKWARD_VARIANTS = ("base", "sbuf", "nored", "smematomic", "noatomic", "cull")
+BACKWARD_VARIANTS = ("base", "sbuf", "nored", "smematomic", "noatomic", "nocull")
 FWD_BATCH = {"batch256": 256}   # rows a batch where not K1's 128
-BWD_BANDS = 4                   # K2's pixel bands a tile, 256 pixels each
+BWD_BANDS = 4                   # K2's pixel bands a tile: two warp blocks, 256 pixels each
 BWD_BAND_THREADS = 64
 
 # noattr's splat: x, y, A, B, C, opacity, r, g, b (tools/probe_kernel.py:153-154)
 NOATTR_SPLAT = (1.0, 2.0, 0.01, 0.001, 0.01, 0.5, 0.2, 0.3, 0.4)
-# nored's pixels: each band's first thread's four, flat = band * 256 + 64 k
-NORED_PIXELS = tuple(b * blend.TILE_PIX // BWD_BANDS + BWD_BAND_THREADS * k
-                     for b in range(BWD_BANDS) for k in range(4))
+
+
+def nored_pixels(tile_h: int = 32, tile_w: int = 32) -> Tuple[int, ...]:
+    """nored's pixels: the four flat pixels of each band's first thread, lane
+    0 of warp block 2 * band (`blend.warp_block_pixels`)."""
+    wp = blend.warp_block_pixels(tile_h, tile_w)
+    return tuple(int(p) for b in range(BWD_BANDS) for p in wp[2 * b, 0])
+
+
+NORED_PIXELS = nored_pixels()   # at 32x32 tiles
 
 LAUNCHES = {f"{d}_{v}": 0 for d, vs in (("forward", FORWARD_VARIANTS),
                                         ("backward", BACKWARD_VARIANTS)) for v in vs}
@@ -269,17 +280,21 @@ def _noblend_plain(splats, tile_starts, tile_lens, *, n_tx, n_ty, tile_h, tile_w
             torch.zeros((Hp, Wp), dtype=torch.int32, device=dev))
 
 
-def band_pixels(band: int, device=None) -> torch.Tensor:
-    """The flat pixels of K2's pixel band `band` of a tile."""
-    n = blend.TILE_PIX // BWD_BANDS
-    return torch.arange(band * n, (band + 1) * n, device=device)
+def band_pixels(band: int, tile_h: int = 32, tile_w: int = 32, device=None) -> torch.Tensor:
+    """The flat pixels of K2's band `band` of a tile, in increasing order:
+    those of K1's warp blocks 2 * band and 2 * band + 1."""
+    blocks = blend._pixel_blocks(tile_h, tile_w, device)
+    return torch.nonzero(torch.div(blocks, 2, rounding_mode="floor") == band).flatten()
 
 
 def probe_backward_plain(
     variant, splats, tile_starts, tile_lens, dl_dcolor, final_t, n_contrib, sorted_gauss, *,
     n_gauss, n_tx, n_ty, tile_h=32, tile_w=32, walked=None,
 ):
-    """Plain version of K4 (same outputs)."""
+    """Plain version of K4 (same outputs). The culls change no output: the
+    plain versions test every pair. `walked`: each band walks from the
+    largest n_contrib of its own pixels, so the tile's larger count is
+    min(the tile's max n_contrib, len) for every variant."""
     _variant_index(variant, BACKWARD_VARIANTS)
     kw = dict(n_tx=n_tx, n_ty=n_ty, tile_h=tile_h, tile_w=tile_w)
     args = (splats, tile_starts, tile_lens, dl_dcolor, final_t, n_contrib)
@@ -287,8 +302,10 @@ def probe_backward_plain(
         nmax = blend._to_tiles(n_contrib, **kw).amax(1)
         walked.copy_(torch.clamp_min(torch.minimum(nmax, tile_lens), 0))
     if variant == "noatomic":
-        return torch.stack([blend.blend_backward_plain(*args, pixels=band_pixels(b, splats.device),
-                                                       **kw) for b in range(BWD_BANDS)])
-    pixels = torch.tensor(NORED_PIXELS, device=splats.device) if variant == "nored" else None
+        return torch.stack([blend.blend_backward_plain(
+            *args, pixels=band_pixels(b, tile_h, tile_w, splats.device), **kw)
+            for b in range(BWD_BANDS)])
+    pixels = (torch.tensor(nored_pixels(tile_h, tile_w), device=splats.device)
+              if variant == "nored" else None)
     grads = blend.blend_backward_plain(*args, pixels=pixels, **kw)
     return blend.sum_per_gaussian(grads, sorted_gauss, n_gauss)

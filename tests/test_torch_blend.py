@@ -13,13 +13,15 @@
 (c) Gradients of all six parameter groups through render_tiled against JAX
     AD of the dense oracle, <= 1e-4 relative (test_rasterize_tiled.py:199-233),
     and the blend's own VJP against JAX's `_make_blend` VJP, 1e-4 relative.
-(d) K1's cull (`blend.warp_cull_keep`, the plain emulation of the footprint
-    test K1 runs per entry and warp block): on the golden, on rows at the
-    edges of the rule and at every tile shape of 1024 pixels (1x1024 to
-    1024x1), no pair the plain arithmetic applies lies in a skipped block, so
-    the plain forward with the skipped pairs left untested is the plain
-    forward bit for bit. The plain K1 and K2 against the Pallas kernels at
-    tiles of 4x256 and 1x1024 (tile_shapes golden), at (a)'s tolerances.
+(d) The cull of K1 and K2 (`blend.warp_cull_keep`, the plain emulation of
+    the footprint test both run per entry and warp block): on the golden, on
+    rows at the edges of the rule and at every tile shape of 1024 pixels
+    (1x1024 to 1024x1), no pair the plain arithmetic applies lies in a
+    skipped block, so the plain forward with the skipped pairs left untested
+    is the plain forward bit for bit, and so is the plain backward that
+    walks only the kept pairs (on the golden, the NaN-opacity rows and every
+    tile shape). The plain K1 and K2 against the Pallas kernels at every tile
+    shape (tile_shapes golden), at (a)'s tolerances.
 (e) The CUDA kernels against their plain versions, on the card only: K1 bit
     for bit on the golden, the edge rows, tiles of many staged batches, at
     every tile shape of 1024 pixels and with NaN-opacity rows; K2 per column
@@ -519,31 +521,36 @@ class TestTileShapes:
 
 
 def shape_args(d, tag, device="cpu"):
-    """The tile_shapes golden's list and grid at tile shape `tag`."""
+    """The tile_shapes golden's list and grid at tile shape `tag`, and the
+    dL/dpix of its image."""
     n_tx, n_ty, th, tw = (int(v) for v in d[f"{tag}_grid"])
-    args = (t(d["splats"]).to(device), t(d[f"{tag}_tile_starts"]).to(device),
+    image = str(d[f"{tag}_image"])
+    args = (t(d[f"{image}splats"]).to(device), t(d[f"{tag}_tile_starts"]).to(device),
             t(d[f"{tag}_tile_lens"]).to(device))
-    return args, dict(n_tx=n_tx, n_ty=n_ty, tile_h=th, tile_w=tw)
+    return args, dict(n_tx=n_tx, n_ty=n_ty, tile_h=th, tile_w=tw), \
+        t(d[f"{image}dl_dcolor"]).to(device)
+
+
+TILE_TAGS = [f"{th}x{tw}" for th, tw in TILES]
 
 
 class TestTileShapesAgainstPallas:
-    """The plain K1 and K2 against the Pallas kernels at tiles of 4x256 and
-    1x1024 pixels (tile_shapes golden: a 1024x8 image whose every tile walks
-    the whole 160-row list), at (a)'s tolerances: image and final_T atol
-    1e-5, n_contrib exact, per-entry grads 1e-4 of each column's max."""
+    """The plain K1 and K2 against the Pallas kernels at every tile of 1024
+    pixels (tile_shapes golden: 8 tiles an image, each walking the whole of
+    a 160-row list), at (a)'s tolerances: image and final_T atol 1e-5,
+    n_contrib exact, per-entry grads 1e-4 of each column's max."""
 
     @pytest.mark.parametrize("source", GOLDEN_SOURCES)
-    @pytest.mark.parametrize("tag", ["4x256", "1x1024"])
+    @pytest.mark.parametrize("tag", TILE_TAGS)
     def test_forward_and_backward(self, tag, source):
         d = load_golden("tile_shapes", source)
-        args, kw = shape_args(d, tag)
+        args, kw, dl = shape_args(d, tag)
         color, final_t, n_contrib = blend.blend_forward_plain(*args, **kw)
         assert (d[f"{tag}_final_t"] < 1e-3).sum() > 0, "no terminated pixel"
         np.testing.assert_allclose(n(color), d[f"{tag}_color"], atol=IMG_ATOL, rtol=0)
         np.testing.assert_allclose(n(final_t), d[f"{tag}_final_t"], atol=IMG_ATOL, rtol=0)
         np.testing.assert_array_equal(n(n_contrib), d[f"{tag}_n_contrib"])
-        grads = n(blend.blend_backward_plain(*args, t(d["dl_dcolor"]), final_t, n_contrib,
-                                             **kw))
+        grads = n(blend.blend_backward_plain(*args, dl, final_t, n_contrib, **kw))
         ref = d[f"{tag}_entry_grads"]
         assert np.abs(ref).max() > 0
         for i in range(blend.N_ATTR):
@@ -599,6 +606,63 @@ def nan_ids(d):
     ids[::7] = N_GAUSS
     ids[nan_at] = np.arange(N_GAUSS - 4, N_GAUSS)
     return ids
+
+
+class TestBackwardCull:
+    """K2 culls its walk by K1's rule at K1's warp blocks: the plain backward
+    with only the (entry, warp block) pairs that warp_cull_keep keeps is the
+    unrestricted plain backward bit for bit (a skipped pair is one the
+    arithmetic does not apply), and both match the Pallas backward (the
+    goldens) at (a)'s GRAD_RTOL of each column's max. On the blend golden
+    (with its final_T and n_contrib), on its list with the NaN-opacity rows
+    (nan_row: the NaN rows are never culled and stay NaN, as in JAX), and at
+    every tile shape of 1024 pixels (tile_shapes)."""
+
+    @pytest.mark.parametrize("scene", ["golden", "nan_row"] + TILE_TAGS)
+    def test_cull_drops_nothing_that_counts(self, scene):
+        if scene == "golden":
+            d = load_golden("blend", "file")
+            args, kw = golden_args(d)
+            pix = pixel_args(d)
+            ref = d["entry_grads"]
+        elif scene == "nan_row":
+            d = load_golden("blend", "file")
+            args, kw = nan_args(d)
+            pix = [t(d["dl_dcolor"])] + list(blend.blend_forward_plain(*args, **kw)[1:])
+            ref = load_golden("nan_row", "file")["entry_grads"]
+        else:
+            d = load_golden("tile_shapes", "file")
+            args, kw, dl = shape_args(d, scene)
+            pix = [dl] + list(blend.blend_forward_plain(*args, **kw)[1:])
+            ref = d[f"{scene}_entry_grads"]
+        keep = blend.warp_cull_keep(*args, **kw)
+        kept = float(keep.sum()) / (int(args[2].sum()) * keep.shape[2])
+        assert 0.0 < kept < 1.0, kept   # the cull skips pairs, and walks some
+        full = n(blend.blend_backward_plain(*args, *pix, **kw))
+        culled = n(blend.blend_backward_plain(*args, *pix, keep=keep, **kw))
+        np.testing.assert_array_equal(culled, full)
+        assert np.abs(np.nan_to_num(ref)).max() > 0
+        assert np.isnan(ref).any() == (scene == "nan_row")
+        for got in (culled, full):
+            np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+            for i in range(blend.N_ATTR):
+                assert rel_max(np.nan_to_num(got[:, i]), np.nan_to_num(ref[:, i])) < GRAD_RTOL, i
+
+    def test_keep_restricts_the_walk(self):
+        """The keep hook takes effect: dropping a pair the plain arithmetic
+        applies changes the gradients."""
+        d = load_golden("blend", "file")
+        args, kw = golden_args(d)
+        pix = pixel_args(d)
+        keep = blend.warp_cull_keep(*args, **kw)
+        keep[0, : int(args[2][0])] = False   # tile 0 walks nothing
+        full = blend.blend_backward_plain(*args, *pix, **kw)
+        culled = blend.blend_backward_plain(*args, *pix, keep=keep, **kw)
+        tile0 = torch.zeros(full.shape[0], dtype=torch.bool)
+        tile0[int(args[1][0]):int(args[1][0]) + int(args[2][0])] = True
+        assert float(full[tile0].abs().max()) > 0
+        assert not culled[tile0].any()
+        assert torch.equal(culled[~tile0], full[~tile0])
 
 
 # --------------------------------------------------------------------- (e)
@@ -706,7 +770,7 @@ class TestKernelsOnTheCard:
         """A 4x256 tile (32x4 warp blocks) renders bit for bit against the
         plain version, color and no_color, on the tile_shapes golden's list."""
         d = load_golden("tile_shapes", "file")
-        args, kw = shape_args(d, "4x256", cuda_device)
+        args, kw, _ = shape_args(d, "4x256", cuda_device)
         for no_color in (False, True):
             out = blend.blend_forward(*args, no_color=no_color, **kw)
             ref = blend.blend_forward_plain(*args, no_color=no_color, **kw)

@@ -24,6 +24,8 @@ tests/test_parallel.py:
     for the map, the counters and visible_sum exactly).
 """
 
+import contextlib
+import io
 import os
 import time
 from types import SimpleNamespace
@@ -663,7 +665,8 @@ def run_engine(cfg, mesh=None, result_path=None):
 def engine_rank(mesh, tmp):
     """run_engine on this rank, recording the bundles the engine asks of
     parallel.make_sharded_train_bundle: (results, count, compiles, the
-    bundle sizes made, whether the engine's bundle cache holds those)."""
+    bundle sizes made, whether the engine's bundle cache holds those, and
+    measure_phase_split's result and printed text on the final map)."""
     made = {}
     make = parallel.make_sharded_train_bundle
 
@@ -677,7 +680,11 @@ def engine_rank(mesh, tmp):
                                            os.path.join(tmp, f"rank{mesh.rank}"))
     finally:
         parallel.make_sharded_train_bundle = make
-    return res, n, compiles, sorted(made), all(eng._bundles[k] is made[k] for k in eng._bundles)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        split = eng.measure_phase_split()
+    return (res, n, compiles, sorted(made), all(eng._bundles[k] is made[k] for k in eng._bundles),
+            (split, printed.getvalue()))
 
 
 @pytest.fixture(scope="module")
@@ -706,9 +713,19 @@ class TestEngineWithMesh:
         bundle cache holds them), and it counts the single-device engine's
         compiles on the same stream."""
         _, ranks_, (_, _, compiles_ref, _) = engine_runs
-        for _, _, compiles, made, cached in ranks_:
+        for _, _, compiles, made, cached, _ in ranks_:
             assert made and cached
             assert compiles == compiles_ref
+
+    def test_phase_split_is_whole_step_only(self, engine_runs):
+        """measure_phase_split on the mesh engine returns {} and says why, as
+        the JAX engine does with a mesh (gaussian_lic_tpu/engine/trainer.py):
+        the sharded step's phases overlap its collectives, and timing the
+        single-device train_step would report a step the run does not train
+        with."""
+        for *_, (split, printed) in engine_runs[1]:
+            assert split == {}
+            assert "[phase-split] sharded step: phases overlap with collectives" in printed
 
 
 class TestCli:

@@ -6,13 +6,13 @@ state inside main(). So each plain variant is held, on the golden splat list
 (tests/torch_goldens/blend.npz), against what it stands for:
 
 (a) the variants that keep K1/K2's numerics (base, nocull, batch256, direct;
-    base, sbuf, smematomic, cull) against the Pallas goldens, at the
+    base, sbuf, smematomic, nocull) against the Pallas goldens, at the
     tolerances of tests/test_torch_blend.py: image and final_T atol 1e-5,
     n_contrib exact; the per-Gaussian grads against the goldens' per-entry
     grads summed per Gaussian over seeded ids, 1e-4 relative to the max;
     `noatomic` summed over its bands against the goldens' per-entry grads,
-    1e-4 relative; nocull and cull are also their base's plain version
-    exactly;
+    1e-4 relative; forward and backward nocull are also their base's plain
+    version exactly;
 (b) noexp, noattr, noblend and nored against a jax.numpy transcription of the
     probes' per-entry bodies (probe_kernel.py:168-196, probe_bwd.py:188-258)
     walked over each tile's in-range entries. noexp and noattr: image and
@@ -23,8 +23,10 @@ state inside main(). So each plain variant is held, on the golden splat list
     The transcription with the production reduction reproduces the Pallas
     goldens first, at (a)'s tolerances;
 (c) the culls the kernels run: each variant's box rule keeps every pair its
-    own arithmetic applies (K1's rule at K1's warp blocks for base, batch256,
-    direct and K4 cull; noexp's linear rule; the box of noattr's splat);
+    own arithmetic applies (K1's rule at K1's warp blocks for K3 base,
+    batch256 and direct and every K4 variant but nocull; noexp's linear rule;
+    the box of noattr's splat); nored's pixels and noatomic's bands lie in
+    K2's warp blocks;
 (d) `walked` at K1's batch of 128 (256 for batch256) and K2's walk;
 (e) dispatch: CPU tensors take the plain version and count no launch;
     unknown variants and bad ids raise;
@@ -48,7 +50,7 @@ NOBLEND_RTOL = 1e-5
 NORED_RTOL = 1e-4
 N_GAUSS = 300     # ids of the synthetic sorted_gauss
 K1_NUMERICS = ("base", "nocull", "batch256", "direct")    # K3 variants computing K1's outputs
-K2_NUMERICS = ("base", "sbuf", "smematomic", "cull")      # K4 variants computing K2's grads
+K2_NUMERICS = ("base", "sbuf", "smematomic", "nocull")    # K4 variants computing K2's grads
 
 
 @pytest.fixture(scope="module")
@@ -274,12 +276,14 @@ def test_noatomic_vs_pallas_summed_over_bands(golden):
     assert all(rel_max(g, golden["entry_grads"]) > 1e-2 for g in grads)
 
 
-@pytest.mark.parametrize("variant,base", [("nocull", "base"), ("cull", "base")])
-def test_cull_variants_are_base(golden, variant, base):
-    """nocull's function is K1's and cull's is K2's: their plain versions are
-    base's, bit for bit (the kernels differ from base only in the pairs
-    they skip, which apply nowhere; on the card cull sums in another order)."""
-    if variant == "nocull":
+@pytest.mark.parametrize("direction,variant,base", [("forward", "nocull", "base"),
+                                                    ("backward", "nocull", "base")])
+def test_cull_variants_are_base(golden, direction, variant, base):
+    """K3 nocull's function is K1's and K4 nocull's is K2's: their plain
+    versions are base's, bit for bit (the kernels differ from base only in
+    the pairs base skips, which apply nowhere; on the card K4 nocull sums in
+    another order)."""
+    if direction == "forward":
         args, kw = golden_args(golden)
         for a, b in zip(bp.probe_forward_plain(variant, *args, **kw),
                         bp.probe_forward_plain(base, *args, **kw)):
@@ -435,10 +439,24 @@ def test_walked_stops_at_the_batch_of_the_last_stop():
     assert float(final_t.max()) == 1.0   # noblend never stops
 
 
-def test_nored_pixels_are_each_bands_first_thread():
-    assert len(bp.NORED_PIXELS) == 16 and bp.NORED_PIXELS[:5] == (0, 64, 128, 192, 256)
+@pytest.mark.parametrize("tile", [(1 << i, 1024 >> i) for i in range(11)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_nored_pixels_are_each_bands_first_thread(tile):
+    """Band b's first thread is lane 0 of K1's warp block 2b: its 4 pixels lie
+    in that block, and the band's pixels are its two blocks'."""
+    th, tw = tile
+    pixels = bp.nored_pixels(th, tw)
+    blocks = blend._pixel_blocks(th, tw, "cpu")
+    assert len(pixels) == 16 and len(set(pixels)) == 16
     for b in range(bp.BWD_BANDS):
-        assert set(bp.NORED_PIXELS[4 * b:4 * b + 4]) <= set(bp.band_pixels(b).tolist())
+        mine = pixels[4 * b:4 * b + 4]
+        assert set(mine) <= set(bp.band_pixels(b, th, tw).tolist())
+        assert all(int(blocks[p]) == 2 * b for p in mine)
+        assert mine == tuple(blend.warp_block_pixels(th, tw)[2 * b, 0].tolist())
+    band = torch.cat([bp.band_pixels(b, th, tw) for b in range(bp.BWD_BANDS)])
+    assert sorted(band.tolist()) == list(range(blend.TILE_PIX))   # each pixel in one band
+    if tile == (32, 32):   # 8x16 blocks: lane 0's pixels 4 rows apart
+        assert bp.NORED_PIXELS == pixels and pixels[:5] == (0, 128, 256, 384, 16)
 
 
 # --------------------------------------------------------------------- (e)

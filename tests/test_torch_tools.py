@@ -176,3 +176,29 @@ def test_imports_no_jax(path):
         src = f.read()
     assert not re.search(r"^\s*(import|from)\s+(jax|gaussian_lic_tpu)\b(?!_torch)", src, re.M)
     assert "gaussian_lic_tpu." not in src.replace("gaussian_lic_tpu_torch", "")
+
+
+# phase 4's lines as chip_smoke.bundle_turns prints them: the capturing pass
+# first, then the turns eager, bundle, bundle, eager
+PHASE_4_LINES = """\
+[4] bundles 64+16+16+4 of 100 steps: first pass (captures included) 103.519 ms/step; captures []
+[4] 1048576 Gaussians 640x512 (H100, 700.00 W), eager: 37.421 ms/step, 26.723 it/s, loss 0.25
+[4] 1048576 Gaussians 640x512 (H100, 700.00 W), bundle: 23.357 ms/step, 42.814 it/s, loss 0.25
+[4] 1048576 Gaussians 640x512 (H100, 700.00 W), bundle: 23.350 ms/step, 42.826 it/s, loss 0.25
+[4] 1048576 Gaussians 640x512 (H100, 700.00 W), eager: 37.573 ms/step, 26.615 it/s, loss 0.25
+[4] phase seconds 22.92
+"""
+
+
+def test_ab_train_step_reads_the_turns_not_the_capturing_pass():
+    """tools/ab_train_step.py takes a run's bundle and eager ms/step as the
+    means of its turns, not the first [4] line (the pass that captures the
+    graphs), and K1's and K2's ms from a --kernels run."""
+    ab = tool("ab_train_step")
+    bundle, eager = ab._readings(PHASE_4_LINES, kernels=False)
+    assert bundle == pytest.approx((23.357 + 23.350) / 2)
+    assert eager == pytest.approx((37.421 + 37.573) / 2)
+    assert ab._readings(PHASE_4_LINES.splitlines()[0], kernels=False) is None
+    assert ab._readings("[ab] H100, 700.00 W: K1 0.6921 ms  K2 1.1694 ms\n",
+                        kernels=True) == (0.6921, 1.1694)
+    assert ab._readings(PHASE_4_LINES, kernels=True) is None

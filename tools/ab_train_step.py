@@ -4,13 +4,15 @@
 
 Each round runs the checkouts in the order A B B A (for two; forward then
 backward for more), each in a fresh process that imports that checkout's own
-`chip_smoke.py` and runs its `bench_state` + `phase_steps`: the 1M-Gaussian
-fastlivo train step, 3 warm-up + 20 timed steps, ms/step from a host clock
-around work that ends in `synchronize()` and a loss fetch. Comparing two
-versions inside one call on one card in turns is what makes their
-difference readable (the card's power limit and the host's load vary
-between calls). Prints each run's phase-4 line (the card's name and power
-limit in it), then each checkout's ms/step in run order. With
+`chip_smoke.py` and runs its `bench_state` + `phase_steps`: 100 steps of the
+1M-Gaussian fastlivo train step from one state, eagerly and as the engine's
+bundles 64+16+16+4 (CUDA graphs), in turns eager, bundle, bundle, eager,
+ms/step from a host clock around work that ends in `synchronize()` and a
+loss fetch. Comparing two versions inside one call on one card in turns is
+what makes their difference readable (the card's power limit and the host's
+load vary between calls). Prints each run's phase-4 lines (the card's name
+and power limit in them), then each checkout's ms/step in run order, in
+bundles and eager (each the mean of the run's two turns). With
 `--kernels`, each run times K1 and K2 alone instead (CUDA events, 50
 launches each after a warm-up) on the arguments of that train step
 (`step_scene`), and the lists are of K1's and K2's ms. Needs a CUDA
@@ -61,8 +63,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--kernels", action="store_true", help="time K1 and K2 alone")
     args = ap.parse_args(argv)
-    child, tag = (_KERNELS, "[ab]") if args.kernels else (_CHILD, "[4]")
-    pattern = r"K1 ([0-9.]+) ms  K2 ([0-9.]+) ms" if args.kernels else r"([0-9.]+) ms/step"
+    child = _KERNELS if args.kernels else _CHILD
+    whats = ("K1 ms", "K2 ms") if args.kernels else ("bundle ms/step", "eager ms/step")
     trees = [os.path.abspath(t) for t in args.trees]
     for t in trees:
         if not os.path.isfile(os.path.join(t, "chip_smoke.py")):
@@ -74,17 +76,34 @@ def main(argv=None) -> int:
     ms = {t: [] for t in trees}
     for t in order:
         out = subprocess.run([sys.executable, "-c", child, t], capture_output=True, text=True)
-        line = next((s for s in out.stdout.splitlines() if s.startswith(tag)), None)
-        if out.returncode != 0 or line is None:
+        values = _readings(out.stdout, args.kernels)
+        if out.returncode != 0 or values is None:
             print(out.stdout[-2000:] + out.stderr[-2000:], file=sys.stderr)
             print(f"ab_train_step.py: the run of {t} failed ({out.returncode})", file=sys.stderr)
             return 1
-        print(f"{t}: {line}", flush=True)
-        ms[t].append(tuple(float(v) for v in re.search(pattern, line).groups()))
+        for line in out.stdout.splitlines():
+            if line.startswith("[ab]" if args.kernels else "[4]"):
+                print(f"{t}: {line}", flush=True)
+        ms[t].append(values)
     for t in trees:
-        for i, what in enumerate(("K1 ms", "K2 ms") if args.kernels else ("ms/step",)):
+        for i, what in enumerate(whats):
             print(f"{t}: {what} " + " ".join(f"{v[i]:.4f}" for v in ms[t]))
     return 0
+
+
+def _readings(stdout: str, kernels: bool):
+    """(K1 ms, K2 ms) of a `--kernels` run; else (bundle, eager) ms/step of
+    a phase-4 run, each the mean of its turns. None if the run printed
+    none."""
+    if kernels:
+        m = re.search(r"^\[ab\].*K1 ([0-9.]+) ms  K2 ([0-9.]+) ms", stdout, re.M)
+        return tuple(float(v) for v in m.groups()) if m else None
+    turns = {mode: [float(v) for v in re.findall(rf"^\[4\].*\), {mode}: ([0-9.]+) ms/step",
+                                                 stdout, re.M)]
+             for mode in ("bundle", "eager")}
+    if not all(turns.values()):
+        return None
+    return tuple(sum(v) / len(v) for v in turns.values())
 
 
 if __name__ == "__main__":

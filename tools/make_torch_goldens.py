@@ -8,9 +8,9 @@ mode, on small seeded scenes, and returns (or writes) the inputs and outputs as
               at 64x64 with 128 Gaussians, mapped from tile-major to image space;
   nan_row.npz K1 and K2 on blend.npz's list with a NaN-opacity row in front
               of each tile (the port's utils/synthetic.nan_opacity_list);
-  tile_shapes.npz  K1 and K2 at tiles of 4x256 and 1x1024 pixels of a
-              1024x8 image, each tile walking its own copy of a seeded
-              160-row list;
+  tile_shapes.npz  K1 and K2 at every tile of 1024 pixels (1x1024 to
+              1024x1), 8 tiles an image (1024x8, 8x1024 or 128x64), each
+              tile walking its own copy of a seeded 160-row list;
   train.npz   1 and 10 steps of `_make_train_step(with_grads=True)`;
   engine.npz  a 3-keyframe `MappingEngine.add_frame` run;
   bundle.npz  a 4-step `_make_train_bundle` from train.npz's initial state,
@@ -209,17 +209,27 @@ def make_nan_row() -> dict:
                 entry_grads=np.asarray(grads[:9].T))
 
 
-TILE_SHAPES = ((4, 256), (1, 1024))   # (tile_h, tile_w) of the tile_shapes case
-TILE_SHAPES_IMAGE = (8, 1024)         # its image (height, width)
+# (tile_h, tile_w) of the tile_shapes case: every tile of 1024 pixels, each
+# on an image of 8 of its tiles. Prefix of the image's keys, (height, width),
+# the x of its cluster of opaque splats, and the shapes it holds; the wide
+# image's keys carry no prefix.
+TILE_SHAPES_IMAGES = (
+    ("", (8, 1024), 300.0, ((4, 256), (1, 1024), (2, 512), (8, 128))),
+    ("tall_", (1024, 8), None, ((128, 8), (256, 4), (512, 2), (1024, 1))),
+    ("block_", (64, 128), 40.0, ((16, 64), (32, 32), (64, 16))),
+)
+TILE_SHAPES = tuple(s for *_, shapes in TILE_SHAPES_IMAGES for s in shapes)
+TILE_SHAPES_IMAGE = TILE_SHAPES_IMAGES[0][1]   # the wide image (height, width)
 
 
-def tile_shapes_list(rng: np.random.Generator, n: int = 160) -> np.ndarray:
-    """(n, 16) gathered rows: n seeded splats over a 1024x8 image (a
-    cluster of 24 opaque ones at x ~ 300, so that some pixels reach the
-    T < 1e-4 termination)."""
-    h, w = TILE_SHAPES_IMAGE
+def tile_shapes_list(rng: np.random.Generator, n: int = 160, image=TILE_SHAPES_IMAGE,
+                     cluster_x: float = 300.0) -> np.ndarray:
+    """(n, 16) gathered rows: n seeded splats over an image of (height,
+    width) `image` (a cluster of 24 opaque ones at (cluster_x, height / 2),
+    so that some pixels reach the T < 1e-4 termination)."""
+    h, w = image
     n_rand = n - 24
-    x = np.concatenate([rng.uniform(0, w, n_rand), rng.normal(300, 2, 24)])
+    x = np.concatenate([rng.uniform(0, w, n_rand), rng.normal(cluster_x, 2, 24)])
     y = np.concatenate([rng.uniform(-1, h + 1, n_rand), rng.normal(h / 2, 1, 24)])
     sx = np.concatenate([rng.uniform(0.8, 6.0, n_rand), rng.uniform(3.0, 5.0, 24)])
     sy = np.concatenate([rng.uniform(0.5, 3.0, n_rand), rng.uniform(3.0, 5.0, 24)])
@@ -236,11 +246,19 @@ def tile_shapes_list(rng: np.random.Generator, n: int = 160) -> np.ndarray:
     return rows
 
 
+def _transposed(rows: np.ndarray) -> np.ndarray:
+    """The rows with x and y swapped (the conic's A and C with them)."""
+    out = rows.copy()
+    out[:, [0, 1, 2, 4]] = rows[:, [1, 0, 4, 2]]
+    return out
+
+
 def make_tile_shapes() -> dict:
     """K1 and K2 (Pallas, interpret mode) at each tile shape of TILE_SHAPES:
-    the 8 tiles' ranges are 8 copies of one 160-row list (each entry's
-    gradient row is its tile's), so each tile tests every row at its 1024
-    pixels; outputs mapped to image space."""
+    on each image of TILE_SHAPES_IMAGES the 8 tiles' ranges are 8 copies of
+    one 160-row list (each entry's gradient row is its tile's), so each tile
+    tests every row at its 1024 pixels; outputs mapped to image space. The
+    tall image's list is the wide one's recipe, transposed."""
     _jax_cpu()
     import jax.numpy as jnp
 
@@ -248,30 +266,35 @@ def make_tile_shapes() -> dict:
         SPLAT_ROWS, SUB, blend_backward, blend_forward, swizzle_tiles, unswizzle_tiles,
     )
 
-    rng = np.random.default_rng(SEED + 4)
-    one = tile_shapes_list(rng)
-    rows = np.concatenate([one] * 8)   # 1280 rows: 5 DMA windows of 256
-    h, w = TILE_SHAPES_IMAGE
-    dl = rng.normal(size=(3, h, w)).astype(np.float32)
-    splats = jnp.asarray(rows).reshape(rows.shape[0] // SUB, SUB * SPLAT_ROWS)
-    out = dict(splats=rows, dl_dcolor=dl)
-    for th, tw in TILE_SHAPES:
-        sw = dict(n_tx=w // tw, n_ty=h // th, tile_h=th, tile_w=tw)
-        n_tiles = sw["n_tx"] * sw["n_ty"]
-        st = jnp.arange(n_tiles, dtype=jnp.int32) * len(one)
-        ln = jnp.full((n_tiles,), len(one), jnp.int32)
-        color_t, ft_t, nc_t = blend_forward(splats, st, ln, interpret=True, **sw)
-        grads = blend_backward(splats, st, ln, swizzle_tiles(jnp.asarray(dl), **sw),
-                               ft_t, nc_t, interpret=True, **sw)
-        tag = f"{th}x{tw}"
-        out.update({
-            f"{tag}_grid": np.array([sw["n_tx"], sw["n_ty"], th, tw], np.int32),
-            f"{tag}_tile_starts": np.asarray(st), f"{tag}_tile_lens": np.asarray(ln),
-            f"{tag}_color": np.asarray(unswizzle_tiles(color_t, **sw)),
-            f"{tag}_final_t": np.asarray(unswizzle_tiles(ft_t, **sw)),
-            f"{tag}_n_contrib": np.asarray(unswizzle_tiles(nc_t, **sw)),
-            f"{tag}_entry_grads": np.asarray(grads[:9].T),
-        })
+    out = {}
+    for i, (prefix, (h, w), cluster_x, shapes) in enumerate(TILE_SHAPES_IMAGES):
+        rng = np.random.default_rng(SEED + 4 + i)
+        if cluster_x is None:
+            one = _transposed(tile_shapes_list(rng, image=(w, h)))
+        else:
+            one = tile_shapes_list(rng, image=(h, w), cluster_x=cluster_x)
+        rows = np.concatenate([one] * 8)   # 1280 rows: 5 DMA windows of 256
+        dl = rng.normal(size=(3, h, w)).astype(np.float32)
+        splats = jnp.asarray(rows).reshape(rows.shape[0] // SUB, SUB * SPLAT_ROWS)
+        out.update({f"{prefix}splats": rows, f"{prefix}dl_dcolor": dl})
+        for th, tw in shapes:
+            sw = dict(n_tx=w // tw, n_ty=h // th, tile_h=th, tile_w=tw)
+            n_tiles = sw["n_tx"] * sw["n_ty"]
+            st = jnp.arange(n_tiles, dtype=jnp.int32) * len(one)
+            ln = jnp.full((n_tiles,), len(one), jnp.int32)
+            color_t, ft_t, nc_t = blend_forward(splats, st, ln, interpret=True, **sw)
+            grads = blend_backward(splats, st, ln, swizzle_tiles(jnp.asarray(dl), **sw),
+                                   ft_t, nc_t, interpret=True, **sw)
+            tag = f"{th}x{tw}"
+            out.update({
+                f"{tag}_image": np.array(prefix),
+                f"{tag}_grid": np.array([sw["n_tx"], sw["n_ty"], th, tw], np.int32),
+                f"{tag}_tile_starts": np.asarray(st), f"{tag}_tile_lens": np.asarray(ln),
+                f"{tag}_color": np.asarray(unswizzle_tiles(color_t, **sw)),
+                f"{tag}_final_t": np.asarray(unswizzle_tiles(ft_t, **sw)),
+                f"{tag}_n_contrib": np.asarray(unswizzle_tiles(nc_t, **sw)),
+                f"{tag}_entry_grads": np.asarray(grads[:9].T),
+            })
     return out
 
 

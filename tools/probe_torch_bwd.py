@@ -2,8 +2,8 @@
 
 The PyTorch/CUDA counterpart of tools/probe_bwd.py. Each variant of
 `ops.blend_probe.probe_backward` is K2's own kernel with its pipeline, its
-reduction or its output stage swapped out (base, sbuf, nored, smematomic,
-noatomic, cull; see that module); `base` is K2. On the probe scene
+reduction, its output stage or its cull swapped out (base, sbuf, nored,
+smematomic, noatomic, nocull; see that module); `base` is K2. On the probe scene
 (`utils.synthetic.probe_scene`: 1M Gaussians of the bench state, fastlivo
 preset, camera 0, dL/dpix ~ N(0, 0.1) from default_rng(0)) it prints K2's
 own time, then per variant the kernel time from CUDA events (its wrapper:
@@ -26,7 +26,7 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_GAUSS = 1 << 20
-VARIANTS = "base,sbuf,nored,smematomic,noatomic,cull"
+VARIANTS = "base,sbuf,nored,smematomic,noatomic,nocull"
 
 
 def run(sc: dict, iters: int = 10, variants=None, log=print) -> dict:
