@@ -41,6 +41,17 @@ exit code is not 0:
      from base and its deviation from its plain version; K2's tile order),
      with the probe launch counters zeroed just before and read just after:
      every variant must show;
+  2c. the per-Gaussian kernels K5 (preprocess forward), K6 (its backward)
+     and K7 (the six-group sparse Adam), on phase 2's two inputs with edge
+     rows put in (NaN opacity, behind the camera, det = 0, tx and ty
+     clamped, an SH colour below 0, inactive): K5 against the plain chain
+     (rows and depth within PRE_FWD_RTOL of each column's max, radius on at
+     most PRE_RADIUS_SHARE of rows off by 1, base_active equal; the sorted
+     lists binned from both compared), K6 against the closed form and
+     autograd of the plain chain (PRE_GRAD_RTOL of each column's max; on
+     the 20k scene both K6 and the float32 autograd also against a float64
+     autograd run), K7 bit for bit against the per-group loop; each timed
+     (20 launches) beside its plain version, the parent's main path;
   3. the slice: MappingEngine.add_frame over a 40-frame synthetic stream at
      the fastlivo rig (640x512, SH 3, 16 tile slots, capacity 262144), its
      steps in bundles (CUDA graphs); the launch counters are zeroed just
@@ -53,8 +64,8 @@ exit code is not 0:
      eager, after an untimed pass that captures the graphs) from one state:
      ms/step, it/s, peak memory, overflow counters, capture seconds and the
      graph pool's bytes; the bundles' losses must agree with the eager
-     runs' within their spread, and their K1/K2 launches must equal the
-     eager loop's;
+     runs' within their spread, every turn must launch one K1, K5, K6 and
+     K7 a step, and the bundles' launches must equal the eager loop's;
   5. the application: phase 3's stream written as a RecordedStream directory
      (stamps 0.1 s apart) and run through `run.main` with config/fastlivo.yaml
      as shipped (100,000 skybox Gaussians, 16 tile slots), randinit LPIPS,
@@ -318,6 +329,22 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
+def reset_launches() -> None:
+    """Zeroes the launch counters of the train step's kernels (K1/K2, K5/K6, K7)."""
+    from gaussian_lic_tpu_torch.engine.trainer import KERNEL_LAUNCHES
+
+    for counter in KERNEL_LAUNCHES:
+        for k in counter:
+            counter[k] = 0
+
+
+def kernel_launches() -> dict:
+    """Every counter of KERNEL_LAUNCHES in one dict."""
+    from gaussian_lic_tpu_torch.engine.trainer import KERNEL_LAUNCHES
+
+    return {k: v for counter in KERNEL_LAUNCHES for k, v in counter.items()}
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels vs plain
 # ---------------------------------------------------------------------------
@@ -349,6 +376,8 @@ def kernel_scene(dev, n: int = 20000, seed: int = 1, tile=None) -> dict:
     sc = splat_args(xyz, scale, quat, opacity, cam, dc=dc, sh_rest=sh_rest, sh_degree=3,
                     tile_h=tile_h, tile_w=tile_w,
                     max_tiles_per_gaussian=cfg.max_tiles_per_gaussian, max_total_splats=4 * n)
+    sc["inputs"] = dict(xyz=xyz, scale=scale, quat=quat, opacity=opacity, camera=cam, dc=dc,
+                        sh_rest=sh_rest, sh_degree=3, active=None)
     g = sc["grid"]
     sc["dl"] = torch.as_tensor(rng.normal(size=(3, g.padded_height, g.padded_width)) * 1e-3,
                                **f32)
@@ -366,9 +395,13 @@ def step_scene(state: dict, idx: int = 1) -> dict:
     from gaussian_lic_tpu_torch.utils.synthetic import splat_args
 
     cfg, intr, gm, kf = state["cfg"], state["intr"], state["gm"], state["kf"]
-    sc = splat_args(gm.xyz, gm.scaling, gm.rotation, gm.opacity, kf.camera(intr, idx),
+    inputs = dict(xyz=gm.xyz, scale=gm.scaling, quat=gm.rotation, opacity=gm.opacity,
+                  camera=kf.camera(intr, idx), dc=gm.dc, sh_rest=gm.sh_rest,
+                  sh_degree=gm.sh_degree, active=gm.active_mask())
+    sc = splat_args(*(inputs[k] for k in ("xyz", "scale", "quat", "opacity", "camera")),
                     dc=gm.dc, sh_rest=gm.sh_rest, sh_degree=gm.sh_degree,
-                    active=gm.active_mask(), **_render_kw(cfg, gm.capacity))
+                    active=inputs["active"], **_render_kw(cfg, gm.capacity))
+    sc["inputs"] = inputs
     g = sc["grid"]
     color = blend.blend_forward_plain(sc["splats"], sc["starts"], sc["lens"], n_tx=g.n_tx,
                                       n_ty=g.n_ty, tile_h=g.tile_h, tile_w=g.tile_w)[0]
@@ -525,6 +558,301 @@ def phase_kernels(dev, state: dict, rates: dict, n: int = 20000):
     log(f"[2] K2 at the train step: {step['backward'][1]:.4f} ms; in turns "
         f"{step_sc['k2_turns_ms']:.4f} beside K4 base {step_sc['k4_base_ms']:.4f} ms")
     return out, (light_sc, step_sc)
+
+
+# ---------------------------------------------------------------------------
+# phase 2c: the per-Gaussian kernels K5, K6, K7
+# ---------------------------------------------------------------------------
+
+PRE_FWD_RTOL = 1e-6        # K5 vs plain: rows and depth, of each column's max
+PRE_RADIUS_SHARE = 1e-4    # K5 vs plain: share of rows whose radius may differ, each by 1
+PRE_GRAD_RTOL = 1e-5       # K6 vs plain / autograd / float64 autograd, of each column's max
+EDGE_ROWS = ("nan_opacity", "behind", "det_zero", "clamp_x", "clamp_y", "sh_negative",
+             "inactive")
+# Quaternions whose norm is exact in any summation order (1, 2, 5), so K5's
+# norm and PyTorch's reduction agree and the needle's det is 0 in both.
+EXACT_QUATS = ((1, 1, 1, 1), (2, 1, 2, 4), (1, 2, 4, 2), (4, 2, 1, 2), (2, 4, 2, 1),
+               (1, 0, 0, 0), (3, 4, 0, 0))
+GROUP_FIELDS = (("xyz", "xyz"), ("dc", "dc"), ("sh_rest", "sh_rest"), ("opacity", "opacity"),
+                ("log_scale", "scale"), ("quat", "quat"))   # Adam group, its gradient
+
+
+def to_world(cam, pts):
+    """World points of camera-frame points (n, 3): R_cw^T (p - t_cw)."""
+    import torch
+
+    R, t = cam.pose.R_cw, cam.pose.t_cw
+    p = torch.as_tensor(pts, dtype=torch.float32, device=R.device) - t
+    return (R.transpose(0, 1)[None] * p[:, None, :]).sum(-1)
+
+
+def needle(cam, n: int = 4096, seed: int = 7):
+    """(xyz, scale, quat) of a needle (one scale 1e5-1e9, two 1e-3) whose
+    float32 EWA determinant is exactly 0 at camera `cam`, from n seeded
+    candidates; raises if none is."""
+    import torch
+
+    from gaussian_lic_tpu_torch.ops.projection import projection_terms
+
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(3.0, 8.0, n)
+    xyz = to_world(cam, np.stack([rng.uniform(-0.3, 0.3, n) * z,
+                                  rng.uniform(-0.3, 0.3, n) * z, z], 1))
+    f32 = dict(dtype=torch.float32, device=xyz.device)
+    scale = torch.as_tensor(np.stack([10.0 ** rng.uniform(5, 9, n), np.full(n, 1e-3),
+                                      np.full(n, 1e-3)], 1), **f32)
+    q = np.array(EXACT_QUATS, np.float64)[rng.integers(0, len(EXACT_QUATS), n)]
+    quat = torch.as_tensor(q * rng.choice([-1.0, 1.0], (n, 4)), **f32)
+    t = projection_terms(xyz, scale, quat, cam)
+    hit = torch.nonzero((t["det"] == 0) & t["in_front"])
+    if hit.numel() == 0:
+        raise AssertionError("no needle of the search has a float32 det of 0")
+    i = int(hit[0, 0])
+    return xyz[i], scale[i], quat[i]
+
+
+def with_edge_rows(inputs: dict) -> tuple:
+    """A copy of preprocess inputs whose rows 0, 2, .. 12 are the edge rows:
+    NaN opacity, behind the camera, det = 0, tx clamped, ty clamped, an SH
+    colour below 0, inactive. Returns (inputs, {edge: row})."""
+    import torch
+
+    x = {k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in inputs.items()}
+    cam, P = x["camera"], x["xyz"].shape[0]
+    if x["active"] is None:
+        x["active"] = torch.ones(P, dtype=torch.bool, device=x["xyz"].device)
+    rows = dict(zip(EDGE_ROWS, range(0, 2 * len(EDGE_ROWS), 2)))
+    x["opacity"][rows["nan_opacity"]] = float("nan")
+    x["xyz"][[rows["behind"], rows["clamp_x"], rows["clamp_y"]]] = to_world(
+        cam, [[0.3, -0.2, -3.0], [25.0, 0.5, 5.0], [0.5, -30.0, 6.0]])
+    r = rows["det_zero"]
+    x["xyz"][r], x["scale"][r], x["quat"][r] = needle(cam)
+    x["dc"][rows["sh_negative"]] = torch.tensor([-5.0, 0.2, -4.0])
+    x["opacity"][rows["inactive"]] = 0.8
+    x["active"][rows["inactive"]] = False
+    return x, rows
+
+
+def column_errors(got, want, rows: dict, leave_out=(), per_column=False):
+    """The largest error of `got` against `want`, each column relative to its
+    max |want| over the scene's rows, and each edge row relative to its own
+    max |want| (its values are orders of magnitude off the scene's); NaN
+    must be where `want` has NaN. With `per_column`, also the scene rows'
+    error of each column."""
+    import torch
+
+    got = got.detach().double().reshape(got.shape[0], -1)
+    want = want.detach().double().reshape(want.shape[0], -1)
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        raise AssertionError("NaN where the plain version has none, or none where it has")
+    got, want = got.nan_to_num(), want.nan_to_num()
+    edge = torch.zeros(got.shape[0], dtype=torch.bool, device=got.device)
+    edge[list(rows.values())] = True
+    cols = ((got[~edge] - want[~edge]).abs().amax(0)
+            / want[~edge].abs().amax(0).clamp_min(1e-30))
+    err = cols.max()
+    for name, r in rows.items():
+        if name not in leave_out:
+            err = torch.maximum(err, (got[r] - want[r]).abs().max()
+                                 / want[r].abs().max().clamp_min(1e-30))
+    return (float(err), cols.tolist()) if per_column else float(err)
+
+
+def scene_abs_err(got, want, rows: dict) -> float:
+    """max |got - want| over the rows that are not edge rows (those are held
+    relative to their own magnitude by column_errors)."""
+    import torch
+
+    keep = torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
+    keep[list(rows.values())] = False
+    return float((got[keep].double() - want[keep].double()).abs().max())
+
+
+def bit_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def plain_autograd(x: dict, g, dtype=None):
+    """The six gradients of the plain chain (the parent's main path) for the
+    rows' gradient g (P, 9), by autograd, in `dtype` (default: the inputs')."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaussian_lic_tpu_torch.camera import Camera, CameraPose
+    from gaussian_lic_tpu_torch.ops import preprocess as pre
+
+    cam = x["camera"]
+    if dtype is not None:
+        cam = Camera(cam.intr, CameraPose(cam.pose.R_cw.to(dtype), cam.pose.t_cw.to(dtype)),
+                     cam.full_proj.to(dtype))
+    leaves = [x[k].detach().to(dtype or x[k].dtype).requires_grad_(True)
+              for k in ("xyz", "scale", "quat", "opacity", "dc", "sh_rest")]
+    rows = pre.preprocess_forward_plain(*leaves[:4], cam, leaves[4], leaves[5],
+                                        x["sh_degree"], x["active"])["rows"]
+    cot = F.pad(g.to(rows.dtype), (0, rows.shape[1] - g.shape[1]))
+    return rows, leaves, cot, torch.autograd.grad(rows, leaves, cot, retain_graph=True)
+
+
+def check_preprocess(sc: dict, tag: str, f64: bool) -> dict:
+    """K5, K6 and K7 against their plain versions on scene `sc` of phase 2
+    with the edge rows (with_edge_rows); with `f64`, K6 and the float32
+    autograd also against a float64 autograd run of the plain chain.
+    Returns each kernel's (max abs error, ms, plain ms, bound ms)."""
+    import torch
+
+    from gaussian_lic_tpu_torch.ops import adam, blend, preprocess as pre, tiles
+    from gaussian_lic_tpu_torch.ops.rasterize import CHUNK
+    from gaussian_lic_tpu_torch.utils.cuda_timing import cuda_ms
+
+    x, rows = with_edge_rows(sc["inputs"])
+    P, deg, cam = x["xyz"].shape[0], x["sh_degree"], x["camera"]
+    geo = tuple(x[k] for k in ("xyz", "scale", "quat", "opacity"))
+    fargs = geo + (cam, x["dc"], x["sh_rest"], deg, x["active"])
+    k5 = pre.preprocess_forward(*fargs)
+    p5 = pre.preprocess_forward_plain(*fargs)
+    torch.cuda.synchronize()
+    e_rows, e_cols = column_errors(k5[0], p5["table"], rows, per_column=True)
+    e_depth = column_errors(k5[1][:, None], p5["depth"][:, None], rows)
+    d_rad = (k5[2] - p5["radius"]).abs()
+    n_rad = int((d_rad > 0).sum())
+    g = sc["grid"]
+    kw = dict(max_tiles_per_gaussian=16, max_total_splats=sc["splats"].shape[0], align=CHUNK)
+    lists = [tiles.bin_gaussians(t[:P, 0:2], d, t[:P, 2:5], x["opacity"], r, b, g, **kw)
+             for t, d, r, b in ((k5[0], k5[1], k5[2], k5[3]),
+                                (p5["table"], p5["depth"], p5["radius"], p5["base_active"]))]
+    n_sorted = int((lists[0].sorted_gauss != lists[1].sorted_gauss).sum())
+    log(f"[2c] {tag} K5: rows {e_rows:.3e} (the scene's columns "
+        + " ".join(f"{e:.2e}" for e in e_cols[:blend.N_ATTR])
+        + f"), depth {e_depth:.3e} of each column's max; radius "
+        f"differs on {n_rad} of {P} rows (at most {float(d_rad.max()):.0f}); base_active "
+        f"{'equal' if torch.equal(k5[3], p5['base_active']) else 'DIFFERS'}; sorted-list "
+        f"entries that differ {n_sorted} of {lists[0].sorted_gauss.numel()}")
+    if not (e_rows <= PRE_FWD_RTOL and e_depth <= PRE_FWD_RTOL
+            and n_rad <= PRE_RADIUS_SHARE * P and float(d_rad.max()) <= 1.0
+            and torch.equal(k5[3], p5["base_active"])):
+        raise AssertionError(f"{tag}: K5 disagrees with its plain version")
+    culled = [rows[k] for k in ("nan_opacity", "behind", "det_zero", "inactive")]
+    if bool(k5[3][culled].any()):
+        raise AssertionError(f"{tag}: a culled edge row is base_active: {k5[3][culled]}")
+
+    # K2's per-Gaussian gradient as K2 hands it over (a (P, 9) view of a
+    # 12-float table), the edge rows' set to seeded values
+    table = torch.zeros((P + 1, blend.GAUSS_TABLE_STRIDE), device=k5[0].device)
+    table[:P, :blend.N_ATTR] = sc["k2"]
+    edge = torch.as_tensor(np.random.default_rng(9).normal(size=(len(rows), blend.N_ATTR)),
+                           dtype=torch.float32, device=table.device)
+    table[list(rows.values()), :blend.N_ATTR] = edge * sc["k2"].abs().amax(0)
+    d_attrs = table[:P, :blend.N_ATTR]
+    bargs = geo + (cam, x["dc"], x["sh_rest"], deg, d_attrs)
+    k6 = pre.preprocess_backward(*bargs)
+    p6 = pre.preprocess_backward_plain(*bargs)
+    rows_t, leaves, cot, a6 = plain_autograd(x, d_attrs)
+    torch.cuda.synchronize()
+    e_k6_plain = max(column_errors(a, b, rows) for a, b in zip(k6, p6))
+    e_k6_auto = max(column_errors(a, b, rows) for a, b in zip(k6, a6))
+    msg = (f"[2c] {tag} K6: against the closed form {e_k6_plain:.3e}, against autograd "
+           f"{e_k6_auto:.3e} of each column's max")
+    worst = max(e_k6_plain, e_k6_auto)
+    if f64:
+        # the needle's float64 det is rounding noise (tests/test_torch_preprocess.py)
+        a64 = plain_autograd(x, d_attrs, torch.float64)[3]
+        e64 = [max(column_errors(a, b, rows, ("det_zero",)) for a, b in zip(got, a64))
+               for got in (k6, a6)]
+        msg += f"; against float64 autograd: K6 {e64[0]:.3e}, float32 autograd {e64[1]:.3e}"
+        worst = max(worst, *e64)
+        del a64
+    log(msg)
+    if not worst <= PRE_GRAD_RTOL:
+        raise AssertionError(f"{tag}: K6 disagrees beyond {PRE_GRAD_RTOL}")
+
+    # K7 on the six groups of this scene: K6's gradients, seeded moments
+    rng = np.random.default_rng(13)
+    params = {name: (torch.log(x[f]) if name == "log_scale" else x[f]).contiguous()
+              for name, f in GROUP_FIELDS}
+    grads = dict(zip(("xyz", "log_scale", "quat", "opacity", "dc", "sh_rest"), k6))
+    states = {name: adam.AdamState(
+        torch.as_tensor(rng.normal(size=p.shape) * 1e-3, dtype=torch.float32, device=p.device),
+        torch.as_tensor(np.abs(rng.normal(size=p.shape)) * 1e-6, dtype=torch.float32,
+                        device=p.device)) for name, p in params.items()}
+    visible = (k5[2] > 0) & x["active"]
+    lrs = dict(xyz=1.6e-4, dc=2.5e-3, sh_rest=1.25e-4, opacity=0.05, log_scale=5e-3, quat=1e-3)
+    k7 = adam.sparse_adam_update_groups(params, grads, states, visible, lrs)
+
+    def plain7():
+        out = {n: adam.sparse_adam_update(params[n], grads[n], states[n], visible, lrs[n])
+               for n in params}
+        return {n: o[0] for n, o in out.items()}, {n: o[1] for n, o in out.items()}
+
+    p7 = plain7()
+    same = all(bit_equal(k7[0][n], p7[0][n]) and bit_equal(k7[1][n].exp_avg, p7[1][n].exp_avg)
+               and bit_equal(k7[1][n].exp_avg_sq, p7[1][n].exp_avg_sq) for n in params)
+    log(f"[2c] {tag} K7: {'bit for bit' if same else 'DIFFERS from'} the plain loop "
+        f"({int(visible.sum())} of {P} rows visible)")
+    if not same:
+        raise AssertionError(f"{tag}: K7 differs from the plain loop")
+
+    nbytes = preprocess_bytes(P, x["sh_rest"].shape[1])
+    res = {
+        "preprocess_forward": (
+            max(scene_abs_err(k5[0][:P], p5["table"][:P], rows),
+                scene_abs_err(k5[1], p5["depth"], rows)),
+            cuda_ms(lambda: pre.preprocess_forward(*fargs), 20),
+            cuda_ms(lambda: pre.preprocess_forward_plain(*fargs), 20), nbytes["forward"]),
+        "preprocess_backward": (
+            max(scene_abs_err(a, b, rows) for a, b in zip(k6, a6)),
+            cuda_ms(lambda: pre.preprocess_backward(*bargs), 20),
+            cuda_ms(lambda: torch.autograd.grad(rows_t, leaves, cot, retain_graph=True), 20),
+            nbytes["backward"]),
+        "sparse_adam": (
+            0.0, cuda_ms(lambda: adam.sparse_adam_update_groups(params, grads, states,
+                                                                visible, lrs), 20),
+            cuda_ms(plain7, 20), nbytes["adam"]),
+    }
+    for k, (_, tk, tp, nb) in res.items():
+        log(f"[2c] {tag} time {k}: kernel {tk:.4f} ms  plain {tp:.4f} ms  bound "
+            f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes)")
+    return res
+
+
+def preprocess_bytes(P: int, S: int) -> dict:
+    """Bytes K5, K6 and K7 must move for P Gaussians of S SH rest
+    coefficients: each input read once, each output written once. K5 reads
+    xyz, scale, quat, opacity, dc, sh_rest and the active flag and writes the
+    16-float row, depth, radius and base_active (and the zero row); K6 reads
+    the nine row gradients and the inputs but opacity and writes the six
+    gradients; K7 reads p, g, m, v and writes p', m', v' of 14 + 3 S floats
+    a row, and reads the mask."""
+    inputs = 4 * (3 + 3 + 4 + 1 + 3 + 3 * S)
+    return dict(forward=P * (inputs + 1 + 4 * 16 + 4 + 4 + 1) + 4 * 16,
+                backward=P * (4 * 9 + (inputs - 4) + inputs),
+                adam=P * (4 * 7 * (14 + 3 * S) + 1))
+
+
+def phase_preprocess(scenes) -> list:
+    """K5, K6 and K7 on phase 2's 20k scene (K6 also against float64
+    autograd) and on the 1M train step's inputs; the kernels line's rows,
+    with the train step's times and bounds."""
+    light = check_preprocess(scenes[0], f"{scenes[0]['n_gauss']}-Gaussian scene", f64=True)
+    step = check_preprocess(scenes[1], f"{scenes[1]['n_gauss']}-Gaussian train step",
+                            f64=False)
+    src = "gaussian_lic_tpu_torch/csrc/"
+    chain = ("gaussian_lic_tpu/ops/projection.py:77 + ops/sh.py:47 + "
+             "ops/rasterize.py:78")
+    rows = [("preprocess_forward", "preprocess_forward.cu", chain),
+            ("preprocess_backward", "preprocess_backward.cu", "autodiff of " + chain),
+            ("sparse_adam", "sparse_adam.cu", "gaussian_lic_tpu/ops/adam.py:40")]
+    out = []
+    for name, cu, replaces in rows:
+        err, ms, plain_ms, nb = step[name]
+        out.append(dict(name=name, route="cuda", source=src + cu, replaces=replaces,
+                        counter=name, max_abs_err=max(err, light[name][0]), ms=ms,
+                        plain_ms=plain_ms, bound_ms=nb / HBM_BYTES_PER_S * 1e3,
+                        bound_by="bytes", library_ms=None))
+        log(f"[2c] {name}: {ms:.4f} ms against a bound of {out[-1]['bound_ms']:.4f} ms "
+            f"(bytes), plain {plain_ms:.4f} ms")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -777,7 +1105,6 @@ def phase_slice(dev, kernels: list, n_points: int = 50000, n_frames: int = 40,
                 points_per_frame: int = 5000) -> dict:
     from gaussian_lic_tpu_torch.camera import Intrinsics
     from gaussian_lic_tpu_torch.config import Params, load_params
-    from gaussian_lic_tpu_torch.ops import blend
     from gaussian_lic_tpu_torch.utils.synthetic import make_sequence, make_world
 
     cfg = load_params(CONFIG, skybox_points_num=0)
@@ -790,9 +1117,9 @@ def phase_slice(dev, kernels: list, n_points: int = 50000, n_frames: int = 40,
     log(f"[3] stream: {n_frames} frames of {cfg.width}x{cfg.height}, {n_points}-point "
         f"world, {points_per_frame} points/frame ({time.perf_counter() - t0:.2f} s to build)")
 
-    blend.reset_launches()
+    reset_launches()
     eng, rows = run_engine(cfg, frames, dev, verbose=True)
-    launches = dict(blend.LAUNCHES)
+    launches = kernel_launches()
     log(f"[3] launches in the stream: {launches}")
     log(f"[3] bundles: compiles {eng.timers.compiles}; {graph_line(eng.graphs)}")
 
@@ -874,11 +1201,11 @@ def bundle_turns(dev, card: str, tag: str, what: str, step, make_bundle, graphs,
     turns (eager, bundle, bundle, eager) after an untimed pass that
     captures the graphs. Each turn starts from the same state and keyframe
     ids; its window ends in synchronize() and the loss's host fetch. The
-    bundles' losses must lie within the eager runs' spread, and their K1/K2
-    launches must equal the eager loop's."""
+    bundles' losses must lie within the eager runs' spread, every turn must
+    launch one K1, K5, K6 and K7 a step, and the bundles' launches must
+    equal the eager loop's."""
     import torch
 
-    from gaussian_lic_tpu_torch.ops import blend
 
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated(dev)
@@ -902,13 +1229,13 @@ def bundle_turns(dev, card: str, tag: str, what: str, step, make_bundle, graphs,
     def turn(fn) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        blend.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         m = fn()
         torch.cuda.synchronize()
         loss = float(m["loss"])
         dt = time.perf_counter() - t0
-        return dict(ms=dt / steps * 1e3, loss=loss, launches=dict(blend.LAUNCHES),
+        return dict(ms=dt / steps * 1e3, loss=loss, launches=kernel_launches(),
                     peak=torch.cuda.max_memory_allocated(dev),
                     reserved=torch.cuda.memory_reserved(dev), budget_lost=int(m["budget_lost"]),
                     truncated=int(m["truncated"]), n_visible=int(m["n_visible"]))
@@ -938,8 +1265,11 @@ def bundle_turns(dev, card: str, tag: str, what: str, step, make_bundle, graphs,
     if gap > tol:
         raise AssertionError("the bundles' loss lies outside the eager runs' spread")
     want = runs[0][1]["launches"]
-    if want["forward"] != steps or any(r["launches"] != want for _, r in runs + [("", first)]):
-        raise AssertionError("the bundles' K1/K2 launches differ from the eager loop's: "
+    once = ("forward", "preprocess_forward", "preprocess_backward", "sparse_adam")
+    if (any(want[k] != steps for k in once)
+            or any(r["launches"] != want for _, r in runs + [("", first)])):
+        raise AssertionError(f"the launches are not one K1, K5, K6 and K7 a step, or the "
+                             f"bundles' differ from the eager loop's: "
                              + str([r["launches"] for _, r in runs]))
     ms = {name: [r["ms"] for nm, r in runs if nm == name] for name in ("eager", "bundle")}
     return dict(ms_per_step=ms, losses=dict(eager=eager_l, bundle=bundle_l), first=first,
@@ -973,7 +1303,6 @@ def recording_engine(rec: dict):
     stream (the first call of measure_phase_split or finalize), the phase
     split, and finalize's seconds, launches and results."""
     from gaussian_lic_tpu_torch.engine.trainer import MappingEngine
-    from gaussian_lic_tpu_torch.ops import blend
 
     def make(*args, **kw):
         eng = MappingEngine(*args, **kw)
@@ -982,7 +1311,7 @@ def recording_engine(rec: dict):
 
         def stream_end():
             if rec["stream_launches"] is None:
-                rec["stream_launches"] = dict(blend.LAUNCHES)
+                rec["stream_launches"] = kernel_launches()
 
         def timed_add_frame(frame):
             t0 = time.perf_counter()
@@ -998,11 +1327,11 @@ def recording_engine(rec: dict):
 
         def recorded_finalize():
             stream_end()
-            before = dict(blend.LAUNCHES)
+            before = kernel_launches()
             t0 = time.perf_counter()
             rec["results"] = finalize()   # ends in host copies (metrics, PLY)
             rec["finalize_seconds"] = time.perf_counter() - t0
-            rec["eval_launches"] = {k: blend.LAUNCHES[k] - v for k, v in before.items()}
+            rec["eval_launches"] = {k: kernel_launches()[k] - v for k, v in before.items()}
             return rec["results"]
 
         eng.add_frame, eng.measure_phase_split, eng.finalize = (
@@ -1085,14 +1414,13 @@ def small_app_stream(path: str) -> str:
 def phase_app(dev, card: str, frames, tmp: str, config: str = CONFIG) -> dict:
     from gaussian_lic_tpu_torch.config import load_params
     from gaussian_lic_tpu_torch.io.ply import load_ply
-    from gaussian_lic_tpu_torch.ops import blend
 
     sky = load_params(config).skybox_points_num   # 100000 in fastlivo.yaml
     stream = os.path.join(tmp, "stream")
     write_stream(frames, stream)
     out = os.path.join(tmp, "out")
     ckpt = os.path.join(tmp, "ckpt.npz")
-    blend.reset_launches()
+    reset_launches()
     rec = run_app(["--input", stream, "--config", config, "--lpips-path", "randinit",
                    "--result-path", out, "--checkpoint", ckpt, "--phase-timers",
                    "--device", str(dev)], "fastlivo.yaml application")
@@ -1396,7 +1724,6 @@ def phase_sharded(dev, card: str, slice_res: dict, app_res: dict, tmp: str) -> d
     import torch
     import torch.distributed as dist
 
-    from gaussian_lic_tpu_torch.ops import blend
     from gaussian_lic_tpu_torch.parallel import make_mesh
 
     t0 = time.perf_counter()
@@ -1422,9 +1749,9 @@ def phase_sharded(dev, card: str, slice_res: dict, app_res: dict, tmp: str) -> d
     log(f"[6c] seconds {time.perf_counter() - t0:.2f}")
 
     t0 = time.perf_counter()
-    blend.reset_launches()
+    reset_launches()
     eng, _ = run_engine(slice_res["cfg"], slice_res["frames"], dev, verbose=False, mesh=mesh)
-    launches = dict(blend.LAUNCHES)
+    launches = kernel_launches()
     psnr = engine_train_psnr(eng)
     log(f"[6d] engine on the mesh over phase 3's stream: train PSNR {psnr:.4f} dB against "
         f"{slice_res['train_psnr']:.4f} single-device; gaussians {int(eng.gm.count)}; "
@@ -1589,13 +1916,12 @@ def run_soak(dev, tmp: str, frames: int = SOAK_FRAMES, extra=()) -> dict:
     """(b) tools/soak_torch.py through its own main() at the production
     config (skybox 100,000, K = 16, 100 iterations a keyframe), launch
     counters zeroed just before and read just after."""
-    from gaussian_lic_tpu_torch.ops import blend
 
     out = os.path.join(tmp, "soak.json")
-    blend.reset_launches()
+    reset_launches()
     rc = load_tool("soak_torch").main(["--frames", str(frames), "--device", str(dev),
                                        "--out", out, *extra])
-    launches = dict(blend.LAUNCHES)
+    launches = kernel_launches()
     with open(out) as f:
         summary = json.load(f)["summary"]
     log(f"[7b] soak exit code {rc}; launches {launches}; compiles {summary['recompiles']}")
@@ -1693,6 +2019,9 @@ def main() -> int:
         f"{state['rates']['hz'] / 1e6:.0f} MHz")
     kernels, scenes = phase_kernels(dev, state, state["rates"])
     log(f"[2] phase seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    kernels += phase_preprocess(scenes)
+    log(f"[2c] phase seconds {time.perf_counter() - t0:.2f}")
     t0 = time.perf_counter()
     probes = phase_probes(state, scenes)
     del scenes

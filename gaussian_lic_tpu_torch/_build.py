@@ -37,7 +37,18 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
+    # xyz, scale, quat, opacity, dc, sh_rest, active, R_cw, t_cw, full_proj,
+    # cam_center, P, S, deg, no_color, W, H, fx, fy, limx_neg, limx_pos,
+    # limy_neg, limy_pos, table, depth, radius, base_active, stream
+    "glic_preprocess_forward": (_VP,) * 11 + (_LL, _I, _I, _I) + (_F,) * 8 + (_VP,) * 5,
+    # xyz, scale, quat, dc, sh_rest, R_cw, t_cw, full_proj, cam_center,
+    # d_attrs, d_stride, P, S, deg, W, H, fx, fy, limits (4), d_xyz, d_scale,
+    # d_quat, d_opacity, d_dc, d_sh_rest, stream
+    "glic_preprocess_backward": (_VP,) * 10 + (_LL, _LL, _I, _I) + (_F,) * 8 + (_VP,) * 7,
+    # groups, n_groups, total, visible, b1, 1 - b1, b2, 1 - b2, eps, stream
+    "glic_sparse_adam": (_VP, _I, _LL, _VP) + (_F,) * 5 + (_VP,),
     # rows, m_pad, starts, lens, color, final_t, n_contrib,
     # n_tx, n_ty, tile_w, tile_h, no_color, stream
     "glic_blend_forward": (_VP, _LL, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),

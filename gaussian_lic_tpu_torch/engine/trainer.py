@@ -6,7 +6,7 @@ thread, mapping.cpp:124-200, and gaussian.cpp:499-719):
   * `train_step` — render (tiled rasterizer, CUDA blend kernels on the card)
     -> 0.8*L1 + 0.2*(1-SSIM) (gaussian.cpp:691), plus the erank term when
     `lambda_erank > 0` -> autograd backward -> visibility-masked sparse Adam
-    on all six groups (optim_utils.h).
+    on all six groups (optim_utils.h; K7, one launch, on the card).
   * `extend_step` — densification (extend, gaussian.cpp:499-638): alpha-only
     render of the newest keyframe, project the accumulated LiDAR points,
     per-pixel min-depth dedup on the device with two stable sorts, filter
@@ -60,13 +60,15 @@ from gaussian_lic_tpu_torch.models.gaussians import (
     point_attributes,
 )
 from gaussian_lic_tpu_torch.ops import adam as adam_ops
-from gaussian_lic_tpu_torch.ops import blend, losses
+from gaussian_lic_tpu_torch.ops import blend, losses, preprocess
 from gaussian_lic_tpu_torch.ops.erank import erank_regularizer
 from gaussian_lic_tpu_torch.ops.rasterize import _splat_budget_for, render_map
 from gaussian_lic_tpu_torch.utils.cuda_timing import cuda_ms
 from gaussian_lic_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 PARAM_GROUPS = ("xyz", "dc", "sh_rest", "opacity", "log_scale", "quat")
+# The launch counters of the kernels a train step runs (K1/K2, K5/K6, K7).
+KERNEL_LAUNCHES = (blend.LAUNCHES, preprocess.LAUNCHES, adam_ops.LAUNCHES)
 MAP_FIELDS = ("xyz", "dc", "sh_rest", "log_scale", "quat", "opa_logit", "count", "exposure")
 
 Device = Union[str, torch.device]
@@ -137,16 +139,10 @@ def train_step(
         xyz=lrs.xyz, dc=lrs.dc, sh_rest=lrs.sh_rest,
         opacity=lrs.opacity, log_scale=lrs.log_scale, quat=lrs.quat,
     )
-    new_trainable = {}
-    new_opt = {}
     with torch.no_grad():
-        for name in PARAM_GROUPS:
-            p, st = adam_ops.sparse_adam_update(
-                trainable[name].detach(), grads[name], opt_state[name], visible,
-                lr_map[name],
-            )
-            new_trainable[name] = p
-            new_opt[name] = st
+        new_trainable, new_opt = adam_ops.sparse_adam_update_groups(
+            {name: trainable[name].detach() for name in PARAM_GROUPS}, grads,
+            {name: opt_state[name] for name in PARAM_GROUPS}, visible, lr_map)
         gm_new = gm.with_trainable(new_trainable)
         if cfg.apply_exposure:
             exp_p, exp_st = adam_ops.dense_adam_update(
@@ -231,11 +227,11 @@ class BundleGraphs:
     stream (a warm-up: it loads the kernels and starts autograd's device
     thread, which a capture must not do); train_step writes none of its
     inputs and its outputs are dropped, so the set does not advance.
-    `blend.LAUNCHES` counts the launches whose results the run uses: each
-    graph records the K1/K2 launches of its capture (which executes
-    nothing) and adds them at every replay; the warm-up's are set aside in
-    `warmup_launches`. A capture or replay that fails raises: nothing here
-    falls back to the eager steps. `captures` holds (k, seconds, bytes the
+    The kernels' counters (`KERNEL_LAUNCHES`: K1/K2, K5/K6, K7) count the
+    launches whose results the run uses: each graph records the launches
+    of its capture (which executes nothing) and adds them at every replay;
+    the warm-up's are set aside in `warmup_launches`. A capture or replay
+    that fails raises: nothing here falls back to the eager steps. `captures` holds (k, seconds, bytes the
     set's pool reserves after it) per capture.
 
     A sharded step's set (`mesh` given) is this rank's shard; its graphs
@@ -254,7 +250,7 @@ class BundleGraphs:
         self.pool = None
         self.pool_bytes = 0
         self.captures: List[tuple] = []
-        self.warmup_launches = dict.fromkeys(blend.LAUNCHES, 0)
+        self.warmup_launches = {k: 0 for c in KERNEL_LAUNCHES for k in c}
 
     def run(self, step: Step, cfg: Params, k: int, gm: GaussianMap, opt_state: dict,
             kf: KeyframeBuffer, idxs, es0, mesh=None):
@@ -282,8 +278,9 @@ class BundleGraphs:
         graph, ids, outs, launches = self.captured[k]
         ids.copy_(torch.as_tensor(idxs, device=gm.device))
         graph.replay()
-        for name, n in launches.items():
-            blend.LAUNCHES[name] += n
+        for counter in KERNEL_LAUNCHES:
+            for name in counter:
+                counter[name] += launches[name]
         gm_s, opt_s = self._static(gm, opt_state)
         return gm_s, opt_s, {name: t.clone() for name, t in outs.items()}
 
@@ -315,7 +312,7 @@ class BundleGraphs:
         if not self.captured:
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side), blend.launches_apart() as warm:
+            with torch.cuda.stream(side), blend.launches_apart(*KERNEL_LAUNCHES) as warm:
                 _run_steps(step, gm_s, opt_s, kf, ids[:1], self.state["es0"])
             torch.cuda.current_stream(dev).wait_stream(side)
             for name, n in warm.items():
@@ -331,7 +328,7 @@ class BundleGraphs:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         try:
-            with blend.launches_apart() as launches:
+            with blend.launches_apart(*KERNEL_LAUNCHES) as launches:
                 with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
                     # entering synchronised and emptied the cache: what the
                     # allocator reserves from here on is this capture's pool

@@ -86,19 +86,22 @@ def reset_launches() -> None:
 
 
 @contextlib.contextmanager
-def launches_apart():
-    """Takes the launches counted inside the block out of LAUNCHES and puts
-    them in the dict it yields, when the block ends. A CUDA graph's capture
-    runs the wrappers but executes nothing: its graph adds what it recorded
-    at each replay (engine/trainer.py, BundleGraphs)."""
-    before = dict(LAUNCHES)
+def launches_apart(*counters):
+    """Takes the launches counted inside the block out of `counters` (launch
+    dicts with distinct keys; default LAUNCHES) and puts them in the dict it
+    yields, when the block ends. A CUDA graph's capture runs the wrappers
+    but executes nothing: its graph adds what it recorded at each replay
+    (engine/trainer.py, BundleGraphs)."""
+    counters = counters or (LAUNCHES,)
+    before = [dict(c) for c in counters]
     apart: dict = {}
     try:
         yield apart
     finally:
-        for k in LAUNCHES:
-            apart[k] = LAUNCHES[k] - before[k]
-            LAUNCHES[k] = before[k]
+        for c, b in zip(counters, before):
+            for k in c:
+                apart[k] = c[k] - b[k]
+                c[k] = b[k]
 
 
 # ---------------------------------------------------------------------------

@@ -56,6 +56,13 @@ def eval_sh_color(
     the active degree uses — extras are ignored, as in the reference where
     sh_degree gates the polynomial order.
     """
+    return torch.clamp_min(sh_color_unclamped(deg, dc, sh_rest, dirs), 0.0)
+
+
+def sh_color_unclamped(deg: int, dc: torch.Tensor, sh_rest: torch.Tensor,
+                       dirs: torch.Tensor) -> torch.Tensor:
+    """`eval_sh_color` before its clamp at 0: the closed-form backward
+    (ops/preprocess.py) masks the colour gradient where this is negative."""
     d = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-12)
     result = SH_C0 * dc
     if deg > 0:
@@ -90,5 +97,4 @@ def eval_sh_color(
                     + SH_C3[5] * z * (xx - yy) * sh_rest[..., 13, :]
                     + SH_C3[6] * x * (xx - 3.0 * yy) * sh_rest[..., 14, :]
                 )
-    result = result + 0.5
-    return torch.clamp_min(result, 0.0)
+    return result + 0.5

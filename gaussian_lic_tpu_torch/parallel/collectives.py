@@ -7,6 +7,7 @@ the transpose JAX's AD derives.
   * `all_gather` (dim 0) -> its backward is a reduce-scatter (sum): each
     rank's cotangent of the gathered tensor is summed over the ranks and the
     owner keeps its slice (JAX: all_gather's transpose, psum_scatter).
+    `gather_grad` is that backward alone, for rows gathered without autograd.
   * `halo_exchange` -> the top HALO rows of a band go to rank - 1 and the
     bottom rows to rank + 1, zeros where the image ends (JAX: ppermute); the
     backward sends each halo cotangent back to the rank that owns the rows.
@@ -54,6 +55,24 @@ class _AllGather(torch.autograd.Function):
 def all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
     """Differentiable gather along dim 0; the backward reduce-scatters."""
     return _AllGather.apply(x, mesh)
+
+
+class _GatherGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.new_zeros(()).expand((mesh.size * x.shape[0],) + tuple(x.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim0(g, ctx.mesh), None
+
+
+def gather_grad(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A zero-strided (D * n, ...) stand-in for the gather of `x` (nothing is
+    sent) whose backward is all_gather's, a reduce-scatter: the gradient of
+    rows gathered by `gather_dim0` (ops/preprocess.py's `Splats.attrs`)."""
+    return _GatherGrad.apply(x, mesh)
 
 
 def all_reduce_sum(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -10,10 +10,11 @@ design inside `jax.shard_map` over a `jax.sharding.Mesh`:
     (8,128).
   * Sharded map: each rank holds rows [r C/D, (r+1) C/D) of every Gaussian
     tensor and of the Adam moments (C the capacity); preprocess (projection,
-    EWA, SH) and sparse Adam run on the shard.
+    EWA, SH: K5/K6 on the card) and sparse Adam (K7) run on the shard.
   * One all_gather of the packed (C/D, 16) splat rows gives every band owner
-    the whole table; its backward, a reduce-scatter, sums every band's
-    gradient into the owner's shard (JAX: the all_gather transpose).
+    the whole table; the reduce-scatter of the rows' (C, 9) gradient
+    (`gather_grad`) sums every band's gradient into the owner's shard (JAX:
+    the all_gather transpose).
   * Distributed binning (`bin_gaussians_sharded`): each rank enumerates and
     culls the tile slots of its Gaussian shard with GLOBAL tile ids, one sort
     groups them by destination band, fixed-size buckets of m_pair entries go
@@ -51,16 +52,13 @@ from gaussian_lic_tpu_torch.engine.trainer import PARAM_GROUPS, BundleGraphs, _b
 from gaussian_lic_tpu_torch.models.gaussians import GaussianMap, LearningRates
 from gaussian_lic_tpu_torch.ops import adam as adam_ops
 from gaussian_lic_tpu_torch.ops import losses
-from gaussian_lic_tpu_torch.ops import sh as sh_ops
 from gaussian_lic_tpu_torch.ops import tiles as tiles_ops
 from gaussian_lic_tpu_torch.ops.blend import ROW_Y, SPLAT_ROWS
 from gaussian_lic_tpu_torch.ops.erank import erank_regularizer
-from gaussian_lic_tpu_torch.ops.projection import OPACITY_THRESHOLD, project_gaussians
-from gaussian_lic_tpu_torch.ops.rasterize import (
-    CHUNK, _Blend, _pack_rows, _splat_budget_for, expose,
-)
+from gaussian_lic_tpu_torch.ops.preprocess import preprocess
+from gaussian_lic_tpu_torch.ops.rasterize import CHUNK, _Blend, _splat_budget_for, expose
 from gaussian_lic_tpu_torch.parallel.collectives import (
-    all_gather, all_reduce_sum, gather_dim0, halo_exchange,
+    all_gather, all_reduce_sum, gather_dim0, gather_grad, halo_exchange,
 )
 from gaussian_lic_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -238,14 +236,11 @@ def render_band(
     intr = camera.intr
     grid = tiles_ops.TileGrid(width=intr.width, height=intr.height, tile_w=tile_w,
                               tile_h=tile_h)
-    proj = project_gaussians(xyz, scale, quat, camera)
-    base_active = proj.in_front & proj.det_valid & (opacity >= OPACITY_THRESHOLD) & active
-    radius = torch.where(base_active, proj.radius, torch.zeros_like(proj.radius))
-    visible = radius > 0.0
-    rgb = sh_ops.eval_sh_color(sh_degree, dc, sh_rest, xyz - camera.cam_center)
+    s = preprocess(xyz, scale, quat, opacity, camera, dc=dc, sh_rest=sh_rest,
+                   sh_degree=sh_degree, active=active)
+    visible = s.radius > 0.0
 
-    detached = (proj.xy.detach(), proj.depth.detach(), proj.conic.detach(),
-                opacity.detach(), radius.detach(), base_active)
+    detached = (s.xy, s.depth, s.conic, opacity.detach(), s.radius, s.base_active)
     if mesh is not None and mesh.size > 1:
         sorted_gauss, tile_starts, tile_lens, _, _, budget_lost, truncated = (
             bin_gaussians_sharded(
@@ -264,14 +259,21 @@ def render_band(
         )
         sorted_gauss, tile_starts, tile_lens = b.sorted_gauss, b.tile_starts, b.tile_lens
         budget_lost, truncated = b.budget_lost, b.truncated
-    # the kernels take band-local pixel coordinates: shift y by the band's
-    # first pixel row (a constant, transparent to the gradient)
-    y_off = float(band_ty0 * tile_h)
-    xy_local = proj.xy - proj.xy.new_tensor([0.0, y_off])
-    rows = _pack_rows(xy_local, proj.conic, opacity, rgb)
-    color, final_t, _ = _Blend.apply(rows, sorted_gauss, tile_starts, tile_lens,
-                                     _band_grid(grid, band_n_ty))
+    table = _band_table(s.table[:-1], float(band_ty0 * tile_h))
+    color, final_t, _ = _Blend.apply(s.attrs, sorted_gauss, tile_starts, tile_lens,
+                                     _band_grid(grid, band_n_ty), table)
     return color, final_t, visible, budget_lost, truncated
+
+
+def _band_table(rows: torch.Tensor, y_off: float) -> torch.Tensor:
+    """(P+1, 16): splat rows (P, 16) in band-local pixel coordinates (y
+    shifted by the band's first pixel row, a constant transparent to the
+    gradient) and the dead id's zero row. The shift is made on the device:
+    a host-to-device copy is refused inside a CUDA graph capture."""
+    table = rows.new_zeros((rows.shape[0] + 1, SPLAT_ROWS))
+    shift = torch.where(torch.arange(SPLAT_ROWS, device=rows.device) == ROW_Y, -y_off, 0.0)
+    torch.add(rows, shift, out=table[:-1])
+    return table
 
 
 def _band_geometry(intr: Intrinsics, cfg: Params, n_dev: int):
@@ -358,26 +360,22 @@ def make_sharded_train_step(intr: Intrinsics, cfg: Params, mesh: Mesh,
         quat = trainable["quat"]
         rot = quat / (torch.linalg.norm(quat, dim=-1, keepdim=True) + 1e-12)
         opa = torch.sigmoid(trainable["opacity"])
-        proj = project_gaussians(xyz, scaling, rot, cam)
-        base_active = proj.in_front & proj.det_valid & (opa >= OPACITY_THRESHOLD) & active_s
-        radius = torch.where(base_active, proj.radius, torch.zeros_like(proj.radius))
-        visible_s = radius > 0.0
-        rgb = sh_ops.eval_sh_color(gm_s.sh_degree, trainable["dc"], trainable["sh_rest"],
-                                   xyz - cam.cam_center)
-        rows_full = all_gather(_pack_rows(proj.xy, proj.conic, opa, rgb), mesh)
-        # shift splat y into this band's pixel rows (made on the device: a
-        # host-to-device copy is refused inside a CUDA graph capture)
-        shift = torch.where(torch.arange(SPLAT_ROWS, device=dev) == ROW_Y, -y_off, 0.0)
-        rows_band = rows_full + shift
+        s = preprocess(xyz, scaling, rot, opa, cam, dc=trainable["dc"],
+                       sh_rest=trainable["sh_rest"], sh_degree=gm_s.sh_degree, active=active_s)
+        visible_s = s.radius > 0.0
+        # every rank's rows, shifted into this band's pixel rows; the rows'
+        # gradient goes back to its shard through gather_grad's reduce-scatter
+        table = _band_table(gather_dim0(s.table[:-1], mesh), y_off)
+        attrs = gather_grad(s.attrs, mesh)
 
         sorted_gauss, tile_starts, tile_lens, _, _, budget_lost, truncated = (
             bin_gaussians_sharded(
-                proj.xy.detach(), proj.depth.detach(), proj.conic.detach(), opa.detach(),
-                radius.detach(), base_active, grid, mesh=mesh, band_n_ty=band_n_ty,
-                max_tiles_per_gaussian=K, m_pair=m_pair, align=CHUNK, sharded_inputs=True,
+                s.xy, s.depth, s.conic, opa.detach(), s.radius, s.base_active, grid,
+                mesh=mesh, band_n_ty=band_n_ty, max_tiles_per_gaussian=K, m_pair=m_pair,
+                align=CHUNK, sharded_inputs=True,
             ))
-        color_l, _, _ = _Blend.apply(rows_band, sorted_gauss, tile_starts, tile_lens,
-                                     band_grid)
+        color_l, _, _ = _Blend.apply(attrs, sorted_gauss, tile_starts, tile_lens, band_grid,
+                                     table)
         if band_loss:
             # the band's loss part after a HALO-row exchange with the
             # neighbours (zeros at the image's edges: SSIM's zero padding)
@@ -409,11 +407,9 @@ def make_sharded_train_step(intr: Intrinsics, cfg: Params, mesh: Mesh,
 
         visible_s = visible_s & active_s
         with torch.no_grad():
-            new_trainable, new_opt = {}, {}
-            for name in PARAM_GROUPS:
-                new_trainable[name], new_opt[name] = adam_ops.sparse_adam_update(
-                    trainable[name].detach(), grads[name], opt_state[name], visible_s,
-                    lr_map[name])
+            new_trainable, new_opt = adam_ops.sparse_adam_update_groups(
+                {name: trainable[name].detach() for name in PARAM_GROUPS}, grads,
+                {name: opt_state[name] for name in PARAM_GROUPS}, visible_s, lr_map)
             gm_new = gm_s.with_trainable(new_trainable)
             # one sum over the ranks: loss, counters and the exposure gradient
             sums = [loss.detach().double().reshape(1),

@@ -159,8 +159,8 @@ def splat_args(xyz, scale, quat, opacity, cam, **kw) -> dict:
     from gaussian_lic_tpu_torch.ops.rasterize import _gather_splats, splat_inputs
 
     with torch.no_grad():
-        grid, rows, b, _ = splat_inputs(xyz, scale, quat, opacity, cam, **kw)
-        splats = _gather_splats(rows, b.sorted_gauss)
+        grid, _, table, b, _ = splat_inputs(xyz, scale, quat, opacity, cam, **kw)
+        splats = _gather_splats(table, b.sorted_gauss)
     return dict(splats=splats.contiguous(), starts=b.tile_starts, lens=b.tile_lens,
                 sorted_gauss=b.sorted_gauss, n_gauss=xyz.shape[0], grid=grid,
                 live=int(b.num_valid), lost=int(b.overflow))

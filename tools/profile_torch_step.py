@@ -3,11 +3,13 @@
 Builds the train-step benchmark state (1M Gaussians at the fastlivo rig by
 default, `utils.synthetic.make_bench_state`), warms up, then runs a few steps
 under torch.profiler (device activity only) and prints, per step: the
-wall time with and without the profiler, the summed kernel time, the
+wall time with and without the profiler, the summed kernel time and its
+split by owner (the hand-written kernels, sort, gathers, elementwise, ...), the
 device's idle share read from the profiler's timeline (one minus the union
 of the device's kernel and copy intervals over the profiled window, timed
 on the host from its first launch to its synchronize()), and the kernels
-that take the most device time. `--bundle K` profiles K eager steps and then the same K steps
+that take the most device time; `--shapes` also lists the PyTorch ops by
+input shape. `--bundle K` profiles K eager steps and then the same K steps
 as the engine's K-step bundle (one CUDA graph, captured before the window)
 beside them, each from the same state. `--sharded` profiles the multi-GPU
 step (parallel.make_sharded_train_step) on a one-rank NCCL group instead of
@@ -20,6 +22,7 @@ Usage: python tools/profile_torch_step.py [--gaussians N] [--steps 5]
                                          [--trace step_trace.json] [--sharded]
                                          [--bundle K]
                                          [--capacity C] [--tiles-per-gaussian K]
+                                         [--shapes]
 """
 
 from __future__ import annotations
@@ -55,6 +58,27 @@ def idle_share(prof, window_us: float) -> float:
     return 1.0 - (busy + (b - a)) / window_us
 
 
+# The owners of a step's device time: the first pattern a kernel's name
+# holds names its owner (the hand-written kernels, then PyTorch's own).
+OWNERS = (("K1 blend forward", "blend_forward_kernel"),
+          ("K2 blend backward", "blend_backward_kernel"),
+          ("K5 preprocess forward", "preprocess_forward_kernel"),
+          ("K6 preprocess backward", "preprocess_backward_kernel"),
+          ("K7 sparse Adam", "sparse_adam_kernel"), ("sort", "radix"), ("sort", "Sort"),
+          ("gather, scatter, index", "index"), ("gather, scatter, index", "gather"),
+          ("gather, scatter, index", "scatter"), ("reductions", "reduce"),
+          ("copies", "copy"), ("fills", "fill"), ("elementwise", "elementwise"))
+
+
+def owner(name: str) -> str:
+    return next((o for o, pat in OWNERS if pat in name), "other")
+
+
+def self_dev_us(e) -> float:
+    """An event's own device time, microseconds."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--gaussians", type=int, default=1 << 20)
@@ -68,6 +92,8 @@ def main() -> int:
                     help="rows of the padded map (default: the Gaussian count)")
     ap.add_argument("--tiles-per-gaussian", type=int, default=None,
                     help="max_tiles_per_gaussian (default: the fastlivo preset's)")
+    ap.add_argument("--shapes", action="store_true",
+                    help="also profile the eager steps with their ops' input shapes")
     args = ap.parse_args()
     if args.bundle is not None and args.sharded:
         ap.error("--bundle profiles the single-device step")
@@ -164,10 +190,6 @@ def main() -> int:
             os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
             prof.export_chrome_trace(path)
 
-        def self_dev_us(e):
-            return (getattr(e, "self_device_time_total", None)
-                    or getattr(e, "self_cuda_time_total", 0))
-
         kernels = sorted((e for e in prof.key_averages()
                           if e.device_type == torch.autograd.DeviceType.CUDA
                           and self_dev_us(e) > 0), key=self_dev_us, reverse=True)
@@ -176,9 +198,29 @@ def main() -> int:
         print(f"[{label}] wall ms/step: {wall_plain:.3f} (unprofiled), {wall_prof:.3f} "
               f"(profiled); kernel time {total_dev:.3f} ms/step; device idle "
               f"{100 * idle:.2f}% of the profiled window (timeline)")
+        by_owner = {}
+        for e in kernels:
+            by_owner[owner(e.key)] = by_owner.get(owner(e.key), 0.0) + self_dev_us(e) / 1e3 / k
+        print(f"[{label}] device time by owner, ms/step: " + "; ".join(
+            f"{o} {v:.3f}" for o, v in sorted(by_owner.items(), key=lambda kv: -kv[1])))
         print(f"[{label}] top kernels by device time, ms/step:")
         for e in kernels[:25]:
             print(f"  {self_dev_us(e) / 1e3 / k:9.3f}  x{e.count / k:<7.1f} {e.key[:110]}")
+    if args.shapes:
+        # host ops recorded with their input shapes: slows the launches, so
+        # only the device time of each (op, shapes) is read
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            eager(args.steps)
+            torch.cuda.synchronize()
+        ops = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                      if e.key.startswith("aten::") and self_dev_us(e) > 0),
+                     key=self_dev_us, reverse=True)
+        print(f"[ops by shape] {args.steps} eager steps, self device ms/step, calls/step, op, "
+              "input shapes:")
+        for e in ops[:25]:
+            print(f"  {self_dev_us(e) / 1e3 / args.steps:9.3f}  x{e.count / args.steps:<7.1f} "
+                  f"{e.key:20s} {str(e.input_shapes)[:90]}")
     if args.sharded:
         torch.distributed.destroy_process_group()
     return 0
