@@ -51,7 +51,12 @@ exit code is not 0:
      autograd of the plain chain (PRE_GRAD_RTOL of each column's max; on
      the 20k scene both K6 and the float32 autograd also against a float64
      autograd run), K7 bit for bit against the per-group loop; each timed
-     (20 launches) beside its plain version, the parent's main path;
+     (20 launches) beside its plain version, the parent's main path. Then
+     K6's timing variants (preprocess.K6_VARIANTS, instantiations of K6's
+     own template: base and direct must equal K6 bit for bit, noshio and
+     noproj are timed only) with the count of rows whose row gradient is
+     not zero, and the built SASS of K6 beside its probe's base (the same
+     opcodes);
   3. the slice: MappingEngine.add_frame over a 40-frame synthetic stream at
      the fastlivo rig (640x512, SH 3, 16 tile slots, capacity 262144), its
      steps in bundles (CUDA graphs); the launch counters are zeroed just
@@ -766,6 +771,7 @@ def check_preprocess(sc: dict, tag: str, f64: bool) -> dict:
     log(msg)
     if not worst <= PRE_GRAD_RTOL:
         raise AssertionError(f"{tag}: K6 disagrees beyond {PRE_GRAD_RTOL}")
+    variants = k6_variants(bargs, k6, tag)
 
     # K7 on the six groups of this scene: K6's gradients, seeded moments
     rng = np.random.default_rng(13)
@@ -813,7 +819,35 @@ def check_preprocess(sc: dict, tag: str, f64: bool) -> dict:
     for k, (_, tk, tp, nb) in res.items():
         log(f"[2c] {tag} time {k}: kernel {tk:.4f} ms  plain {tp:.4f} ms  bound "
             f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes)")
+    base = variants["base"]
+    log(f"[2c] {tag} K6 variants: " + "  ".join(
+        f"{v} {ms:.4f} ms ({ms - base:+.4f})" for v, ms in variants.items())
+        + f"; K6 itself {res['preprocess_backward'][1]:.4f} ms")
     return res
+
+
+def k6_variants(bargs, k6, tag: str) -> dict:
+    """K6's timing variants (preprocess.K6_VARIANTS) on K6's arguments
+    `bargs`: base and direct must equal K6's outputs `k6` bit for bit (the
+    others are timing only); logs the rows whose nine gradients are not all
+    zero. Returns each variant's ms (20 launches)."""
+    import torch
+
+    from gaussian_lic_tpu_torch.ops import preprocess as pre
+    from gaussian_lic_tpu_torch.utils.cuda_timing import cuda_ms
+
+    d_attrs = bargs[-1]
+    live = int((d_attrs != 0).any(1).sum())
+    log(f"[2c] {tag}: {live} of {d_attrs.shape[0]} rows have a nonzero row gradient")
+    out = {}
+    for v in pre.K6_VARIANTS:
+        got = pre.preprocess_backward_probe(v, *bargs)
+        torch.cuda.synchronize()
+        if v not in pre.K6_TIMING_ONLY and not all(bit_equal(a, b) for a, b in zip(got, k6)):
+            raise AssertionError(f"{tag}: K6 variant {v} differs from K6")
+        del got
+        out[v] = cuda_ms(lambda: pre.preprocess_backward_probe(v, *bargs), 20)
+    return out
 
 
 def preprocess_bytes(P: int, S: int) -> dict:
@@ -831,9 +865,13 @@ def preprocess_bytes(P: int, S: int) -> dict:
 
 
 def phase_preprocess(scenes) -> list:
-    """K5, K6 and K7 on phase 2's 20k scene (K6 also against float64
-    autograd) and on the 1M train step's inputs; the kernels line's rows,
-    with the train step's times and bounds."""
+    """K6's SASS beside its probe's base, then K5, K6 (and its variants)
+    and K7 on phase 2's 20k scene (K6 also against float64 autograd) and on
+    the 1M train step's inputs; the kernels line's rows, with the train
+    step's times and bounds."""
+    from gaussian_lic_tpu_torch import _build
+
+    check_base_is_production(_build.load().path, K6_BASE, "2c")
     light = check_preprocess(scenes[0], f"{scenes[0]['n_gauss']}-Gaussian scene", f64=True)
     step = check_preprocess(scenes[1], f"{scenes[1]['n_gauss']}-Gaussian train step",
                             f64=False)
@@ -980,16 +1018,22 @@ def sass_opcodes(sass: str, kernel: str) -> list:
     return out
 
 
-def check_base_is_production(lib_path: str) -> None:
+BLEND_BASES = (("K1 / K3 base", "blend_forward_kernelILi0E"),
+               ("K2 / K4 base", "blend_backward_kernelILi0E"))
+K6_BASE = (("K6 / K6 probe base", "preprocess_backward_kernelILi0E"),)
+
+
+def check_base_is_production(lib_path: str, pairs=BLEND_BASES, phase: str = "2b") -> None:
     """K1 and K3 base are one template instantiation (kFwdBase of
-    blend_forward.cuh) built in two sources, K2 and K4 base likewise: the
-    built SASS of each pair must hold the same opcodes in the same order."""
+    blend_forward.cuh) built in two sources, K2 and K4 base likewise, and
+    K6 and its probe's base (K6_BASE, kK6Base of preprocess_backward.cuh):
+    the built SASS of each pair must hold the same opcodes in the same
+    order."""
     sass = built_sass(lib_path)
-    for name, kernel in (("K1 / K3 base", "blend_forward_kernelILi0E"),
-                         ("K2 / K4 base", "blend_backward_kernelILi0E")):
+    for name, kernel in pairs:
         bodies = sass_opcodes(sass, kernel)
         same = len(bodies) == 2 and bodies[0] == bodies[1]
-        log(f"[2b] SASS of {name}: {len(bodies)} functions of "
+        log(f"[{phase}] SASS of {name}: {len(bodies)} functions of "
             f"{' / '.join(str(len(b)) for b in bodies)} instructions, identical opcodes {same}")
         if not same:
             raise AssertionError(f"{name}: the probe's base is not the production kernel's code")

@@ -47,6 +47,9 @@ _SIGNATURES = {
     # d_attrs, d_stride, P, S, deg, W, H, fx, fy, limits (4), d_xyz, d_scale,
     # d_quat, d_opacity, d_dc, d_sh_rest, stream
     "glic_preprocess_backward": (_VP,) * 10 + (_LL, _LL, _I, _I) + (_F,) * 8 + (_VP,) * 7,
+    # variant, then glic_preprocess_backward's arguments
+    "glic_preprocess_probe_backward": (_I,) + (_VP,) * 10 + (_LL, _LL, _I, _I) + (_F,) * 8
+                                      + (_VP,) * 7,
     # groups, n_groups, total, visible, b1, 1 - b1, b2, 1 - b2, eps, stream
     "glic_sparse_adam": (_VP, _I, _LL, _VP) + (_F,) * 5 + (_VP,),
     # rows, m_pad, starts, lens, color, final_t, n_contrib,

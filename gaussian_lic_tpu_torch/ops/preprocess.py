@@ -20,9 +20,12 @@ quat (through the normalisation), d opacity, d dc and d sh_rest.
 
 Bounds on an H100 (3.35 TB/s) at P = 2^20: K5 reads 59 floats and writes a
 16-float row, depth, radius and a flag (~0.10 ms); K6 reads the 9 gradient
-columns (stride 12) and the 236 B of inputs and writes 236 B (~0.16 ms).
-Both are one thread per Gaussian over per-row arithmetic: memory bound,
-they keep every intermediate in registers.
+columns (stride 12) and the 232 B of inputs and writes 236 B (~0.16 ms).
+Both are one thread per Gaussian over per-row arithmetic, memory bound. K6
+stages a block's 128 rows of every input in shared memory so that every
+device-memory access is coalesced, and writes its gradients back the same
+way (csrc/preprocess_backward.cu says why); `preprocess_backward_probe`
+launches its timing variants (K6_VARIANTS).
 
 Dispatch by the tensors' device, as `ops/blend.py`: CUDA tensors launch the
 kernels (csrc/preprocess_forward.cu, csrc/preprocess_backward.cu) or raise;
@@ -52,13 +55,21 @@ from gaussian_lic_tpu_torch.ops.projection import OPACITY_THRESHOLD, projection_
 
 # Launch counts of K5 and K6 (plain-version calls are not counted).
 LAUNCHES = {"preprocess_forward": 0, "preprocess_backward": 0}
+# K6's timing variants (csrc/preprocess_backward.cuh K6Variant, in its
+# order), off the main path: base is K6, direct K6's arithmetic on the first
+# design's access pattern (K6's outputs bit for bit); noshio (no SH loads or
+# d_sh stores) and noproj (no projection backward) are timing only.
+K6_VARIANTS = ("base", "direct", "noshio", "noproj")
+K6_TIMING_ONLY = ("noshio", "noproj")
+PROBE_LAUNCHES = {v: 0 for v in K6_VARIANTS}
 
 _F = ctypes.c_float
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counter in (LAUNCHES, PROBE_LAUNCHES):
+        for k in counter:
+            counter[k] = 0
 
 
 class Splats(NamedTuple):
@@ -334,28 +345,36 @@ def _k5(xyz, scale, quat, opacity, camera, dc, sh_rest, sh_degree, active, no_co
     return table, depth, radius, base_active
 
 
-def _k6(xyz, scale, quat, camera, dc, sh_rest, sh_degree, d_attrs):
+def _k6(xyz, scale, quat, camera, dc, sh_rest, sh_degree, d_attrs, variant=None):
     """K6 on CUDA tensors: (d xyz, d scale, d quat, d opacity, d dc,
-    d sh_rest). `d_attrs` (P, 9) may have any row stride (K2's is 12)."""
+    d sh_rest); with `variant`, that variant of K6_VARIANTS through the
+    probe entry. `d_attrs` (P, 9) may have any row stride (K2's is 12) and
+    must have unit column stride; every array may start at any row of a
+    larger one (the mesh step's shards)."""
     from gaussian_lic_tpu_torch import _build
 
     P, dev = xyz.shape[0], xyz.device
     S = _sh_args(sh_rest, sh_degree, False)
-    if d_attrs.stride(1) != 1 or d_attrs.dtype != torch.float32:
-        d_attrs = d_attrs.float().contiguous()
     _check_inputs(dict(xyz=(xyz, (P, 3)), scale=(scale, (P, 3)), quat=(quat, (P, 4)),
                        dc=(dc, (P, 3)), sh_rest=(sh_rest, (P, S, 3)),
                        d_attrs=(d_attrs, (P, N_ATTR))), dev)
+    if d_attrs.stride(1) != 1:
+        raise ValueError(f"K6 reads d_attrs rows of unit column stride, got strides "
+                         f"{tuple(d_attrs.stride())}")
     cam, floats = _camera_args(camera)
     lib = _build.load()
     outs = [torch.empty_like(t) for t in (xyz, scale, quat)]
     outs.append(torch.empty((P,), dtype=torch.float32, device=dev))
     outs += [torch.empty_like(dc), torch.empty_like(sh_rest)]
-    _launch(lib.cdll.glic_preprocess_backward, _ptr(xyz), _ptr(scale), _ptr(quat), _ptr(dc),
-            _ptr(sh_rest), *(_ptr(t) for t in cam), _ptr(d_attrs),
-            ctypes.c_longlong(d_attrs.stride(0)), ctypes.c_longlong(P), S, sh_degree, *floats,
-            *(_ptr(t) for t in outs), _stream(dev))
-    LAUNCHES["preprocess_backward"] += 1
+    args = (_ptr(xyz), _ptr(scale), _ptr(quat), _ptr(dc), _ptr(sh_rest),
+            *(_ptr(t) for t in cam), _ptr(d_attrs), ctypes.c_longlong(d_attrs.stride(0)),
+            ctypes.c_longlong(P), S, sh_degree, *floats, *(_ptr(t) for t in outs), _stream(dev))
+    if variant is None:
+        _launch(lib.cdll.glic_preprocess_backward, *args)
+        LAUNCHES["preprocess_backward"] += 1
+    else:
+        _launch(lib.cdll.glic_preprocess_probe_backward, K6_VARIANTS.index(variant), *args)
+        PROBE_LAUNCHES[variant] += 1
     return tuple(outs)
 
 
@@ -387,6 +406,26 @@ def preprocess_backward(xyz, scale, quat, opacity, camera, dc, sh_rest, sh_degre
         raise ValueError(f"the preprocess takes CPU or CUDA tensors, got {xyz.device}")
     xyz, scale, quat, dc, sh_rest = (t.contiguous() for t in (xyz, scale, quat, dc, sh_rest))
     return _k6(xyz, scale, quat, camera, dc, sh_rest, sh_degree, d_attrs)
+
+
+def preprocess_backward_probe(variant, xyz, scale, quat, opacity, camera, dc, sh_rest,
+                              sh_degree, d_attrs):
+    """K6's timing variant `variant` (K6_VARIANTS), with preprocess_backward's
+    arguments and outputs. CPU tensors: `preprocess_backward_plain` for the
+    variants that compute K6's outputs; the timing-only ones have no plain
+    version and raise."""
+    if variant not in K6_VARIANTS:
+        raise ValueError(f"unknown K6 variant {variant!r}; one of {K6_VARIANTS}")
+    if xyz.device.type == "cpu":
+        if variant in K6_TIMING_ONLY:
+            raise ValueError(f"K6 {variant} is a timing probe of the card: it has no plain "
+                             "version")
+        return preprocess_backward_plain(xyz, scale, quat, opacity, camera, dc, sh_rest,
+                                         sh_degree, d_attrs)
+    if xyz.device.type != "cuda":
+        raise ValueError(f"the preprocess takes CPU or CUDA tensors, got {xyz.device}")
+    xyz, scale, quat, dc, sh_rest = (t.contiguous() for t in (xyz, scale, quat, dc, sh_rest))
+    return _k6(xyz, scale, quat, camera, dc, sh_rest, sh_degree, d_attrs, variant)
 
 
 class Preprocess(torch.autograd.Function):

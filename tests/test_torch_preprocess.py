@@ -49,10 +49,9 @@ EDGES = ("nan_opacity", "behind", "det_zero", "clamp_x", "clamp_y", "sh_negative
 INPUTS = ("xyz", "scale", "quat", "opacity", "dc", "sh_rest")
 
 
-def scene(seed=3):
-    """(numpy inputs of P_SCENE Gaussians, active mask, {edge: row})."""
+def scene(seed=3, P=P_SCENE):
+    """(numpy inputs of P Gaussians (>= 13), active mask, {edge: row})."""
     rng = np.random.default_rng(seed)
-    P = P_SCENE
     z = rng.uniform(2.0, 10.0, P)
     d = dict(
         xyz=np.stack([rng.uniform(-0.6, 0.6, P) * z, rng.uniform(-0.45, 0.45, P) * z, z], 1),
@@ -264,6 +263,129 @@ def test_no_grad_and_no_color_take_k5_alone():
     np.testing.assert_array_equal(n(nc.table)[:, :6], n(s.table)[:, :6])
 
 
+def zeroed_rows(g, step=3):
+    """g with every `step`-th row (from row 1) and the edge rows' first
+    three set to 0; returns (g, the zeroed rows)."""
+    rows = np.union1d(np.arange(1, g.shape[0], step), np.arange(0, 6, 2))
+    g = g.clone()
+    g[rows] = 0.0
+    return g, rows
+
+
+@pytest.mark.parametrize("deg", DEGREES)
+def test_zero_gradient_rows_get_zero(deg):
+    """On finite inputs (NaN opacity enters only d_opacity, which is the row
+    gradient itself), a row whose nine row gradients are 0 gets exactly 0 in
+    all six outputs of the closed form, as in autograd of the plain chain
+    and in JAX's vjp: what K6 may write for such a row without its
+    arithmetic."""
+    import jax
+    import jax.numpy as jnp
+
+    d, active, _ = scene()
+    g, zero = zeroed_rows(d_attrs_for(P_SCENE))
+    x = torch_inputs(d)
+    got = pre.preprocess_backward_plain(*(x[k] for k in INPUTS[:4]), torch_camera(), x["dc"],
+                                        x["sh_rest"], deg, g)
+    auto = plain_grads(torch_inputs(d, grad=True), torch_camera(), deg,
+                       torch.as_tensor(active), g)
+    f = jax_chain(deg, jnp.asarray(active))
+    _, pull = jax.vjp(lambda *a: f(*a)[0], *(jnp.asarray(d[k]) for k in INPUTS))
+    want = pull(jnp.asarray(np.pad(n(g), ((0, 0), (0, 16 - N_ATTR)))))
+    live = np.setdiff1d(np.arange(P_SCENE), zero)
+    for name, a, b, c in zip(INPUTS, got, auto, want):
+        for what, v in (("closed form", a), ("autograd", b), ("jax.vjp", c)):
+            if v is None:   # autograd's sh_rest at degree 0
+                continue
+            v = n(v)[zero]
+            assert np.isfinite(v).all() and not v.any(), (what, name)
+        if not (name == "sh_rest" and deg == 0):   # the other rows are not all zero
+            assert n(a)[live].any(), name
+
+
+def test_preprocess_bytes_per_row():
+    """chip_smoke.preprocess_bytes, K6's bound: 504 B a Gaussian at S = 15
+    (the nine row gradients 36 B, the inputs but opacity 232 B, the six
+    gradients 236 B), of which sh_rest and its gradient are 360."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    for P in (1, 2001, 1 << 20):
+        assert cs.preprocess_bytes(P, 15)["backward"] == 504 * P
+        assert cs.preprocess_bytes(P, 15)["backward"] - cs.preprocess_bytes(P, 0)["backward"] \
+            == 360 * P
+    assert cs.preprocess_bytes(1 << 20, 15)["backward"] == 528_482_304
+
+
+@pytest.mark.parametrize("bad", ["column_stride", "float64"])
+def test_k6_refuses_a_layout_it_does_not_take(bad):
+    """_k6 raises, before anything is built or launched, on row gradients
+    whose columns are not adjacent float32 words (any row stride is taken)."""
+    d, _, _ = scene()
+    x = torch_inputs(d)
+    wide = d_attrs_for(P_SCENE).repeat_interleave(2, dim=1)
+    g = wide[:, ::2] if bad == "column_stride" else d_attrs_for(P_SCENE, torch.float64)
+    with pytest.raises(ValueError, match="d_attrs"):
+        pre._k6(x["xyz"], x["scale"], x["quat"], torch_camera(), x["dc"], x["sh_rest"], 3, g)
+
+
+@pytest.mark.parametrize("variant", pre.K6_VARIANTS)
+def test_k6_probe_on_the_cpu(variant):
+    """K6's probe wrapper on CPU tensors: base and direct (K6's outputs)
+    take the closed form; the timing-only variants have no plain version
+    and raise; nothing is counted."""
+    d, _, _ = scene()
+    x = torch_inputs(d)
+    args = (*(x[k] for k in INPUTS[:4]), torch_camera(), x["dc"], x["sh_rest"], 3,
+            d_attrs_for(P_SCENE))
+    before = dict(pre.PROBE_LAUNCHES)
+    if variant in pre.K6_TIMING_ONLY:
+        with pytest.raises(ValueError, match="timing"):
+            pre.preprocess_backward_probe(variant, *args)
+    else:
+        got = pre.preprocess_backward_probe(variant, *args)
+        for a, b in zip(got, pre.preprocess_backward_plain(*args)):
+            assert torch.equal(a, b)
+    assert pre.PROBE_LAUNCHES == before
+    with pytest.raises(ValueError, match="unknown K6 variant"):
+        pre.preprocess_backward_probe(variant + "x", *args)
+
+
+def k6_case(P, layout, device, off=3):
+    """K6's arguments for P Gaussians of the scene, laid out as `layout`
+    hands them over: `k2_table`, the row gradients as a (P, 9) view of a
+    12-float table (K2's); `contiguous`, a (P, 9) tensor; `shard`, every
+    parameter, sh_rest and a contiguous (P, 9) gradient as the rows
+    [off, off + P) of larger tensors (a mesh rank's shard: no slab starts
+    16-byte aligned). Returns (numpy inputs of the P rows, active, {edge:
+    row} of the edge rows among them, the tensors (xyz, scale, quat,
+    opacity, dc, sh_rest), d_attrs)."""
+    lo = off if layout == "shard" else 0
+    d, active, rows = scene(P=max(lo + P, 13))
+    g_all = d_attrs_for(lo + P, device=device)
+    x = {k: torch.as_tensor(d[k], device=device)[lo:lo + P] for k in INPUTS}
+    if layout == "k2_table":
+        table = torch.zeros((P + 1, 12), device=device)
+        table[:P, :N_ATTR] = g_all
+        g = table[:P, :N_ATTR]
+    else:
+        g = g_all[lo:lo + P]
+    d = {k: v[lo:lo + P] for k, v in d.items()}
+    edges = {k: r - lo for k, r in rows.items() if lo <= r < lo + P}
+    return d, active[lo:lo + P], edges, tuple(x[k] for k in INPUTS), g
+
+
+def case_groups(P, edges):
+    normal = np.setdiff1d(np.arange(P), list(edges.values()))
+    return {**({"scene": normal} if normal.size else {}),
+            **{k: np.array([r]) for k, r in edges.items()}}
+
+
 @pytest.mark.requires_cuda
 class TestKernelsOnTheCard:
     """K5 and K6 on the card against their plain versions on the same card."""
@@ -309,3 +431,46 @@ class TestKernelsOnTheCard:
             if b is None:   # sh_rest at degree 0
                 b = torch.zeros_like(a)
             check_columns(n(a), n(b), GRAD_RTOL, row_groups(rows), name)
+
+    @pytest.mark.parametrize("layout", ["k2_table", "contiguous", "shard"])
+    @pytest.mark.parametrize("deg", DEGREES)
+    @pytest.mark.parametrize("P", [1, 3, 129, 2001])
+    def test_k6_blocks_and_layouts(self, cuda_device, P, deg, layout):
+        """K6 on tail blocks (P of 1, 3, 129, 2001: slabs that are no
+        multiple of 16 B), every degree, and the layouts the main and the
+        mesh path hand it (k6_case), against the closed form and autograd
+        of the plain chain at GRAD_RTOL, one launch a call."""
+        d, active, edges, ins, g = k6_case(P, layout, cuda_device)
+        cam = torch_camera(device=cuda_device)
+        args = (*ins[:4], cam, ins[4], ins[5], deg, g)
+        before = pre.LAUNCHES["preprocess_backward"]
+        got = pre.preprocess_backward(*args)
+        torch.cuda.synchronize()
+        assert pre.LAUNCHES["preprocess_backward"] == before + 1
+        groups = case_groups(P, edges)
+        for name, a, b in zip(INPUTS, got, pre.preprocess_backward_plain(*args)):
+            check_columns(n(a), n(b), GRAD_RTOL, groups, name)
+        xg = torch_inputs(d, device=cuda_device, grad=True)
+        auto = plain_grads(xg, cam, deg, torch.as_tensor(active, device=cuda_device),
+                           g.contiguous())
+        for name, a, b in zip(INPUTS, got, auto):
+            if b is None:   # sh_rest at degree 0
+                b = torch.zeros_like(a)
+            check_columns(n(a), n(b), GRAD_RTOL, groups, name)
+
+    @pytest.mark.parametrize("variant", pre.K6_VARIANTS)
+    def test_k6_probe_variants(self, cuda_device, variant):
+        """K6's timing variants launch, count, and return K6's shapes; base
+        and direct equal K6 bit for bit, on a shard's layout too."""
+        for layout in ("k2_table", "shard"):
+            _, _, _, ins, g = k6_case(2001, layout, cuda_device)
+            args = (*ins[:4], torch_camera(device=cuda_device), ins[4], ins[5], 3, g)
+            want = pre.preprocess_backward(*args)
+            before = pre.PROBE_LAUNCHES[variant]
+            got = pre.preprocess_backward_probe(variant, *args)
+            torch.cuda.synchronize()
+            assert pre.PROBE_LAUNCHES[variant] == before + 1
+            assert [a.shape for a in got] == [b.shape for b in want]
+            if variant not in pre.K6_TIMING_ONLY:
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), layout

@@ -202,3 +202,28 @@ def test_ab_train_step_reads_the_turns_not_the_capturing_pass():
     assert ab._readings("[ab] H100, 700.00 W: K1 0.6921 ms  K2 1.1694 ms\n",
                         kernels=True) == (0.6921, 1.1694)
     assert ab._readings(PHASE_4_LINES, kernels=True) is None
+
+
+def test_k6_occupancy_needs_the_card_and_finds_its_bounds(monkeypatch, capsys):
+    """tools/k6_occupancy.py exits 2 without CUDA, and the launch bounds it
+    rewrites in its copies of csrc/ are K6's."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    occ = tool("k6_occupancy")
+    assert occ.main([]) == 2
+    assert "needs a CUDA device" in capsys.readouterr().err
+    with open(os.path.join(ROOT, "gaussian_lic_tpu_torch", "csrc",
+                           "preprocess_backward.cuh")) as f:
+        assert f.read().count(occ.BOUNDS) == 1
+
+
+def test_ab_train_step_reads_every_kernel_of_the_step():
+    """A --kernels run prints K1, K2, K5, K6 and K7; the tool reads them in
+    that order, and its child times each of them."""
+    ab = tool("ab_train_step")
+    line = ("[ab] NVIDIA H100 80GB HBM3, 700.00 W: K1 0.6921 ms  K2 1.1694 ms  K5 0.1571 ms  "
+            "K6 0.2006 ms  K7 0.5943 ms\n")
+    assert ab._readings("other\n" + line, kernels=True) == (0.6921, 1.1694, 0.1571, 0.2006,
+                                                           0.5943)
+    assert ab.KERNELS == ("K1", "K2", "K5", "K6", "K7")
+    for k in ab.KERNELS:
+        assert f'ms["{k}"]' in ab._KERNELS or f'"{k}":' in ab._KERNELS

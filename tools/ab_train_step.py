@@ -13,10 +13,12 @@ what makes their difference readable (the card's power limit and the host's
 load vary between calls). Prints each run's phase-4 lines (the card's name
 and power limit in them), then each checkout's ms/step in run order, in
 bundles and eager (each the mean of the run's two turns). With
-`--kernels`, each run times K1 and K2 alone instead (CUDA events, 50
-launches each after a warm-up) on the arguments of that train step
-(`step_scene`), and the lists are of K1's and K2's ms. Needs a CUDA
-device; imports no JAX.
+`--kernels`, each run times the train step's kernels alone instead (CUDA
+events, 50 launches each after a warm-up) on the arguments of that train
+step (`step_scene`): K1 and K2 on its splat list, K5 and K6 on its
+parameters and camera (K6 on K2's (P, 9) output), K7 on the six groups
+with K6's gradients and zero moments; the lists are of each kernel's ms.
+Needs a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ import sys
 import torch
 sys.path.insert(0, sys.argv[1])
 import chip_smoke as cs
-from gaussian_lic_tpu_torch.ops import blend
+from gaussian_lic_tpu_torch.ops import adam, blend, preprocess as pre
 from gaussian_lic_tpu_torch.utils.cuda_timing import card_line, cuda_ms
 dev = torch.device("cuda:0")
 sc = cs.step_scene(cs.bench_state(dev))
@@ -50,21 +52,41 @@ g = sc["grid"]
 kw = dict(n_tx=g.n_tx, n_ty=g.n_ty, tile_h=g.tile_h, tile_w=g.tile_w)
 args = (sc["splats"], sc["starts"], sc["lens"])
 _, ft, nc = blend.blend_forward(*args, **kw)
-k1 = cuda_ms(lambda: blend.blend_forward(*args, **kw), 50, warmup=3)
-k2 = cuda_ms(lambda: blend.blend_backward(*args, sc["dl"], ft, nc, sc["sorted_gauss"],
-                                          n_gauss=sc["n_gauss"], **kw), 50, warmup=3)
-print(f"[ab] {card_line()}: K1 {k1:.4f} ms  K2 {k2:.4f} ms", flush=True)
+k2_call = lambda: blend.blend_backward(*args, sc["dl"], ft, nc, sc["sorted_gauss"],
+                                       n_gauss=sc["n_gauss"], **kw)
+ms = {"K1": cuda_ms(lambda: blend.blend_forward(*args, **kw), 50, warmup=3),
+      "K2": cuda_ms(k2_call, 50, warmup=3)}
+x = sc["inputs"]
+geo = tuple(x[k] for k in ("xyz", "scale", "quat", "opacity"))
+fargs = geo + (x["camera"], x["dc"], x["sh_rest"], x["sh_degree"], x["active"])
+bargs = geo + (x["camera"], x["dc"], x["sh_rest"], x["sh_degree"], k2_call())
+ms["K5"] = cuda_ms(lambda: pre.preprocess_forward(*fargs), 50, warmup=3)
+ms["K6"] = cuda_ms(lambda: pre.preprocess_backward(*bargs), 50, warmup=3)
+params = dict(xyz=x["xyz"], log_scale=torch.log(x["scale"]), quat=x["quat"],
+              opacity=x["opacity"], dc=x["dc"], sh_rest=x["sh_rest"])
+params = {k: v.contiguous() for k, v in params.items()}
+grads = dict(zip(("xyz", "log_scale", "quat", "opacity", "dc", "sh_rest"),
+                 pre.preprocess_backward(*bargs)))
+states = {k: adam.AdamState(torch.zeros_like(p), torch.zeros_like(p)) for k, p in params.items()}
+visible = (pre.preprocess_forward(*fargs)[2] > 0) & x["active"]
+lrs = dict(xyz=1.6e-4, dc=2.5e-3, sh_rest=1.25e-4, opacity=0.05, log_scale=5e-3, quat=1e-3)
+ms["K7"] = cuda_ms(lambda: adam.sparse_adam_update_groups(params, grads, states, visible, lrs),
+                   50, warmup=3)
+print(f"[ab] {card_line()}: " + "  ".join(f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
 """
+KERNELS = ("K1", "K2", "K5", "K6", "K7")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="+", help="checkout directories (each holds chip_smoke.py)")
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--kernels", action="store_true", help="time K1 and K2 alone")
+    ap.add_argument("--kernels", action="store_true",
+                    help="time the train step's kernels K1, K2, K5, K6, K7 alone")
     args = ap.parse_args(argv)
     child = _KERNELS if args.kernels else _CHILD
-    whats = ("K1 ms", "K2 ms") if args.kernels else ("bundle ms/step", "eager ms/step")
+    whats = (tuple(f"{k} ms" for k in KERNELS) if args.kernels
+             else ("bundle ms/step", "eager ms/step"))
     trees = [os.path.abspath(t) for t in args.trees]
     for t in trees:
         if not os.path.isfile(os.path.join(t, "chip_smoke.py")):
@@ -92,12 +114,13 @@ def main(argv=None) -> int:
 
 
 def _readings(stdout: str, kernels: bool):
-    """(K1 ms, K2 ms) of a `--kernels` run; else (bundle, eager) ms/step of
-    a phase-4 run, each the mean of its turns. None if the run printed
-    none."""
+    """The kernels' ms of a `--kernels` run, in the order its [ab] line
+    names them; else (bundle, eager) ms/step of a phase-4 run, each the mean
+    of its turns. None if the run printed none."""
     if kernels:
-        m = re.search(r"^\[ab\].*K1 ([0-9.]+) ms  K2 ([0-9.]+) ms", stdout, re.M)
-        return tuple(float(v) for v in m.groups()) if m else None
+        m = re.search(r"^\[ab\].*$", stdout, re.M)
+        found = re.findall(r"K\d ([0-9.]+) ms", m.group(0)) if m else []
+        return tuple(float(v) for v in found) or None
     turns = {mode: [float(v) for v in re.findall(rf"^\[4\].*\), {mode}: ([0-9.]+) ms/step",
                                                  stdout, re.M)]
              for mode in ("bundle", "eager")}
