@@ -57,20 +57,32 @@ exit code is not 0:
      noproj are timed only) with the count of rows whose row gradient is
      not zero, and the built SASS of K6 beside its probe's base (the same
      opcodes);
+  2d. the binning kernels K8 (slot keys), K9 (sorted list and tile ranges)
+     and K10 (the splat gather), on phase 2's two inputs with phase 2c's
+     edge rows through K5: K8 with global tile ids; K8, K9 on the stable
+     sort of its 32-bit keys and K10 on K9's list in the whole grid (at
+     the scene's budget and at a budget cut) and in every band of D = 2, 4
+     and 8; each bit for bit against its plain version (K10 also against
+     `index_select`),
+     timed beside it (20 calls in a CUDA graph, as the bundles run them,
+     and eagerly), with its bytes bound; the sort timed on the keys as
+     int64 and as int32 in turns;
   3. the slice: MappingEngine.add_frame over a 40-frame synthetic stream at
      the fastlivo rig (640x512, SH 3, 16 tile slots, capacity 262144), its
      steps in bundles (CUDA graphs); the launch counters are zeroed just
      before the stream and read just after, and must show every kernel; the
      train PSNR must clear a floor; the same small stream through the engine
      on the card and on the CPU (plain path, eager bundles) must agree; the
-     graphs' capture seconds and the compile count are printed;
+     graphs' capture seconds and the compile count are printed; every
+     render must launch one K8, K9 and K10 (as many as K1's launches);
   4. full-size train steps: the 1M-Gaussian state of phase 2, 100 steps
      eagerly and as the bundles 64+16+16+4 in turns (eager, bundle, bundle,
      eager, after an untimed pass that captures the graphs) from one state:
      ms/step, it/s, peak memory, overflow counters, capture seconds and the
      graph pool's bytes; the bundles' losses must agree with the eager
-     runs' within their spread, every turn must launch one K1, K5, K6 and
-     K7 a step, and the bundles' launches must equal the eager loop's;
+     runs' within their spread, every turn must launch one K1, K5, K6, K7,
+     K8, K9 and K10 a step, and the bundles' launches must equal the eager
+     loop's;
   5. the application: phase 3's stream written as a RecordedStream directory
      (stamps 0.1 s apart) and run through `run.main` with config/fastlivo.yaml
      as shipped (100,000 skybox Gaussians, 16 tile slots), randinit LPIPS,
@@ -78,9 +90,9 @@ exit code is not 0:
      launch counters are zeroed just before and read at the end of the
      stream and around `finalize` (its steps in bundles, as in phase 3).
      It checks the exit code, the kernels' launches in the stream and one
-     K1 launch per eval view, finite eval metrics above a train-PSNR
-     floor, the PLY's vertex count (the skybox
-     left out), the 40 PNG pairs, and that the checkpoint loads back equal
+     K1 launch per eval view (and one K8, K9 and K10 per render in both),
+     finite eval metrics above a train-PSNR floor, the PLY's vertex count
+     (the skybox left out), the 40 PNG pairs, and that the checkpoint loads back equal
      to the engine that wrote it; then a 64x64 application with a 256-point
      skybox runs through `run.main` on the card and on the CPU, and their
      finalize metrics and PLY vertex counts must agree;
@@ -90,8 +102,8 @@ exit code is not 0:
      list with a NaN-opacity row in front of each tile, against their plain
      versions; (b) on phase 4's 1M state, `render_band` for every band of
      D = 2, 4 and 8 (band binning), stitched and held against the full
-     render, K1 launched D times; (c) on a one-rank NCCL process group, the
-     sharded train step against `train_step` for 2 steps (loss, gradients
+     render, K1, K8, K9 and K10 launched D times; (c) on a one-rank NCCL
+     process group, the sharded train step against `train_step` for 2 steps (loss, gradients
      and params by tests/test_parallel.py's rule), then 20 timed steps of
      each in turns (ms/step, peak memory), then 100 sharded steps eagerly
      and as the sharded bundles 64+16+16+4 (CUDA graphs over NCCL) in turns
@@ -335,7 +347,8 @@ def timed(fn):
 
 
 def reset_launches() -> None:
-    """Zeroes the launch counters of the train step's kernels (K1/K2, K5/K6, K7)."""
+    """Zeroes the launch counters of the train step's kernels (K1/K2, K5/K6,
+    K7, K8-K10)."""
     from gaussian_lic_tpu_torch.engine.trainer import KERNEL_LAUNCHES
 
     for counter in KERNEL_LAUNCHES:
@@ -383,6 +396,8 @@ def kernel_scene(dev, n: int = 20000, seed: int = 1, tile=None) -> dict:
                     max_tiles_per_gaussian=cfg.max_tiles_per_gaussian, max_total_splats=4 * n)
     sc["inputs"] = dict(xyz=xyz, scale=scale, quat=quat, opacity=opacity, camera=cam, dc=dc,
                         sh_rest=sh_rest, sh_degree=3, active=None)
+    sc["bin_kw"] = dict(max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
+                        max_total_splats=4 * n)
     g = sc["grid"]
     sc["dl"] = torch.as_tensor(rng.normal(size=(3, g.padded_height, g.padded_width)) * 1e-3,
                                **f32)
@@ -407,6 +422,8 @@ def step_scene(state: dict, idx: int = 1) -> dict:
                     dc=gm.dc, sh_rest=gm.sh_rest, sh_degree=gm.sh_degree,
                     active=inputs["active"], **_render_kw(cfg, gm.capacity))
     sc["inputs"] = inputs
+    kw = _render_kw(cfg, gm.capacity)
+    sc["bin_kw"] = {k: kw[k] for k in ("max_tiles_per_gaussian", "max_total_splats")}
     g = sc["grid"]
     color = blend.blend_forward_plain(sc["splats"], sc["starts"], sc["lens"], n_tx=g.n_tx,
                                       n_ty=g.n_ty, tile_h=g.tile_h, tile_w=g.tile_w)[0]
@@ -894,6 +911,221 @@ def phase_preprocess(scenes) -> list:
 
 
 # ---------------------------------------------------------------------------
+# phase 2d: the binning kernels K8, K9, K10
+# ---------------------------------------------------------------------------
+
+BINNING = ("bin_keys", "bin_ranges", "gather_splats")
+# K8's operations per slot whose power it evaluates (live, in the rect and
+# in the band), counted from csrc/bin_keys.cu: 70 FP32 operations of the
+# tile's pixel rect and max_contrib_power, and two IEEE divisions of ~8 FP32
+# and one MUFU reciprocal each.
+K8_SLOT_FP32 = 86
+K8_SLOT_MUFU = 2
+
+
+def evaluated_slots(xy, radius, live, grid, K, band=None) -> int:
+    """The slots whose power K8 evaluates: live, in the rect and, with
+    `band` (ty0, n_ty), in the band."""
+    import torch
+
+    from gaussian_lic_tpu_torch.ops import tiles
+
+    rminx, rminy, rmaxx, rmaxy = tiles.gaussian_rects(xy, radius, grid)
+    w = rmaxx - rminx
+    k = torch.arange(K, dtype=torch.int32, device=xy.device)[:, None]
+    ok = live[None] & (k < (w * (rmaxy - rminy))[None])
+    if band is not None:
+        ty = rminy[None] + torch.div(k, w.clamp_min(1)[None], rounding_mode="floor")
+        ok &= (ty >= band[0]) & (ty < band[0] + band[1])
+    return int(ok.sum())
+
+
+def binning_bytes(P: int, K: int, m_eff: int, m_pad: int, T: int, rows: int) -> dict:
+    """Bytes K8, K9 and K10 must move: each input read once, each output
+    written once. K8 reads a Gaussian's mean and conic (20 B), depth,
+    opacity, radius and its flag (13 B) and writes K keys and its count;
+    K9 reads m_eff 4-B keys and 8-B slots and writes m_pad ids, T starts
+    and lengths and P counts; K10 reads m_pad ids and the `rows` distinct
+    rows they name (64 B each) and writes m_pad rows."""
+    return dict(bin_keys=P * (33 + 4 * K + 4) + 8,
+                bin_ranges=m_eff * 12 + m_pad * 4 + 8 * T + 4 * P,
+                gather_splats=m_pad * 4 + rows * 64 + m_pad * 64)
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean ms of `fn()` over `reps` calls captured in one CUDA graph, as
+    the bundles run them (after one call outside the capture that loads its
+    kernels), between two CUDA events around a replay: device time without
+    the host's gaps between eager launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    gc.collect()      # no dead graph may be freed inside the capture (BundleGraphs._capture)
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    finally:
+        gc.enable()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
+
+
+def check_binning(sc: dict, rates: dict, tag: str) -> dict:
+    """K8, K9 and K10 against their plain versions on scene `sc` of phase 2
+    with phase 2c's edge rows, through K5 as the main path runs it: K8 with
+    global tile ids (the sharded binning); K8, K9 on the stable sort of its
+    keys and K10 on K9's list in the whole grid's band (bin_gaussians; also
+    at half its live entries, a budget cut) and in every band of D = 2, 4
+    and 8 with the whole grid's depth bits (render_band). Every output bit
+    for bit, and K10 against `index_select`. Each timed beside its plain version, K10
+    also beside `index_select`, 20 calls in a CUDA graph (graph_ms, the
+    rows' times: the bundles run binning in graphs) and eagerly (cuda_ms,
+    host gaps included), and the sort on K8's keys as int64 and as int32 in
+    turns. Returns each kernel's (max abs error, ms, plain ms, bound ms,
+    bound by, library ms)."""
+    import torch
+
+    from gaussian_lic_tpu_torch.ops import preprocess as pre, tiles
+    from gaussian_lic_tpu_torch.ops.rasterize import CHUNK
+    from gaussian_lic_tpu_torch.utils.cuda_timing import cuda_ms
+
+    x, _ = with_edge_rows(sc["inputs"])
+    P = x["xyz"].shape[0]
+    table, depth, radius, active = pre.preprocess_forward(
+        *(x[k] for k in ("xyz", "scale", "quat", "opacity", "camera", "dc", "sh_rest",
+                         "sh_degree", "active")))
+    args = (table[:P, 0:2], depth, table[:P, 2:5], x["opacity"], radius, active)
+    g, K, M = sc["grid"], sc["bin_kw"]["max_tiles_per_gaussian"], sc["bin_kw"]["max_total_splats"]
+    bits, T = tiles.rank_bits_for(g.num_tiles), g.num_tiles
+    m_eff = min(M, P * K)
+    m_pad = -(-m_eff // CHUNK) * CHUNK
+
+    def check(what: str, got, want) -> None:
+        if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{tag}: {what} differs from its plain version")
+
+    got = tiles.bin_keys(*args, g, K, bits)
+    check("K8 with global tile ids", got, tiles.bin_keys_plain(*args, g, K, bits))
+    log(f"[2d] {tag} K8 with global tile ids (the sharded binning): bit for bit its plain "
+        f"version ({int(got[2][1])} live slots, {int(got[2][0])} rect tiles truncated)")
+    # the grid (bin_gaussians), then every band of D with the grid's depth
+    # bits (render_band); in the grid also at a budget cut
+    for D, b in [(1, 0)] + [(D, b) for D in BAND_MESHES for b in range(D)]:
+        n_ty = g.n_ty // D
+        kw = dict(band_ty0=b * n_ty, band_n_ty=n_ty)
+        k8 = tiles.bin_keys(*args, g, K, bits, **kw)
+        check(f"K8 in band {b} of {D}", k8, tiles.bin_keys_plain(*args, g, K, bits, **kw))
+        sk, ss = torch.sort(k8[0], stable=True)
+        num_valid = int(k8[2][1])
+        for m in (m_eff, max(num_valid // 2, 1)) if D == 1 else (m_eff,):
+            mp = -(-m // CHUNK) * CHUNK
+            k9 = tiles.bin_ranges(sk, ss, m, mp, P, n_ty * g.n_tx, bits)
+            check(f"K9 in band {b} of {D} at {m} entries", k9,
+                  tiles.bin_ranges_plain(sk, ss, m, mp, P, n_ty * g.n_tx, bits))
+            check(f"K10 in band {b} of {D} at {m} entries", (tiles.gather_splats(table, k9[0]),),
+                  (tiles.gather_splats_plain(table, k9[0]),))
+            if D == 1:
+                log(f"[2d] {tag} K8, K9 and K10 in the grid at {m} entries ({num_valid} live "
+                    f"slots, {int(k8[2][0])} rect tiles truncated, {int((k9[2] == 0).sum())} "
+                    f"of {T} tiles empty): bit for bit their plain versions")
+        if D == 1:   # the main path's list: timed below
+            keys, sk_main, ss_main = k8[0], sk, ss
+    sk, ss = sk_main, ss_main
+    ids = tiles.bin_ranges(sk, ss, m_eff, m_pad, P, T, bits)[0]
+    if not torch.equal(tiles.gather_splats(table, ids), table.index_select(0, ids)):
+        raise AssertionError(f"{tag}: K10 differs from index_select")
+    log(f"[2d] {tag} K8, K9 and K10 in every band of D = "
+        f"{', '.join(map(str, BAND_MESHES))} (the grid's depth bits): bit for bit their "
+        f"plain versions; K10 equals index_select")
+    grid_band = dict(band_ty0=0, band_n_ty=g.n_ty)
+
+    calls = {   # kernel, plain version, library call
+        "bin_keys": (lambda: tiles.bin_keys(*args, g, K, bits, **grid_band),
+                     lambda: tiles.bin_keys_plain(*args, g, K, bits, **grid_band), None),
+        "bin_ranges": (lambda: tiles.bin_ranges(sk, ss, m_eff, m_pad, P, T, bits),
+                       lambda: tiles.bin_ranges_plain(sk, ss, m_eff, m_pad, P, T, bits), None),
+        "gather_splats": (lambda: tiles.gather_splats(table, ids),
+                          lambda: tiles.gather_splats_plain(table, ids),
+                          lambda: table.index_select(0, ids)),
+    }
+    ms, eager = {}, {}
+    for k, fns in calls.items():
+        ms[k] = tuple(None if f is None else graph_ms(f) for f in fns)
+        eager[k] = tuple(None if f is None else cuda_ms(f, 20) for f in fns)
+    keys64 = tiles.keys_from_int32(keys)
+    sort_ms = [cuda_ms(lambda: torch.sort(k, stable=True), 20)
+               for k in (keys64, keys, keys, keys64)]
+    log(f"[2d] {tag} stable sort of {keys.numel()} keys, in turns int64 int32 int32 int64: "
+        + " ".join(f"{v:.4f}" for v in sort_ms) + " ms")
+    live = active & (radius > 0)
+    nbytes = binning_bytes(P, K, m_eff, m_pad, T, int(torch.unique(ids).numel()))
+    slots = evaluated_slots(args[0], radius, live, g, K, (0, g.n_ty))
+    ops_ms = max(slots * K8_SLOT_FP32 / (rates["sms"] * FP32_LANES_PER_SM * rates["hz"]),
+                 slots * K8_SLOT_MUFU / (rates["sms"] * MUFU_LANES_PER_SM * rates["hz"])) * 1e3
+    res = {}
+    for k, (tk, tp, lib) in ms.items():
+        b_ms = nbytes[k] / HBM_BYTES_PER_S * 1e3
+        by = "bytes"
+        if k == "bin_keys" and ops_ms > b_ms:
+            b_ms, by = ops_ms, "operations"
+        res[k] = (0.0, tk, tp, b_ms, by, lib)
+        ek, ep, el = eager[k]
+        log(f"[2d] {tag} time {k}, in a CUDA graph (eager): kernel {tk:.4f} ({ek:.4f}) ms  "
+            f"plain {tp:.4f} ({ep:.4f}) ms"
+            + ("" if lib is None else f"  index_select {lib:.4f} ({el:.4f}) ms")
+            + f"  bound {b_ms:.4f} ms ({by}; {nbytes[k]} bytes"
+            + (f", {slots} evaluated slots: {ops_ms:.4f} ms of operations" if k == "bin_keys"
+               else "") + ")")
+    res["sort_ms"] = sort_ms
+    return res
+
+
+def phase_binning(scenes, rates: dict) -> list:
+    """K8, K9 and K10 on phase 2's 20k scene and on the 1M train step's
+    inputs (check_binning); the kernels line's rows, with the train step's
+    times and bounds."""
+    light = check_binning(scenes[0], rates, f"{scenes[0]['n_gauss']}-Gaussian scene")
+    step = check_binning(scenes[1], rates, f"{scenes[1]['n_gauss']}-Gaussian train step")
+    src = "gaussian_lic_tpu_torch/csrc/"
+    rows = [("bin_keys", "gaussian_lic_tpu/ops/tiles.py:181"),
+            ("bin_ranges", "gaussian_lic_tpu/ops/tiles.py:327"),
+            ("gather_splats", "gaussian_lic_tpu/ops/rasterize.py:116")]
+    out = []
+    for name, replaces in rows:
+        err, ms, plain_ms, b_ms, by, lib = step[name]
+        out.append(dict(name=name, route="cuda", source=src + name + ".cu", replaces=replaces,
+                        counter=name, max_abs_err=max(err, light[name][0]), ms=ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=lib))
+        log(f"[2d] {name}: {ms:.4f} ms against a bound of {b_ms:.4f} ms ({by}), plain "
+            f"{plain_ms:.4f} ms" + ("" if lib is None else f", index_select {lib:.4f} ms"))
+    return out
+
+
+def check_binning_launches(launches: dict, tag: str) -> None:
+    """One K8, one K9 and one K10 per render: each as many launches as K1
+    (color and no_color together), and at least one."""
+    renders = launches["forward"] + launches["forward_no_color"]
+    if renders <= 0 or any(launches[k] != renders for k in BINNING):
+        raise AssertionError(f"{tag}: not one K8, K9 and K10 launch per render ({renders} "
+                             f"K1 launches): {launches}")
+
+
+# ---------------------------------------------------------------------------
 # phase 2b: the blend probes K3/K4
 # ---------------------------------------------------------------------------
 
@@ -1176,6 +1408,7 @@ def phase_slice(dev, kernels: list, n_points: int = 50000, n_frames: int = 40,
         k["launches"] = launches[k["counter"]]
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} never launched on the main path")
+    check_binning_launches(launches, "phase 3")
 
     train_psnr = engine_train_psnr(eng)
     log(f"[3] train PSNR over {eng.kf_count} keyframes: {train_psnr:.4f} dB "
@@ -1246,8 +1479,8 @@ def bundle_turns(dev, card: str, tag: str, what: str, step, make_bundle, graphs,
     captures the graphs. Each turn starts from the same state and keyframe
     ids; its window ends in synchronize() and the loss's host fetch. The
     bundles' losses must lie within the eager runs' spread, every turn must
-    launch one K1, K5, K6 and K7 a step, and the bundles' launches must
-    equal the eager loop's."""
+    launch one K1, K5, K6, K7, K8, K9 and K10 a step, and the bundles'
+    launches must equal the eager loop's."""
     import torch
 
 
@@ -1309,10 +1542,11 @@ def bundle_turns(dev, card: str, tag: str, what: str, step, make_bundle, graphs,
     if gap > tol:
         raise AssertionError("the bundles' loss lies outside the eager runs' spread")
     want = runs[0][1]["launches"]
-    once = ("forward", "preprocess_forward", "preprocess_backward", "sparse_adam")
+    once = ("forward", "preprocess_forward", "preprocess_backward", "sparse_adam") + BINNING
     if (any(want[k] != steps for k in once)
             or any(r["launches"] != want for _, r in runs + [("", first)])):
-        raise AssertionError(f"the launches are not one K1, K5, K6 and K7 a step, or the "
+        raise AssertionError(f"the launches are not one K1, K5, K6, K7, K8, K9 and K10 a "
+                             f"step, or the "
                              f"bundles' differ from the eager loop's: "
                              + str([r["launches"] for _, r in runs]))
     ms = {name: [r["ms"] for nm, r in runs if nm == name] for name in ("eager", "bundle")}
@@ -1481,6 +1715,8 @@ def phase_app(dev, card: str, frames, tmp: str, config: str = CONFIG) -> dict:
     log("[5] results " + json.dumps(res))
     if min(stream_l.values()) <= 0:
         raise AssertionError(f"a kernel never launched in the application's stream: {stream_l}")
+    check_binning_launches(stream_l, "phase 5's stream")
+    check_binning_launches(eval_l, "phase 5's finalize")
     if n_views != len(frames) or eval_l["forward"] < n_views:
         raise AssertionError(f"K1 ran {eval_l['forward']} times for {n_views} eval views "
                              f"of {len(frames)} frames")
@@ -1623,7 +1859,7 @@ def check_bands(state: dict) -> None:
     import torch
 
     from gaussian_lic_tpu_torch.engine.trainer import _render_kw
-    from gaussian_lic_tpu_torch.ops import blend
+    from gaussian_lic_tpu_torch.ops import blend, tiles
     from gaussian_lic_tpu_torch.ops.rasterize import render_map
     from gaussian_lic_tpu_torch.parallel.sharded import _band_geometry, render_band
 
@@ -1635,6 +1871,7 @@ def check_bands(state: dict) -> None:
         for D in BAND_MESHES:
             grid, band_n_ty = _band_geometry(intr, cfg, D)
             blend.reset_launches()
+            tiles.reset_launches()
             parts = [render_band(
                 gm.xyz, gm.scaling, gm.rotation, gm.opacity, cam, dc=gm.dc,
                 sh_rest=gm.sh_rest, sh_degree=gm.sh_degree, active=gm.active_mask(),
@@ -1652,6 +1889,7 @@ def check_bands(state: dict) -> None:
                 f"render; K1 launches {launches}; budget lost {lost}")
             if lost or launches != D or not max(err) <= BAND_ATOL:
                 raise AssertionError(f"{D} stitched bands disagree with the full render")
+            check_binning_launches(dict(tiles.LAUNCHES, **blend.LAUNCHES), f"{D} bands")
 
 
 def step_results(m, gm) -> dict:
@@ -1803,6 +2041,7 @@ def phase_sharded(dev, card: str, slice_res: dict, app_res: dict, tmp: str) -> d
         f"({time.perf_counter() - t0:.2f} s)")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel never launched on the sharded path: {launches}")
+    check_binning_launches(launches, "phase 6d")
     if not eng.graphs.captures:
         raise AssertionError("the mesh engine ran its bundles without CUDA graphs")
     if not abs(psnr - slice_res["train_psnr"]) < ENGINE_PSNR_DB:
@@ -2066,6 +2305,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += phase_preprocess(scenes)
     log(f"[2c] phase seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    kernels += phase_binning(scenes, state["rates"])
+    log(f"[2d] phase seconds {time.perf_counter() - t0:.2f}")
     t0 = time.perf_counter()
     probes = phase_probes(state, scenes)
     del scenes

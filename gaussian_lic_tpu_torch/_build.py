@@ -52,6 +52,16 @@ _SIGNATURES = {
                                       + (_VP,) * 7,
     # groups, n_groups, total, visible, b1, 1 - b1, b2, 1 - b2, eps, stream
     "glic_sparse_adam": (_VP, _I, _LL, _VP) + (_F,) * 5 + (_VP,),
+    # xy, xy_stride, conic, conic_stride, depth, dkey, opacity, radius, active,
+    # P, K, depth_bits, n_tx, n_ty, tile_w, tile_h, band_ty0, band_n_ty,
+    # opacity threshold, keys, touched, sums, stream
+    "glic_bin_keys": (_VP, _LL, _VP, _LL) + (_VP,) * 5 + (_LL,) + (_I,) * 8 + (_F,)
+                     + (_VP,) * 4,
+    # keys, slots, m_eff, m_pad, P, T, depth_bits, tile0, sorted_gauss, starts,
+    # lens, cnt, stream
+    "glic_bin_ranges": (_VP, _VP, _LL, _LL, _I, _I, _I, _I) + (_VP,) * 5,
+    # table, n_rows, ids, m, out, stream
+    "glic_gather_splats": (_VP, _LL, _VP, _LL, _VP, _VP),
     # rows, m_pad, starts, lens, color, final_t, n_contrib,
     # n_tx, n_ty, tile_w, tile_h, no_color, stream
     "glic_blend_forward": (_VP, _LL, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),

@@ -112,7 +112,7 @@ def _check(name, t, shape, dtype, device):
     if tuple(t.shape) != shape or t.dtype != dtype:
         raise ValueError(f"{name} must be {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
     if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, splats on {device}")
+        raise ValueError(f"{name} is on {t.device}, not {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 

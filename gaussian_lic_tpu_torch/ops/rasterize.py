@@ -6,9 +6,10 @@ renderer.cpp:21-88 -> rasterizer.cpp:21-183 -> CudaRasterizer):
   preprocess: projection / EWA / SH into packed splat rows (ops.preprocess:
      K5 forward, K6 backward on the card; the plain chain with autograd on
      the CPU)
-  -> tile binning on detached values (ops.tiles)
-  -> `_Blend`, a torch.autograd.Function: gather the sorted splat rows, K1
-     forward; its backward runs K2, which returns per-Gaussian gradients (on
+  -> tile binning on detached values (ops.tiles: K8 slot keys, a stable
+     sort, K9 ranges on the card)
+  -> `_Blend`, a torch.autograd.Function: gather the sorted splat rows (K10),
+     K1 forward; its backward runs K2, which returns per-Gaussian gradients (on
      the card K2 sums them with atomics, the reference's atomicAdd,
      backward.cu:585-595; on the CPU its plain version ends in `index_add_`),
      handed to K6 as they are.
@@ -56,8 +57,8 @@ class TiledRenderOutput(NamedTuple):
 
 def _gather_splats(table: torch.Tensor, sorted_gauss: torch.Tensor) -> torch.Tensor:
     """(M_pad, 16) sorted splat rows of the (P+1, 16) table; the dead id P
-    reads its zero row."""
-    return table[sorted_gauss.long()]
+    reads its zero row (K10 on the card, ops/tiles.py)."""
+    return tiles_ops.gather_splats(table, sorted_gauss)
 
 
 class _Blend(torch.autograd.Function):

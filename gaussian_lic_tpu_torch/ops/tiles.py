@@ -1,6 +1,9 @@
-"""Tile binning: the sorted splat list of the tiled rasterizer.
+"""Tile binning and the splat gather: kernels K8 (`bin_keys`), K9
+(`bin_ranges`) and K10 (`gather_splats`) around one stable sort.
 
-The counterpart of the JAX package's `ops/tiles.py` and of the reference's
+The counterpart of the JAX package's `ops/tiles.py` (one `jax.jit` program
+that XLA fuses around a single `lax.sort`) and of its rasterizer's
+`jnp.take(rows, sorted_gauss, mode="fill")`; the reference's
 duplicateWithKeys -> radix sort -> identifyTileRanges
 (rasterizer_impl.cu:59-218, 395-429):
 
@@ -8,29 +11,63 @@ duplicateWithKeys -> radix sort -> identifyTileRanges
     maps to the k-th tile of the Gaussian's bounding rect in row-major order;
     slots beyond the rect, or failing StopThePop exact per-tile culling
     (forward.cu:151-230), are dead. Rects of more than K tiles are truncated.
-  * Keys are (tile_id << depth_bits) | truncated-f32-depth, held as
-    non-negative int64 below 2^32; dead slots get INVALID_KEY = 0xFFFFFFFF
-    and sort last. Slots are enumerated k-major (slot id = k*P + p) and the
-    sort is stable, so ties in the truncated depth keep k-major slot order:
-    the sorted list equals the JAX package's entry for entry.
-  * The list is cut at a static budget `max_total_splats`; per-tile
-    [start, len) ranges come from `searchsorted` over the sorted tile ids.
+  * Keys are (tile_id << depth_bits) | truncated-f32-depth, below 2^32; dead
+    slots get INVALID_KEY = 0xFFFFFFFF and sort last. K8 writes them as
+    int32 with the top bit flipped (`keys_to_int32`), so `torch.sort` orders
+    them as uint32 on 32 bits (half the radix passes of int64). Slots are
+    enumerated k-major (slot id = k*P + p) and the sort is stable, so ties in
+    the truncated depth keep k-major slot order: the sorted list equals the
+    JAX package's entry for entry.
+  * K9 cuts the list at a static budget `max_total_splats`, maps each entry
+    to its Gaussian (the dead id P past the live entries), writes each
+    tile's [start, len) range where the tile id steps (the searchsorted of
+    every tile) and counts each Gaussian's surviving entries.
+  * K10 gathers the (M_pad, 16) splat rows the blend kernels stream.
+
+Dispatch by the tensors' device, as `ops/blend.py`: CUDA tensors launch the
+kernels (csrc/bin_keys.cu, csrc/bin_ranges.cu, csrc/gather_splats.cu) or
+raise; CPU tensors take the plain versions (`*_plain`: the PyTorch chains
+the port ran before the kernels, and `table[ids.long()]`). `LAUNCHES`
+counts kernel launches. Nothing here reads back to the host, so a train
+step that bins stays capturable in a CUDA graph.
 
 Everything here is bookkeeping without gradients; callers pass detached tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
+from gaussian_lic_tpu_torch.ops.blend import SPLAT_ROWS, _check, _launch, _ptr, _stream
 from gaussian_lic_tpu_torch.ops.projection import (
     OPACITY_THRESHOLD,
     max_contrib_power_rect_components,
 )
 
 INVALID_KEY = 0xFFFFFFFF
+KEY_FLIP = 1 << 31         # int32 key = uint32 key - 2^31: the top bit flipped
+
+# Launch counts of K8, K9 and K10 (plain-version calls are not counted).
+LAUNCHES = {"bin_keys": 0, "bin_ranges": 0, "gather_splats": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def keys_to_int32(keys: torch.Tensor) -> torch.Tensor:
+    """uint32 keys held in int64 -> int32 with the top bit flipped: the int32
+    order is the uint32 order, INVALID_KEY becomes 2^31 - 1 (last)."""
+    return (keys - KEY_FLIP).to(torch.int32)
+
+
+def keys_from_int32(keys: torch.Tensor) -> torch.Tensor:
+    """The inverse of keys_to_int32: the uint32 values as int64."""
+    return keys.to(torch.int64) + KEY_FLIP
 
 
 def rank_bits_for(num_tiles: int) -> int:
@@ -156,7 +193,7 @@ def compute_slot_tiles(
     return tx, ty, slot_valid, in_rect, (rminy, rmaxy, rect_w)
 
 
-def compute_slot_keys_kmajor(
+def _slot_keys_chain(
     xy: torch.Tensor,       # (P,2)
     dkey: torch.Tensor,     # (P,) int64 truncated depth key (depth_key())
     conic: torch.Tensor,    # (P,3)
@@ -169,13 +206,9 @@ def compute_slot_keys_kmajor(
     band_ty0: int = 0,      # first tile row of the band
     band_n_ty: int = None,  # tile rows of the band; None: no band, GLOBAL tile ids
 ):
-    """Slot enumeration + StopThePop exact culling + key packing, k-major:
-    every per-slot tensor is (K, P). With `band_n_ty`, keys carry BAND-LOCAL
-    tile ids and the slots outside the band are dead (bin_gaussians of a
-    band); without, GLOBAL tile ids (the sharded binning,
-    parallel/sharded.py). Returns (keys (K*P,) int64 with slot id k*P + p,
-    tiles_touched (P,) int32, truncated () int32: the rect tiles lost to the
-    K-slot cap, counted in the band when there is one)."""
+    """K8's plain chain: slot enumeration + StopThePop exact culling + key
+    packing, k-major, every per-slot tensor (K, P); keys as uint32 values in
+    int64. See `compute_slot_keys_kmajor`."""
     rminx, rminy, rmaxx, rmaxy = gaussian_rects(xy, radius, grid)
     rect_w = rmaxx - rminx
     rect_count = rect_w * (rmaxy - rminy)
@@ -227,6 +260,189 @@ def compute_slot_keys_kmajor(
     return keys.reshape(-1), tiles_touched, truncated
 
 
+def _rows_view(name: str, t: torch.Tensor, P: int, cols: int, device) -> torch.Tensor:
+    """`t` (P, cols) float32 on `device` with unit column stride (the splat
+    table's strided views pass as they are), else a contiguous copy."""
+    if tuple(t.shape) != (P, cols) or t.dtype != torch.float32 or t.device != device:
+        raise ValueError(f"{name} must be ({P}, {cols}) float32 on {device}, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    return t if t.stride(1) == 1 else t.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def bin_keys_plain(xy, depth, conic, opacity, radius, active, grid: TileGrid, K: int,
+                   depth_bits: int, band_ty0: int = 0, band_n_ty: int = None, *, dkey=None):
+    """K8's plain version (`bin_keys`): the PyTorch chain the port ran before
+    the kernel, its keys mapped to int32."""
+    if dkey is None:
+        live = active & (radius > 0.0)
+        dkey = depth_key(depth, depth_bits)
+    else:
+        live = active
+    keys, touched, truncated = _slot_keys_chain(xy, dkey, conic, opacity, radius, live, grid,
+                                                K, depth_bits, band_ty0, band_n_ty)
+    return keys_to_int32(keys), touched, torch.stack([truncated,
+                                                      touched.sum(dtype=torch.int32)])
+
+
+def bin_ranges_plain(sorted_keys, sorted_slots, m_eff: int, m_pad: int, P: int,
+                     num_tiles: int, depth_bits: int, tile0: int = 0):
+    """K9's plain version (`bin_ranges`): searchsorted over the sorted tile
+    ids, the Gaussian of every entry and a histogram of the live ones."""
+    dev = sorted_keys.device
+    keys = keys_from_int32(sorted_keys[:m_eff])
+    boundaries = tile0 + torch.arange(num_tiles + 1, dtype=torch.int64, device=dev)
+    edges = torch.searchsorted(keys >> depth_bits, boundaries, side="left").to(torch.int32)
+    # dead entries (INVALID keys past num_valid, plus the M_pad round-up tail)
+    # carry sentinel id P -> zero splat rows. Slot ids are k-major.
+    gauss = torch.where(keys != INVALID_KEY, sorted_slots[:m_eff] % P, P).to(torch.int32)
+    sorted_gauss = torch.cat(
+        [gauss, torch.full((m_pad - m_eff,), P, dtype=torch.int32, device=dev)])
+    cnt = torch.zeros(P + 1, dtype=torch.int32, device=dev).index_add_(
+        0, gauss, torch.ones_like(gauss))[:P]
+    return sorted_gauss, edges[:-1], edges[1:] - edges[:-1], cnt
+
+
+def gather_splats_plain(table: torch.Tensor, sorted_gauss: torch.Tensor) -> torch.Tensor:
+    """K10's plain version: (M_pad, 16) rows of the (P+1, 16) table."""
+    return table[sorted_gauss.long()]
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+def bin_keys(xy, depth, conic, opacity, radius, active, grid: TileGrid, K: int,
+             depth_bits: int, band_ty0: int = 0, band_n_ty: int = None, *, dkey=None):
+    """K8: the K slot keys of every Gaussian. live = active & (radius > 0)
+    and the depth key of `depth` (`depth_key`); or, with `dkey` (P,) int64,
+    those depth keys and `active` as the live mask as it is (`depth` unused).
+    With `band_n_ty`, band-local tile ids and the slots outside the band
+    dead; without, global tile ids. Returns (keys (K*P,) int32, slot k*P + p,
+    in `keys_to_int32`'s form; tiles_touched (P,) int32; sums (2,) int32:
+    the rect tiles lost to the K-slot cap, counted in the band when there is
+    one, and the live slots)."""
+    if xy.device.type == "cpu":
+        return bin_keys_plain(xy, depth, conic, opacity, radius, active, grid, K, depth_bits,
+                              band_ty0, band_n_ty, dkey=dkey)
+    dev = xy.device
+    if dev.type != "cuda":
+        raise ValueError(f"bin_keys takes CPU or CUDA tensors, got {dev}")
+    P = xy.shape[0]
+    xy = _rows_view("xy", xy, P, 2, dev)
+    conic = _rows_view("conic", conic, P, 3, dev)
+    if dkey is None:
+        _check("depth", depth, (P,), torch.float32, dev)
+    else:
+        _check("dkey", dkey, (P,), torch.int64, dev)
+    _check("opacity", opacity, (P,), torch.float32, dev)
+    _check("radius", radius, (P,), torch.float32, dev)
+    _check("active", active, (P,), torch.bool, dev)
+    keys = torch.empty(K * P, dtype=torch.int32, device=dev)
+    touched = torch.empty(P, dtype=torch.int32, device=dev)
+    sums = torch.zeros(2, dtype=torch.int32, device=dev)
+    if P == 0:
+        return keys, touched, sums
+    from gaussian_lic_tpu_torch import _build
+
+    null = ctypes.c_void_p(None)
+    _launch(_build.load().cdll.glic_bin_keys,
+            _ptr(xy), xy.stride(0), _ptr(conic), conic.stride(0),
+            null if dkey is not None else _ptr(depth), null if dkey is None else _ptr(dkey),
+            _ptr(opacity), _ptr(radius), _ptr(active), P, K, depth_bits, grid.n_tx, grid.n_ty,
+            grid.tile_w, grid.tile_h, band_ty0, -1 if band_n_ty is None else band_n_ty,
+            ctypes.c_float(OPACITY_THRESHOLD), _ptr(keys), _ptr(touched), _ptr(sums),
+            _stream(dev))
+    LAUNCHES["bin_keys"] += 1
+    return keys, touched, sums
+
+
+def bin_ranges(sorted_keys, sorted_slots, m_eff: int, m_pad: int, P: int, num_tiles: int,
+               depth_bits: int, tile0: int = 0):
+    """K9 over the first `m_eff` entries of K8's keys as the stable sort left
+    them (`sorted_keys` int32, `sorted_slots` int64 slot ids k*P + p; tile
+    ids are key >> depth_bits - tile0). Returns (sorted_gauss (m_pad,) int32,
+    P for dead entries and the tail; tile_starts (num_tiles,) int32, the
+    searchsorted of each tile; tile_lens (num_tiles,) int32; cnt (P,) int32,
+    the live entries of each Gaussian)."""
+    dev = sorted_keys.device
+    if dev.type == "cpu":
+        return bin_ranges_plain(sorted_keys, sorted_slots, m_eff, m_pad, P, num_tiles,
+                                depth_bits, tile0)
+    if dev.type != "cuda":
+        raise ValueError(f"bin_ranges takes CPU or CUDA tensors, got {dev}")
+    n = sorted_keys.shape[0]
+    if not m_eff <= min(n, sorted_slots.shape[0]) or m_pad < m_eff:
+        raise ValueError(f"bin_ranges: m_eff {m_eff} and m_pad {m_pad} against {n} keys")
+    _check("sorted_keys", sorted_keys, (n,), torch.int32, dev)
+    _check("sorted_slots", sorted_slots, (sorted_slots.shape[0],), torch.int64, dev)
+    sorted_gauss = torch.empty(m_pad, dtype=torch.int32, device=dev)
+    tile_starts = torch.empty(num_tiles, dtype=torch.int32, device=dev)
+    counts = torch.zeros(num_tiles + P, dtype=torch.int32, device=dev)
+    tile_lens, cnt = counts[:num_tiles], counts[num_tiles:]
+    from gaussian_lic_tpu_torch import _build
+
+    _launch(_build.load().cdll.glic_bin_ranges, _ptr(sorted_keys), _ptr(sorted_slots), m_eff,
+            m_pad, P, num_tiles, depth_bits, tile0, _ptr(sorted_gauss), _ptr(tile_starts),
+            _ptr(tile_lens), _ptr(cnt), _stream(dev))
+    LAUNCHES["bin_ranges"] += 1
+    return sorted_gauss, tile_starts, tile_lens, cnt
+
+
+def gather_splats(table: torch.Tensor, sorted_gauss: torch.Tensor) -> torch.Tensor:
+    """K10: (M_pad, 16) sorted splat rows of the (P+1, 16) table; the dead
+    id P reads its zero row."""
+    dev = table.device
+    if dev.type == "cpu":
+        return gather_splats_plain(table, sorted_gauss)
+    if dev.type != "cuda":
+        raise ValueError(f"gather_splats takes CPU or CUDA tensors, got {dev}")
+    m = sorted_gauss.shape[0]
+    if table.dim() != 2:
+        raise ValueError(f"table must be (n, {SPLAT_ROWS}), got {tuple(table.shape)}")
+    _check("table", table, (table.shape[0], SPLAT_ROWS), torch.float32, dev)
+    if table.data_ptr() % 16:
+        raise ValueError("K10 moves 16-byte vectors: table must be 16-byte aligned")
+    _check("sorted_gauss", sorted_gauss, (m,), torch.int32, dev)
+    out = torch.empty((m, SPLAT_ROWS), dtype=torch.float32, device=dev)
+    if m == 0:
+        return out
+    from gaussian_lic_tpu_torch import _build
+
+    _launch(_build.load().cdll.glic_gather_splats, _ptr(table), table.shape[0],
+            _ptr(sorted_gauss), m, _ptr(out), _stream(dev))
+    LAUNCHES["gather_splats"] += 1
+    return out
+
+
+def compute_slot_keys_kmajor(
+    xy: torch.Tensor,       # (P,2)
+    dkey: torch.Tensor,     # (P,) int64 truncated depth key (depth_key())
+    conic: torch.Tensor,    # (P,3)
+    opacity: torch.Tensor,  # (P,)
+    radius: torch.Tensor,   # (P,)
+    live: torch.Tensor,     # (P,) bool
+    grid: TileGrid,
+    K: int,
+    depth_bits: int,
+    band_ty0: int = 0,      # first tile row of the band
+    band_n_ty: int = None,  # tile rows of the band; None: no band, GLOBAL tile ids
+):
+    """Slot enumeration + StopThePop exact culling + key packing, k-major
+    (K8 on the card). With `band_n_ty`, keys carry BAND-LOCAL tile ids and
+    the slots outside the band are dead (bin_gaussians of a band); without,
+    GLOBAL tile ids (the sharded binning, parallel/sharded.py). Returns
+    (keys (K*P,) int64, the uint32 values, slot id k*P + p; tiles_touched
+    (P,) int32; truncated () int32: the rect tiles lost to the K-slot cap,
+    counted in the band when there is one)."""
+    keys, touched, sums = bin_keys(xy, None, conic, opacity, radius, live, grid, K,
+                                   depth_bits, band_ty0, band_n_ty, dkey=dkey)
+    return keys_from_int32(keys), touched, sums[0]
+
+
 def bin_gaussians(
     xy: torch.Tensor,        # (P,2)
     depth: torch.Tensor,     # (P,)
@@ -250,62 +466,33 @@ def bin_gaussians(
     does (the same truncated keys, so the same ties).
     The sorted list is cut at `max_total_splats` entries and padded with dead
     entries (id P) to a multiple of `align`; the padding keeps the list
-    length M_pad equal to the JAX package's."""
+    length M_pad equal to the JAX package's. K8, the stable sort of its
+    32-bit keys, and K9."""
     P = xy.shape[0]
     K = max_tiles_per_gaussian
     M = max_total_splats
-    dev = xy.device
     n_ty_local = grid.n_ty if band_n_ty is None else band_n_ty
     num_tiles_local = n_ty_local * grid.n_tx
     if depth_bits is None:
         depth_bits = rank_bits_for(num_tiles_local)
 
-    live = active & (radius > 0.0)
-    dkey = depth_key(depth, depth_bits)
-    keys, tiles_touched, truncated = compute_slot_keys_kmajor(
-        xy, dkey, conic, opacity, radius, live, grid, K, depth_bits,
+    keys, tiles_touched, sums = bin_keys(
+        xy, depth, conic, opacity, radius, active, grid, K, depth_bits,
         band_ty0=band_ty0, band_n_ty=n_ty_local,
     )
     # stable sort: ties keep slot-id (k-major) order
     sorted_keys, sorted_slots = torch.sort(keys, stable=True)
 
-    num_valid = tiles_touched.sum(dtype=torch.int32)
+    truncated, num_valid = sums[0], sums[1]
     budget_lost = torch.clamp_min(num_valid - M, 0)
     overflow = truncated + budget_lost
 
     m_eff = min(M, P * K)  # the sorted list can't exceed the slot count
     M_pad = ((m_eff + align - 1) // align) * align
-
-    # Per-Gaussian surviving-entry counts. With budget loss, a slot survives
-    # iff (key, slot) sorts before the m_eff-th smallest (key, slot).
-    if m_eff < P * K:
-        bk_key = sorted_keys[m_eff]
-        bk_slot = sorted_slots[m_eff]
-        k2 = keys.reshape(K, P)
-        s2 = torch.arange(P * K, device=dev).reshape(K, P)
-        survive = (k2 != INVALID_KEY) & (
-            (k2 < bk_key) | ((k2 == bk_key) & (s2 < bk_slot))
-        )
-        cnt = torch.where(budget_lost > 0, survive.sum(0, dtype=torch.int32),
-                          tiles_touched)
-    else:
-        cnt = tiles_touched
-
-    sorted_keys = sorted_keys[:m_eff]
-    sorted_slots = sorted_slots[:m_eff]
-    sorted_tiles = sorted_keys >> depth_bits
-    boundaries = torch.arange(num_tiles_local + 1, dtype=torch.int64, device=dev)
-    edges = torch.searchsorted(sorted_tiles, boundaries, side="left").to(torch.int32)
-    tile_starts = edges[:-1]
-    tile_lens = edges[1:] - edges[:-1]
-
-    # dead entries (INVALID keys past num_valid, plus the M_pad round-up tail)
-    # carry sentinel id P -> zero splat rows. Slot ids are k-major.
-    gauss_raw = torch.where(sorted_keys != INVALID_KEY, sorted_slots % P, P)
-    sorted_gauss = torch.cat(
-        [gauss_raw.to(torch.int32),
-         torch.full((M_pad - m_eff,), P, dtype=torch.int32, device=dev)]
-    )
+    # with budget loss, a slot survives iff (key, slot) sorts before the
+    # m_eff-th smallest (key, slot): K9 counts the live entries in front
+    sorted_gauss, tile_starts, tile_lens, cnt = bin_ranges(
+        sorted_keys, sorted_slots, m_eff, M_pad, P, num_tiles_local, depth_bits)
 
     return Binning(
         sorted_gauss=sorted_gauss,

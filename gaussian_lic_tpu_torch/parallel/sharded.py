@@ -177,19 +177,14 @@ def bin_gaussians_sharded(
     m_eff = D * m_pair
     M_pad = (m_eff + align - 1) // align * align
     present = fk != tiles_ops.INVALID_KEY
-    gauss = torch.where(present, torch.remainder(fs, P), P)
-    sorted_gauss = torch.cat([gauss.to(torch.int32),
-                              torch.full((M_pad - m_eff,), P, dtype=torch.int32, device=dev)])
-    boundaries = (torch.arange(tiles_per_band + 1, dtype=torch.int64, device=dev)
-                  + mesh.rank * tiles_per_band)
-    e2 = torch.searchsorted(fk >> depth_bits, boundaries, side="left").to(torch.int32)
-    # entries per Gaussian in this band's list (the port's K2 sums with
-    # atomics and never reads them; kept for parity with bin_gaussians). A
-    # scatter-add on the device: bincount reads the ids' max on the host,
-    # which a CUDA graph capture refuses
-    cnt = torch.zeros(P + 1, dtype=torch.int32, device=dev).index_add_(
-        0, gauss, torch.ones_like(gauss, dtype=torch.int32))[:P]
-    return (sorted_gauss, e2[:-1], e2[1:] - e2[:-1], cnt,
+    # K9 on the card: the Gaussian of every entry, the band's tile ranges
+    # (its tiles' global ids from its first) and the entries per Gaussian in
+    # this band's list (the port's K2 sums with atomics and never reads
+    # them; kept for parity with bin_gaussians)
+    sorted_gauss, tile_starts, tile_lens, cnt = tiles_ops.bin_ranges(
+        tiles_ops.keys_to_int32(fk), fs, m_eff, M_pad, P, tiles_per_band, depth_bits,
+        tile0=mesh.rank * tiles_per_band)
+    return (sorted_gauss, tile_starts, tile_lens, cnt,
             present.sum(dtype=torch.int32), budget_lost, truncated)
 
 

@@ -64,7 +64,9 @@ OWNERS = (("K1 blend forward", "blend_forward_kernel"),
           ("K2 blend backward", "blend_backward_kernel"),
           ("K5 preprocess forward", "preprocess_forward_kernel"),
           ("K6 preprocess backward", "preprocess_backward_kernel"),
-          ("K7 sparse Adam", "sparse_adam_kernel"), ("sort", "radix"), ("sort", "Sort"),
+          ("K7 sparse Adam", "sparse_adam_kernel"), ("K8 bin keys", "bin_keys_kernel"),
+          ("K9 bin ranges", "bin_ranges_kernel"), ("K10 splat gather", "gather_splats_kernel"),
+          ("sort", "radix"), ("sort", "Sort"),
           ("gather, scatter, index", "index"), ("gather, scatter, index", "gather"),
           ("gather, scatter, index", "scatter"), ("reductions", "reduce"),
           ("copies", "copy"), ("fills", "fill"), ("elementwise", "elementwise"))
