@@ -67,6 +67,19 @@ exit code is not 0:
      timed beside it (20 calls in a CUDA graph, as the bundles run them,
      and eagerly), with its bytes bound; the sort timed on the keys as
      int64 and as int32 in turns;
+  2e. the loss kernels K11 (SSIM and L1 forward: the window's two sums and
+     the three partial maps) and K12 (d loss / d img), on phase 2's two
+     inputs (the 20k scene's render against a seeded smooth-ish target, the
+     1M train step's render against its keyframe's image), the whole image
+     and every band of D = 2, 4 and 8 with its halo rows, and on the CPU
+     tests' shapes: K11's partial maps and K12 bit for bit against their
+     plain versions (the ulps are printed), K11's sums within
+     SSIM_SUM_RTOL, K12 within SSIM_GRAD_RTOL of the gradient's max against
+     autograd of the plain chain (float64 autograd too on the 20k scene and
+     the small shapes); then each timed (20 calls in a CUDA graph) beside its
+     plain version, the plain chain's forward and autograd backward (the
+     path before the kernels) and the library's blurs (a depthwise F.conv2d
+     pair, TF32 off), with its bytes and operations bounds;
   3. the slice: MappingEngine.add_frame over a 40-frame synthetic stream at
      the fastlivo rig (640x512, SH 3, 16 tile slots, capacity 262144), its
      steps in bundles (CUDA graphs); the launch counters are zeroed just
@@ -74,15 +87,16 @@ exit code is not 0:
      train PSNR must clear a floor; the same small stream through the engine
      on the card and on the CPU (plain path, eager bundles) must agree; the
      graphs' capture seconds and the compile count are printed; every
-     render must launch one K8, K9 and K10 (as many as K1's launches);
+     render must launch one K8, K9 and K10 (as many as K1's launches), and
+     every train step one K11 and one K12 (as many as K7's);
   4. full-size train steps: the 1M-Gaussian state of phase 2, 100 steps
      eagerly and as the bundles 64+16+16+4 in turns (eager, bundle, bundle,
      eager, after an untimed pass that captures the graphs) from one state:
      ms/step, it/s, peak memory, overflow counters, capture seconds and the
      graph pool's bytes; the bundles' losses must agree with the eager
      runs' within their spread, every turn must launch one K1, K5, K6, K7,
-     K8, K9 and K10 a step, and the bundles' launches must equal the eager
-     loop's;
+     K8, K9, K10, K11 and K12 a step, and the bundles' launches must equal
+     the eager loop's;
   5. the application: phase 3's stream written as a RecordedStream directory
      (stamps 0.1 s apart) and run through `run.main` with config/fastlivo.yaml
      as shipped (100,000 skybox Gaussians, 16 tile slots), randinit LPIPS,
@@ -90,7 +104,9 @@ exit code is not 0:
      launch counters are zeroed just before and read at the end of the
      stream and around `finalize` (its steps in bundles, as in phase 3).
      It checks the exit code, the kernels' launches in the stream and one
-     K1 launch per eval view (and one K8, K9 and K10 per render in both),
+     K1 launch per eval view (and one K8, K9 and K10 per render in both,
+     one K11 and K12 per train step in the stream and one K11 per eval
+     view),
      finite eval metrics above a train-PSNR floor, the PLY's vertex count
      (the skybox left out), the 40 PNG pairs, and that the checkpoint loads back equal
      to the engine that wrote it; then a 64x64 application with a 256-point
@@ -348,7 +364,7 @@ def timed(fn):
 
 def reset_launches() -> None:
     """Zeroes the launch counters of the train step's kernels (K1/K2, K5/K6,
-    K7, K8-K10)."""
+    K7, K8-K10, K11/K12)."""
     from gaussian_lic_tpu_torch.engine.trainer import KERNEL_LAUNCHES
 
     for counter in KERNEL_LAUNCHES:
@@ -431,6 +447,7 @@ def step_scene(state: dict, idx: int = 1) -> dict:
     gt = kf.images[idx].float() / 255.0
     loss = losses.training_loss(color[:, :intr.height, :intr.width], gt, cfg.lambda_dssim)
     sc["dl"] = torch.autograd.grad(loss, color)[0].contiguous()
+    sc["gt"] = gt
     return sc
 
 
@@ -1126,6 +1143,278 @@ def check_binning_launches(launches: dict, tag: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 2e: the loss kernels K11, K12
+# ---------------------------------------------------------------------------
+
+SSIM = ("ssim_forward", "ssim_backward")
+SSIM_SUM_RTOL = 1e-6       # K11's two sums vs the plain chain's (another summation order)
+# K12 vs float32 autograd of the plain chain, of the gradient's max: the
+# closed form and autograd round apart, ~2.5e-6 on the CPU tests' inputs
+# (tests/test_torch_ssim.py). Against float64 autograd K12 must be as close
+# as float32 autograd is, within SSIM_F64_FACTOR, or within SSIM_GRAD_RTOL:
+# both lose digits where sigma^2 = blur(x^2) - mu^2 cancels (2.4e-5 of the
+# max for both on the 20k scene's render, on an H100).
+SSIM_GRAD_RTOL = 1e-5
+SSIM_F64_FACTOR = 2.0
+SSIM_SHAPES = ((3, 24, 40), (3, 37, 53), (3, 1, 40), (3, 7, 9))   # the CPU tests'
+# Operations per pixel, counted from csrc/ssim_forward.cu and
+# ssim_backward.cu (an IEEE division as 8 FP32 operations and one MUFU
+# reciprocal): K11 per window pixel, 5 quantities x 2 passes x (11 multiplies
+# + 10 adds), the 3 products, the map (16 and a division), |x - y| and the two
+# sums (3), the partial maps (17 and three divisions); K12 per pixel, 3 maps x
+# 2 passes x 21 and the combination (8).
+K11_PIXEL_FP32 = 272
+K11_PIXEL_MUFU = 4
+K12_PIXEL_FP32 = 134
+
+
+def ssim_bytes(C: int, H: int, W: int, rows: int) -> dict:
+    """Bytes K11 and K12 must move on a (C, H, W) image with a window of
+    `rows` rows: K11 reads the image and its target and writes the three
+    partial maps of the window and its sums; K12 reads both images, the
+    partial maps and the two incoming gradients, and writes d img."""
+    img, win = C * H * W * 4, C * rows * W * 4
+    return dict(ssim_forward=2 * img + 3 * win + 8, ssim_backward=3 * img + 3 * win + 8)
+
+
+def ssim_bounds(rates: dict, C: int, H: int, W: int, rows: int) -> dict:
+    """(bound ms, bound by, bytes ms, operations ms, bytes) of K11 (with its
+    partial maps) and K12: the bound is the larger of the bytes over the
+    memory rate and the operations over their pipe's rate."""
+    lanes = rates["sms"] * rates["hz"]
+    nbytes = ssim_bytes(C, H, W, rows)
+    ops = dict(ssim_forward=max(C * rows * W * K11_PIXEL_FP32 / (lanes * FP32_LANES_PER_SM),
+                                C * rows * W * K11_PIXEL_MUFU / (lanes * MUFU_LANES_PER_SM)),
+               ssim_backward=C * H * W * K12_PIXEL_FP32 / (lanes * FP32_LANES_PER_SM))
+    out = {}
+    for k in SSIM:
+        b, o = nbytes[k] / HBM_BYTES_PER_S * 1e3, ops[k] * 1e3
+        out[k] = (max(b, o), "bytes" if b >= o else "operations", b, o, nbytes[k])
+    return out
+
+
+def ulps(a, b) -> int:
+    """The largest distance of two float32 tensors in units in the last
+    place (0 where they are equal, signs of zero alike)."""
+    import torch
+
+    ia, ib = (t.contiguous().view(torch.int32).long() for t in (a, b))
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max().clamp_min(1e-30))
+
+
+def check_ssim(x, y, r0: int, r1: int, n_pixels: int, tag: str, f64: bool = False,
+               lam: float = 0.2) -> dict:
+    """K11 and K12 on (x, y) with the window [r0, r1) against their plain
+    versions: the partial maps and K12 bit for bit (the same rounded
+    operations in order), the sums within SSIM_SUM_RTOL; K12 against
+    autograd of the plain chain (training_loss or training_loss_band_part)
+    within SSIM_GRAD_RTOL of the gradient's max, with `f64` also against a
+    float64 autograd run (as close as float32 autograd, SSIM_F64_FACTOR).
+    Returns the errors."""
+    import torch
+
+    from gaussian_lic_tpu_torch.ops import losses
+
+    sums, maps = losses.ssim_forward(x, y, r0, r1)
+    p_sums, p_maps = losses.ssim_forward_plain(x, y, r0, r1)
+    nomaps = losses.ssim_forward(x, y, r0, r1, partials=False)[0]
+    g = torch.tensor([-lam / n_pixels, (1.0 - lam) / n_pixels], device=x.device)
+    d = losses.ssim_backward(x, y, maps, g, r0, r1)
+    p_d = losses.ssim_backward_plain(x, y, p_maps, g, r0, r1)
+    whole = r0 == 0 and r1 == x.shape[1]
+
+    def plain_grad(dtype):
+        xr = x.detach().to(dtype, copy=True).requires_grad_(True)
+        loss = (losses.training_loss_plain(xr, y.to(dtype), lam) if whole else
+                losses.training_loss_band_part_plain(xr, y.to(dtype), n_pixels, lam))
+        return torch.autograd.grad(loss, xr)[0]
+
+    res = dict(map_ulps=ulps(maps, p_maps), d_ulps=ulps(d, p_d),
+               sum_rel=float(((sums.double() - p_sums.double()).abs()
+                              / p_sums.double().abs().clamp_min(1e-30)).max()),
+               sum_abs=float((sums.double() - p_sums.double()).abs().max() / n_pixels),
+               map_abs=float((maps - p_maps).abs().max()) if maps.numel() else 0.0,
+               d_abs=float((d - p_d).abs().max()),
+               autograd=rel_err(d, plain_grad(torch.float32)))
+    f64_tol = 0.0
+    if f64:
+        g64 = plain_grad(torch.float64)
+        res["autograd64"] = rel_err(d, g64)
+        res["autograd32_64"] = rel_err(plain_grad(torch.float32), g64)
+        f64_tol = max(SSIM_GRAD_RTOL, SSIM_F64_FACTOR * res["autograd32_64"])
+    if (res["map_ulps"] or res["d_ulps"] or not torch.equal(nomaps, sums)
+            or res["sum_rel"] > SSIM_SUM_RTOL or res["autograd"] > SSIM_GRAD_RTOL
+            or res.get("autograd64", 0.0) > f64_tol):
+        raise AssertionError(f"{tag}: K11/K12 disagree with their plain versions: {res}")
+    return res
+
+
+def library_blur(x, groups: int):
+    """The library call for the blurs: a separable depthwise F.conv2d pair
+    (11 x 1, then 1 x 11, zero padding) over `groups` channels."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaussian_lic_tpu_torch.ops.losses import _TAPS
+
+    taps = torch.tensor(_TAPS, device=x.device)
+    wv = taps.view(1, 1, 11, 1).expand(groups, 1, 11, 1).contiguous()
+    wh = taps.view(1, 1, 1, 11).expand(groups, 1, 1, 11).contiguous()
+    return lambda: F.conv2d(F.conv2d(x, wv, padding=(5, 0), groups=groups), wh,
+                            padding=(0, 5), groups=groups)
+
+
+def time_ssim(x, y, lam: float = 0.2) -> dict:
+    """K11 and K12 on (x, y), the whole image, each 20 calls in a CUDA graph
+    (graph_ms) beside its plain version, the plain chain's forward and
+    autograd backward (the path before the kernels; its backward is the
+    graph of forward + backward less the forward's), and the library's
+    blurs (a depthwise F.conv2d pair, TF32 off: 15 channels for K11's five
+    quantities, 9 for K12's three maps). Returns ms by name."""
+    import torch
+
+    from gaussian_lic_tpu_torch.ops import losses
+
+    n = x.numel()
+    g = torch.tensor([-lam / n, (1.0 - lam) / n], device=x.device)
+    _, maps = losses.ssim_forward(x, y)
+    xr = x.clone().requires_grad_(True)
+    C, H, W = x.shape
+    five = torch.cat([x, y, x * x, y * y, x * y])[None]
+    three = maps.reshape(1, 3 * C, H, W)
+    fns = dict(
+        k11=lambda: losses.ssim_forward(x, y),
+        k11_eval=lambda: losses.ssim_forward(x, y, partials=False),
+        k11_plain=lambda: losses.ssim_forward_plain(x, y),
+        k12=lambda: losses.ssim_backward(x, y, maps, g),
+        k12_plain=lambda: losses.ssim_backward_plain(x, y, maps, g),
+        chain_fwd=lambda: losses.training_loss_plain(x, y, lam),
+        chain_fwd_bwd=lambda: torch.autograd.grad(losses.training_loss_plain(xr, y, lam), xr),
+        k11_k12=lambda: torch.autograd.grad(losses.training_loss(xr, y, lam), xr),
+        lib15=library_blur(five, 5 * C), lib9=library_blur(three, 3 * C))
+    ms = {k: graph_ms(f) for k, f in fns.items()}
+    ms["chain_bwd"] = ms["chain_fwd_bwd"] - ms["chain_fwd"]
+    return ms
+
+
+def ssim_inputs(sc: dict, gt=None, seed: int = 3):
+    """(image, target) of scene `sc` on the card: K1's render at the scene's
+    size and `gt`, or a smooth-ish seeded target made from the render (as
+    tests/test_torch_ssim.py's images)."""
+    import torch
+
+    from gaussian_lic_tpu_torch.ops import blend
+
+    g = sc["grid"]
+    color = blend.blend_forward(sc["splats"], sc["starts"], sc["lens"], n_tx=g.n_tx,
+                                n_ty=g.n_ty, tile_h=g.tile_h, tile_w=g.tile_w)[0]
+    img = color[:, :g.height, :g.width].contiguous()
+    if gt is None:
+        rng = np.random.default_rng(seed)
+        noise = torch.as_tensor(rng.normal(size=tuple(img.shape)).astype(np.float32),
+                                device=img.device)
+        gt = (img * 0.7 + 0.2 + noise * 0.02).clamp(0.0, 1.0)
+    return img, gt.contiguous()
+
+
+def phase_ssim(scenes, rates: dict) -> list:
+    """K11 and K12 on phase 2's two inputs (the 20k scene's render against a
+    seeded target, with float64 autograd; the 1M train step's render
+    against its keyframe's image), the whole image and every band of D = 2,
+    4 and 8 with its halo rows, and on the CPU tests' shapes (check_ssim);
+    then timed on the train step's image (time_ssim). Returns the kernels
+    line's rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaussian_lic_tpu_torch.ops import losses
+
+    h = losses.HALO
+    worst = {k: 0.0 for k in ("map_abs", "sum_abs", "d_abs", "autograd", "autograd64")}
+
+    def checked(res: dict) -> dict:
+        for k in worst:
+            worst[k] = max(worst[k], res.get(k, 0.0))
+        return res
+
+    for sc, gt, f64 in ((scenes[0], None, True), (scenes[1], scenes[1]["gt"], False)):
+        tag = f"{sc['n_gauss']}-Gaussian " + ("scene" if f64 else "train step")
+        x, y = ssim_inputs(sc, gt)
+        C, H, W = x.shape
+        res = checked(check_ssim(x, y, 0, H, x.numel(), tag, f64=f64))
+        log(f"[2e] {tag} {C}x{H}x{W}: K11's partial maps and K12 bit for bit their plain "
+            f"versions ({res['map_ulps']} and {res['d_ulps']} ulps); sums rel "
+            f"{res['sum_rel']:.3e} (tolerance {SSIM_SUM_RTOL}); K12 vs autograd of the plain "
+            f"chain {res['autograd']:.3e} of the max"
+            + (f", vs float64 autograd {res['autograd64']:.3e} (float32 autograd itself "
+               f"{res['autograd32_64']:.3e}; tolerance the larger of {SSIM_F64_FACTOR} x that "
+               f"and {SSIM_GRAD_RTOL})" if f64 else "")
+            + f" (tolerance {SSIM_GRAD_RTOL})")
+        xp, yp = F.pad(x, (0, 0, h, h)), F.pad(y, (0, 0, h, h))
+        band_err = 0.0
+        for D in BAND_MESHES:
+            hb = H // D
+            for b in range(D):
+                ext = [t[:, b * hb:(b + 1) * hb + 2 * h] for t in (xp, yp)]
+                res = checked(check_ssim(*ext, h, h + hb, x.numel(), f"{tag} band {b} of {D}"))
+                band_err = max(band_err, res["autograd"])
+        log(f"[2e] {tag}: every band of D = {', '.join(map(str, BAND_MESHES))} with its halo "
+            f"rows (strided views): bit for bit; K12 vs autograd of the band part at most "
+            f"{band_err:.3e} of the max")
+    for shape in SSIM_SHAPES:
+        rng = np.random.default_rng(sum(shape))
+        a = rng.uniform(size=shape).astype(np.float32)
+        b = np.clip(a * 0.7 + 0.2 + rng.normal(size=shape).astype(np.float32) * 0.02, 0, 1)
+        x, y = (torch.as_tensor(v, device=scenes[1]["gt"].device) for v in (a, b))
+        checked(check_ssim(x, y, 0, shape[1], x.numel(), f"{shape}", f64=True))
+    log(f"[2e] the CPU tests' shapes {', '.join('x'.join(map(str, s)) for s in SSIM_SHAPES)}: "
+        f"bit for bit, within tolerance; worst over phase 2e {json.dumps(worst)}")
+
+    x, y = ssim_inputs(scenes[1], scenes[1]["gt"])
+    C, H, W = x.shape
+    ms = time_ssim(x, y)
+    b = ssim_bounds(rates, C, H, W, H)
+    log(f"[2e] time at {C}x{H}x{W}, 20 calls in a CUDA graph: K11 {ms['k11']:.4f} ms "
+        f"(without partial maps, eval's {ms['k11_eval']:.4f}), plain {ms['k11_plain']:.4f}, "
+        f"F.conv2d blurs (15 ch) {ms['lib15']:.4f}; K12 {ms['k12']:.4f} ms, plain "
+        f"{ms['k12_plain']:.4f}, F.conv2d blurs (9 ch) {ms['lib9']:.4f}; loss + gradient "
+        f"through K11 + K12 {ms['k11_k12']:.4f} ms against the plain chain's forward "
+        f"{ms['chain_fwd']:.4f} + autograd backward {ms['chain_bwd']:.4f} = "
+        f"{ms['chain_fwd_bwd']:.4f} ms")
+    src = "gaussian_lic_tpu_torch/csrc/"
+    rows = [("ssim_forward", "gaussian_lic_tpu/ops/losses.py:45", "k11", "k11_plain", "lib15",
+             max(worst["map_abs"], worst["sum_abs"])),
+            ("ssim_backward", "gaussian_lic_tpu/ops/losses.py:91", "k12", "k12_plain", "lib9",
+             worst["d_abs"])]
+    out = []
+    for name, replaces, k, kp, lib, err in rows:
+        b_ms, by, bytes_ms, ops_ms, nbytes = b[name]
+        out.append(dict(name=name, route="cuda", source=src + name + ".cu", replaces=replaces,
+                        counter=name, max_abs_err=err, ms=ms[k], plain_ms=ms[kp],
+                        bound_ms=b_ms, bound_by=by, library_ms=ms[lib]))
+        log(f"[2e] {name}: {ms[k]:.4f} ms against a bound of {b_ms:.4f} ms ({by}; bytes "
+            f"{bytes_ms:.4f} ms for {nbytes} B, operations {ops_ms:.4f} ms), plain "
+            f"{ms[kp]:.4f} ms, F.conv2d {ms[lib]:.4f} ms")
+    return out
+
+
+def check_loss_launches(launches: dict, tag: str) -> None:
+    """One K11 and one K12 per train step: as many launches as K7's (one a
+    step), and at least one."""
+    steps = launches["sparse_adam"]
+    if steps <= 0 or any(launches[k] != steps for k in SSIM):
+        raise AssertionError(f"{tag}: not one K11 and one K12 launch per step ({steps} K7 "
+                             f"launches): {launches}")
+
+
+# ---------------------------------------------------------------------------
 # phase 2b: the blend probes K3/K4
 # ---------------------------------------------------------------------------
 
@@ -1409,6 +1698,7 @@ def phase_slice(dev, kernels: list, n_points: int = 50000, n_frames: int = 40,
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} never launched on the main path")
     check_binning_launches(launches, "phase 3")
+    check_loss_launches(launches, "phase 3")
 
     train_psnr = engine_train_psnr(eng)
     log(f"[3] train PSNR over {eng.kf_count} keyframes: {train_psnr:.4f} dB "
@@ -1479,8 +1769,8 @@ def bundle_turns(dev, card: str, tag: str, what: str, step, make_bundle, graphs,
     captures the graphs. Each turn starts from the same state and keyframe
     ids; its window ends in synchronize() and the loss's host fetch. The
     bundles' losses must lie within the eager runs' spread, every turn must
-    launch one K1, K5, K6, K7, K8, K9 and K10 a step, and the bundles'
-    launches must equal the eager loop's."""
+    launch one K1, K5, K6, K7, K8, K9, K10, K11 and K12 a step, and the
+    bundles' launches must equal the eager loop's."""
     import torch
 
 
@@ -1542,12 +1832,12 @@ def bundle_turns(dev, card: str, tag: str, what: str, step, make_bundle, graphs,
     if gap > tol:
         raise AssertionError("the bundles' loss lies outside the eager runs' spread")
     want = runs[0][1]["launches"]
-    once = ("forward", "preprocess_forward", "preprocess_backward", "sparse_adam") + BINNING
+    once = (("forward", "preprocess_forward", "preprocess_backward", "sparse_adam") + BINNING
+            + SSIM)
     if (any(want[k] != steps for k in once)
             or any(r["launches"] != want for _, r in runs + [("", first)])):
-        raise AssertionError(f"the launches are not one K1, K5, K6, K7, K8, K9 and K10 a "
-                             f"step, or the "
-                             f"bundles' differ from the eager loop's: "
+        raise AssertionError(f"the launches are not one K1, K5, K6, K7, K8, K9, K10, K11 and "
+                             f"K12 a step, or the bundles' differ from the eager loop's: "
                              + str([r["launches"] for _, r in runs]))
     ms = {name: [r["ms"] for nm, r in runs if nm == name] for name in ("eager", "bundle")}
     return dict(ms_per_step=ms, losses=dict(eager=eager_l, bundle=bundle_l), first=first,
@@ -1717,9 +2007,13 @@ def phase_app(dev, card: str, frames, tmp: str, config: str = CONFIG) -> dict:
         raise AssertionError(f"a kernel never launched in the application's stream: {stream_l}")
     check_binning_launches(stream_l, "phase 5's stream")
     check_binning_launches(eval_l, "phase 5's finalize")
+    check_loss_launches(stream_l, "phase 5's stream")
     if n_views != len(frames) or eval_l["forward"] < n_views:
         raise AssertionError(f"K1 ran {eval_l['forward']} times for {n_views} eval views "
                              f"of {len(frames)} frames")
+    if eval_l["ssim_forward"] != n_views or eval_l["ssim_backward"]:
+        raise AssertionError(f"not one K11 (and no K12) per eval view: {eval_l} for "
+                             f"{n_views} views")
     metrics = [f"{s}_{m}" for s in ("train", "test") for m in ("psnr", "ssim", "lpips")]
     if not all(res.get(k) is not None and math.isfinite(res[k]) for k in metrics):
         raise AssertionError(f"non-finite or missing eval metrics: {res}")
@@ -2042,6 +2336,7 @@ def phase_sharded(dev, card: str, slice_res: dict, app_res: dict, tmp: str) -> d
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel never launched on the sharded path: {launches}")
     check_binning_launches(launches, "phase 6d")
+    check_loss_launches(launches, "phase 6d")
     if not eng.graphs.captures:
         raise AssertionError("the mesh engine ran its bundles without CUDA graphs")
     if not abs(psnr - slice_res["train_psnr"]) < ENGINE_PSNR_DB:
@@ -2308,6 +2603,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += phase_binning(scenes, state["rates"])
     log(f"[2d] phase seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    kernels += phase_ssim(scenes, state["rates"])
+    log(f"[2e] phase seconds {time.perf_counter() - t0:.2f}")
     t0 = time.perf_counter()
     probes = phase_probes(state, scenes)
     del scenes

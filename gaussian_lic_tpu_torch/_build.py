@@ -62,6 +62,12 @@ _SIGNATURES = {
     "glic_bin_ranges": (_VP, _VP, _LL, _LL, _I, _I, _I, _I) + (_VP,) * 5,
     # table, n_rows, ids, m, out, stream
     "glic_gather_splats": (_VP, _LL, _VP, _LL, _VP, _VP),
+    # x, x channel and row strides, y, its strides, C, H, W, r0, r1, konst (13
+    # host floats), partials (or null), block_sums, stream
+    "glic_ssim_forward": (_VP, _LL, _LL, _VP, _LL, _LL) + (_I,) * 5 + (_VP,) * 4,
+    # x, its strides, y, its strides, C, H, W, r0, r1, konst, partials, grad,
+    # d, stream
+    "glic_ssim_backward": (_VP, _LL, _LL, _VP, _LL, _LL) + (_I,) * 5 + (_VP,) * 5,
     # rows, m_pad, starts, lens, color, final_t, n_contrib,
     # n_tx, n_ty, tile_w, tile_h, no_color, stream
     "glic_blend_forward": (_VP, _LL, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),

@@ -69,9 +69,9 @@ from gaussian_lic_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 PARAM_GROUPS = ("xyz", "dc", "sh_rest", "opacity", "log_scale", "quat")
 # The launch counters of the kernels a train step runs (K1/K2, K5/K6, K7,
-# K8-K10).
+# K8-K10, K11/K12).
 KERNEL_LAUNCHES = (blend.LAUNCHES, preprocess.LAUNCHES, adam_ops.LAUNCHES,
-                   tiles_ops.LAUNCHES)
+                   tiles_ops.LAUNCHES, losses.LAUNCHES)
 MAP_FIELDS = ("xyz", "dc", "sh_rest", "log_scale", "quat", "opa_logit", "count", "exposure")
 
 Device = Union[str, torch.device]
@@ -230,8 +230,8 @@ class BundleGraphs:
     stream (a warm-up: it loads the kernels and starts autograd's device
     thread, which a capture must not do); train_step writes none of its
     inputs and its outputs are dropped, so the set does not advance.
-    The kernels' counters (`KERNEL_LAUNCHES`: K1/K2, K5/K6, K7, K8-K10)
-    count the launches whose results the run uses: each graph records the launches
+    The kernels' counters (`KERNEL_LAUNCHES`: K1/K2, K5/K6, K7, K8-K10,
+    K11/K12) count the launches whose results the run uses: each graph records the launches
     of its capture (which executes nothing) and adds them at every replay;
     the warm-up's are set aside in `warmup_launches`. A capture or replay
     that fails raises: nothing here falls back to the eager steps. `captures` holds (k, seconds, bytes the

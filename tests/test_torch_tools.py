@@ -217,13 +217,34 @@ def test_k6_occupancy_needs_the_card_and_finds_its_bounds(monkeypatch, capsys):
 
 
 def test_ab_train_step_reads_every_kernel_of_the_step():
-    """A --kernels run prints K1, K2, K5, K6 and K7; the tool reads them in
-    that order, and its child times each of them."""
+    """A --kernels run prints K1, K2, K5, K6, K7, K11 and K12; the tool reads
+    them in that order (a checkout before K11 and K12 prints the first
+    five), and its child times each of them."""
     ab = tool("ab_train_step")
     line = ("[ab] NVIDIA H100 80GB HBM3, 700.00 W: K1 0.6921 ms  K2 1.1694 ms  K5 0.1571 ms  "
-            "K6 0.2006 ms  K7 0.5943 ms\n")
-    assert ab._readings("other\n" + line, kernels=True) == (0.6921, 1.1694, 0.1571, 0.2006,
-                                                           0.5943)
-    assert ab.KERNELS == ("K1", "K2", "K5", "K6", "K7")
+            "K6 0.2006 ms  K7 0.5943 ms")
+    assert ab._readings("other\n" + line + "\n", kernels=True) == (0.6921, 1.1694, 0.1571,
+                                                                   0.2006, 0.5943)
+    assert ab._readings(line + "  K11 0.0400 ms  K12 0.0300 ms\n", kernels=True) == (
+        0.6921, 1.1694, 0.1571, 0.2006, 0.5943, 0.04, 0.03)
+    assert ab.KERNELS == ("K1", "K2", "K5", "K6", "K7", "K11", "K12")
     for k in ab.KERNELS:
         assert f'ms["{k}"]' in ab._KERNELS or f'"{k}":' in ab._KERNELS
+
+
+@pytest.mark.parametrize("kernel,owner", [
+    ("void glic_ssim::ssim_forward_kernel<true>(float const*, long long, long long, float "
+     "const*, long long, long long, int, int, int, int, int, glic_ssim::Konst, float*, float*)",
+     "K11 ssim forward"),
+    ("glic_ssim::ssim_forward_kernel<false>(float const*, long long)", "K11 ssim forward"),
+    ("glic_ssim::ssim_backward_kernel(float const*, long long, long long, float const*, long "
+     "long, long long, int, int, int, int, int, glic_ssim::Konst, float const*, float const*, "
+     "float*)", "K12 ssim backward"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>>",
+     "elementwise"),
+])
+def test_profile_owners_of_the_loss_kernels(kernel, owner):
+    """tools/profile_torch_step.py gives K11's and K12's kernels (both
+    instantiations of K11) their owners, and PyTorch's elementwise kernels
+    stay elementwise."""
+    assert tool("profile_torch_step").owner(kernel) == owner

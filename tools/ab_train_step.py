@@ -17,7 +17,9 @@ bundles and eager (each the mean of the run's two turns). With
 events, 50 launches each after a warm-up) on the arguments of that train
 step (`step_scene`): K1 and K2 on its splat list, K5 and K6 on its
 parameters and camera (K6 on K2's (P, 9) output), K7 on the six groups
-with K6's gradients and zero moments; the lists are of each kernel's ms.
+with K6's gradients and zero moments, K11 and K12 on K1's image and the
+keyframe's (a checkout without them prints n/a); the lists are of each
+kernel's ms.
 Needs a CUDA device; imports no JAX.
 """
 
@@ -72,9 +74,18 @@ visible = (pre.preprocess_forward(*fargs)[2] > 0) & x["active"]
 lrs = dict(xyz=1.6e-4, dc=2.5e-3, sh_rest=1.25e-4, opacity=0.05, log_scale=5e-3, quat=1e-3)
 ms["K7"] = cuda_ms(lambda: adam.sparse_adam_update_groups(params, grads, states, visible, lrs),
                    50, warmup=3)
+from gaussian_lic_tpu_torch.ops import losses
+if hasattr(losses, "ssim_forward"):   # K11 and K12 (a checkout before them has neither)
+    img = blend.blend_forward(*args, **kw)[0][:, :g.height, :g.width].contiguous()
+    gt = sc["gt"]
+    n = img.numel()
+    d_sums = torch.tensor([-0.2 / n, 0.8 / n], device=dev)
+    maps = losses.ssim_forward(img, gt)[1]
+    ms["K11"] = cuda_ms(lambda: losses.ssim_forward(img, gt), 50, warmup=3)
+    ms["K12"] = cuda_ms(lambda: losses.ssim_backward(img, gt, maps, d_sums), 50, warmup=3)
 print(f"[ab] {card_line()}: " + "  ".join(f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
 """
-KERNELS = ("K1", "K2", "K5", "K6", "K7")
+KERNELS = ("K1", "K2", "K5", "K6", "K7", "K11", "K12")
 
 
 def main(argv=None) -> int:
@@ -82,7 +93,7 @@ def main(argv=None) -> int:
     ap.add_argument("trees", nargs="+", help="checkout directories (each holds chip_smoke.py)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--kernels", action="store_true",
-                    help="time the train step's kernels K1, K2, K5, K6, K7 alone")
+                    help="time the train step's kernels K1, K2, K5-K7, K11 and K12 alone")
     args = ap.parse_args(argv)
     child = _KERNELS if args.kernels else _CHILD
     whats = (tuple(f"{k} ms" for k in KERNELS) if args.kernels
@@ -109,7 +120,8 @@ def main(argv=None) -> int:
         ms[t].append(values)
     for t in trees:
         for i, what in enumerate(whats):
-            print(f"{t}: {what} " + " ".join(f"{v[i]:.4f}" for v in ms[t]))
+            print(f"{t}: {what} " + " ".join(f"{v[i]:.4f}" if i < len(v) else "n/a"
+                                             for v in ms[t]))
     return 0
 
 
@@ -119,7 +131,7 @@ def _readings(stdout: str, kernels: bool):
     of its turns. None if the run printed none."""
     if kernels:
         m = re.search(r"^\[ab\].*$", stdout, re.M)
-        found = re.findall(r"K\d ([0-9.]+) ms", m.group(0)) if m else []
+        found = re.findall(r"K\d+ ([0-9.]+) ms", m.group(0)) if m else []
         return tuple(float(v) for v in found) or None
     turns = {mode: [float(v) for v in re.findall(rf"^\[4\].*\), {mode}: ([0-9.]+) ms/step",
                                                  stdout, re.M)]
