@@ -63,10 +63,15 @@ exit code is not 0:
      sort of its 32-bit keys and K10 on K9's list in the whole grid (at
      the scene's budget and at a budget cut) and in every band of D = 2, 4
      and 8; each bit for bit against its plain version (K10 also against
-     `index_select`),
+     `index_select`), K8 also from depth keys (compute_slot_keys_kmajor),
      timed beside it (20 calls in a CUDA graph, as the bundles run them,
      and eagerly), with its bytes bound; the sort timed on the keys as
-     int64 and as int32 in turns;
+     int64 and as int32 in turns; K8's timing variants (tiles.K8_VARIANTS,
+     instantiations of K8's own template: those that compute K8's outputs
+     bit for bit against it) timed beside each other in turns, and the
+     warp-slots in which K8 runs the power's body against those of the
+     listed design, counted from the slot mask (k8_warp_slots); the built
+     SASS of K8 beside its probe's base;
   2e. the loss kernels K11 (SSIM and L1 forward: the window's two sums and
      the three partial maps) and K12 (d loss / d img), on phase 2's two
      inputs (the 20k scene's render against a seeded smooth-ish target, the
@@ -79,7 +84,12 @@ exit code is not 0:
      the small shapes); then each timed (20 calls in a CUDA graph) beside its
      plain version, the plain chain's forward and autograd backward (the
      path before the kernels) and the library's blurs (a depthwise F.conv2d
-     pair, TF32 off), with its bytes and operations bounds;
+     pair, TF32 off), with its bytes and operations bounds; K11's timing
+     variants (losses.K11_VARIANTS: other geometries, persistent blocks,
+     the first design, each with one cost centre taken out) timed beside
+     each other in turns, those that compute K11's outputs held bit for bit
+     (partial maps) and within SSIM_SUM_RTOL (sums) wherever K11 is; the
+     built SASS of K11 beside its probe's base;
   3. the slice: MappingEngine.add_frame over a 40-frame synthetic stream at
      the fastlivo rig (640x512, SH 3, 16 tile slots, capacity 262144), its
      steps in bundles (CUDA graphs); the launch counters are zeroed just
@@ -940,9 +950,13 @@ K8_SLOT_FP32 = 86
 K8_SLOT_MUFU = 2
 
 
-def evaluated_slots(xy, radius, live, grid, K, band=None) -> int:
-    """The slots whose power K8 evaluates: live, in the rect and, with
-    `band` (ty0, n_ty), in the band."""
+K8_BLOCK = 256             # csrc/bin_keys.cuh kThreads: Gaussians a block
+K8_CHUNK = 8               # csrc/bin_keys.cuh kChunk: slots a pass of the listed design
+
+
+def evaluated_mask(xy, radius, live, grid, K, band=None):
+    """(K, P) bool: the slots whose power K8 evaluates, live, in the rect
+    and, with `band` (ty0, n_ty), in the band."""
     import torch
 
     from gaussian_lic_tpu_torch.ops import tiles
@@ -954,7 +968,32 @@ def evaluated_slots(xy, radius, live, grid, K, band=None) -> int:
     if band is not None:
         ty = rminy[None] + torch.div(k, w.clamp_min(1)[None], rounding_mode="floor")
         ok &= (ty >= band[0]) & (ty < band[0] + band[1])
-    return int(ok.sum())
+    return ok
+
+
+def evaluated_slots(xy, radius, live, grid, K, band=None) -> int:
+    """The number of slots whose power K8 evaluates (evaluated_mask)."""
+    return int(evaluated_mask(xy, radius, live, grid, K, band).sum())
+
+
+def k8_warp_slots(ok) -> dict:
+    """From the (K, P) mask of the slots K8 evaluates (evaluated_mask): the
+    evaluated slots; `serial`, the warp-slots in which the first design runs
+    the power's body (32 Gaussians a warp, slot k wherever one of its lanes
+    evaluates it); `listed`, the warp passes of the listed design (each
+    block's evaluated pairs of each K8_CHUNK slots, 32 to a pass); and the
+    warp-slots of the first design in all (`warps`)."""
+    import torch
+
+    K, P = ok.shape
+    pad = -P % K8_BLOCK
+    m = torch.cat([ok, ok.new_zeros((K, pad))], 1)
+    listed = 0
+    for chunk in torch.split(m, K8_CHUNK, 0):
+        n = chunk.reshape(chunk.shape[0], -1, K8_BLOCK).sum((0, 2))
+        listed += int(((n + 31) // 32).sum())
+    return dict(evaluated=int(ok.sum()), serial=int(m.reshape(K, -1, 32).any(2).sum()),
+                listed=listed, warps=K * (-(-P // 32)))
 
 
 def binning_bytes(P: int, K: int, m_eff: int, m_pad: int, T: int, rows: int) -> dict:
@@ -999,6 +1038,41 @@ def graph_ms(fn, reps: int = 20) -> float:
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / reps
     del graph
+    return ms
+
+
+def in_turns(calls: dict, turns: int = 2) -> dict:
+    """Each of `calls` timed with graph_ms, in turns: the calls in order,
+    then in the reverse order, `turns` times. Returns each call's ms, one
+    reading a turn."""
+    names = list(calls)
+    ms = {k: [] for k in names}
+    for t in range(turns):
+        for k in names if t % 2 == 0 else names[::-1]:
+            ms[k].append(graph_ms(calls[k]))
+    return ms
+
+
+def k8_variants(args, grid, K: int, bits: int, kw: dict, want, tag: str) -> dict:
+    """K8's timing variants (tiles.K8_VARIANTS) on K8's arguments: those that
+    compute K8's outputs must equal `want`, K8's outputs, bit for bit; then
+    every variant is timed beside the others in turns (in_turns). Returns
+    each variant's ms."""
+    import torch
+
+    from gaussian_lic_tpu_torch.ops import tiles
+
+    for v in tiles.K8_VARIANTS:
+        got = tiles.bin_keys_probe(v, *args, grid, K, bits, **kw)
+        torch.cuda.synchronize()
+        if v not in tiles.K8_TIMING_ONLY and not all(
+                a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{tag}: K8 variant {v} differs from K8")
+    ms = in_turns({v: functools.partial(tiles.bin_keys_probe, v, *args, grid, K, bits, **kw)
+                   for v in tiles.K8_VARIANTS})
+    log(f"[2d] {tag} K8 variants in turns (ms, 20 calls in a CUDA graph; all but "
+        f"{', '.join(tiles.K8_TIMING_ONLY)} bit for bit K8): "
+        + "  ".join(f"{v} " + "/".join(f"{t:.4f}" for t in ms[v]) for v in ms))
     return ms
 
 
@@ -1062,14 +1136,22 @@ def check_binning(sc: dict, rates: dict, tag: str) -> dict:
                     f"of {T} tiles empty): bit for bit their plain versions")
         if D == 1:   # the main path's list: timed below
             keys, sk_main, ss_main = k8[0], sk, ss
+    live = active & (radius > 0)
+    dk = tiles.depth_key(depth, bits)
+    dargs = (args[0], None, args[2], args[3], args[4], live)
+    check("K8 from depth keys (compute_slot_keys_kmajor)",
+          tiles.bin_keys(*dargs, g, K, bits, dkey=dk),
+          tiles.bin_keys_plain(*dargs, g, K, bits, dkey=dk))
     sk, ss = sk_main, ss_main
     ids = tiles.bin_ranges(sk, ss, m_eff, m_pad, P, T, bits)[0]
     if not torch.equal(tiles.gather_splats(table, ids), table.index_select(0, ids)):
         raise AssertionError(f"{tag}: K10 differs from index_select")
     log(f"[2d] {tag} K8, K9 and K10 in every band of D = "
-        f"{', '.join(map(str, BAND_MESHES))} (the grid's depth bits): bit for bit their "
-        f"plain versions; K10 equals index_select")
+        f"{', '.join(map(str, BAND_MESHES))} (the grid's depth bits) and K8 from depth keys: "
+        f"bit for bit their plain versions; K10 equals index_select")
     grid_band = dict(band_ty0=0, band_n_ty=g.n_ty)
+    variants = k8_variants(args, g, K, bits, grid_band, tiles.bin_keys(*args, g, K, bits,
+                                                                       **grid_band), tag)
 
     calls = {   # kernel, plain version, library call
         "bin_keys": (lambda: tiles.bin_keys(*args, g, K, bits, **grid_band),
@@ -1089,9 +1171,9 @@ def check_binning(sc: dict, rates: dict, tag: str) -> dict:
                for k in (keys64, keys, keys, keys64)]
     log(f"[2d] {tag} stable sort of {keys.numel()} keys, in turns int64 int32 int32 int64: "
         + " ".join(f"{v:.4f}" for v in sort_ms) + " ms")
-    live = active & (radius > 0)
     nbytes = binning_bytes(P, K, m_eff, m_pad, T, int(torch.unique(ids).numel()))
-    slots = evaluated_slots(args[0], radius, live, g, K, (0, g.n_ty))
+    ws = k8_warp_slots(evaluated_mask(args[0], radius, live, g, K, (0, g.n_ty)))
+    slots = ws["evaluated"]
     ops_ms = max(slots * K8_SLOT_FP32 / (rates["sms"] * FP32_LANES_PER_SM * rates["hz"]),
                  slots * K8_SLOT_MUFU / (rates["sms"] * MUFU_LANES_PER_SM * rates["hz"])) * 1e3
     res = {}
@@ -1108,7 +1190,12 @@ def check_binning(sc: dict, rates: dict, tag: str) -> dict:
             + f"  bound {b_ms:.4f} ms ({by}; {nbytes[k]} bytes"
             + (f", {slots} evaluated slots: {ops_ms:.4f} ms of operations" if k == "bin_keys"
                else "") + ")")
+    log(f"[2d] {tag} K8's {slots} evaluated slots: the first design runs the power's body in "
+        f"{ws['serial']} of {ws['warps']} warp-slots ({slots / max(32 * ws['serial'], 1):.1%} "
+        f"of their lanes busy), the listed design in {ws['listed']} warp passes "
+        f"({slots / max(32 * ws['listed'], 1):.1%})")
     res["sort_ms"] = sort_ms
+    res["variants"], res["warp_slots"] = variants, ws
     return res
 
 
@@ -1116,6 +1203,9 @@ def phase_binning(scenes, rates: dict) -> list:
     """K8, K9 and K10 on phase 2's 20k scene and on the 1M train step's
     inputs (check_binning); the kernels line's rows, with the train step's
     times and bounds."""
+    from gaussian_lic_tpu_torch import _build
+
+    check_base_is_production(_build.load().path, K8_BASE, "2d")
     light = check_binning(scenes[0], rates, f"{scenes[0]['n_gauss']}-Gaussian scene")
     step = check_binning(scenes[1], rates, f"{scenes[1]['n_gauss']}-Gaussian train step")
     src = "gaussian_lic_tpu_torch/csrc/"
@@ -1236,6 +1326,15 @@ def check_ssim(x, y, r0: int, r1: int, n_pixels: int, tag: str, f64: bool = Fals
                 losses.training_loss_band_part_plain(xr, y.to(dtype), n_pixels, lam))
         return torch.autograd.grad(loss, xr)[0]
 
+    for v in losses.K11_VARIANTS:   # the variants that compute K11's outputs
+        if v in losses.K11_TIMING_ONLY:
+            continue
+        v_sums, v_maps = losses.ssim_forward_probe(v, x, y, r0, r1)
+        v_rel = float(((v_sums.double() - p_sums.double()).abs()
+                       / p_sums.double().abs().clamp_min(1e-30)).max())
+        if ulps(v_maps, p_maps) or v_rel > SSIM_SUM_RTOL:
+            raise AssertionError(f"{tag}: K11 variant {v} disagrees with the plain version "
+                                 f"({ulps(v_maps, p_maps)} ulps, sums rel {v_rel:.3e})")
     res = dict(map_ulps=ulps(maps, p_maps), d_ulps=ulps(d, p_d),
                sum_rel=float(((sums.double() - p_sums.double()).abs()
                               / p_sums.double().abs().clamp_min(1e-30)).max()),
@@ -1304,6 +1403,21 @@ def time_ssim(x, y, lam: float = 0.2) -> dict:
     return ms
 
 
+def k11_variants(x, y, tag: str) -> dict:
+    """K11's timing variants (losses.K11_VARIANTS) on (x, y), the whole
+    image with partial maps, timed beside each other in turns (in_turns);
+    check_ssim holds the ones that compute K11's outputs. Returns each
+    variant's ms."""
+    from gaussian_lic_tpu_torch.ops import losses
+
+    ms = in_turns({v: functools.partial(losses.ssim_forward_probe, v, x, y)
+                   for v in losses.K11_VARIANTS})
+    log(f"[2e] {tag} K11 variants in turns (ms, 20 calls in a CUDA graph; all but "
+        f"{', '.join(losses.K11_TIMING_ONLY)} give K11's partial maps bit for bit): "
+        + "  ".join(f"{v} " + "/".join(f"{t:.4f}" for t in ms[v]) for v in ms))
+    return ms
+
+
 def ssim_inputs(sc: dict, gt=None, seed: int = 3):
     """(image, target) of scene `sc` on the card: K1's render at the scene's
     size and `gt`, or a smooth-ish seeded target made from the render (as
@@ -1336,6 +1450,9 @@ def phase_ssim(scenes, rates: dict) -> list:
 
     from gaussian_lic_tpu_torch.ops import losses
 
+    from gaussian_lic_tpu_torch import _build
+
+    check_base_is_production(_build.load().path, K11_BASE, "2e")
     h = losses.HALO
     worst = {k: 0.0 for k in ("map_abs", "sum_abs", "d_abs", "autograd", "autograd64")}
 
@@ -1379,6 +1496,7 @@ def phase_ssim(scenes, rates: dict) -> list:
 
     x, y = ssim_inputs(scenes[1], scenes[1]["gt"])
     C, H, W = x.shape
+    k11_variants(x, y, f"{scenes[1]['n_gauss']}-Gaussian train step {C}x{H}x{W}")
     ms = time_ssim(x, y)
     b = ssim_bounds(rates, C, H, W, H)
     log(f"[2e] time at {C}x{H}x{W}, 20 calls in a CUDA graph: K11 {ms['k11']:.4f} ms "
@@ -1542,12 +1660,17 @@ def sass_opcodes(sass: str, kernel: str) -> list:
 BLEND_BASES = (("K1 / K3 base", "blend_forward_kernelILi0E"),
                ("K2 / K4 base", "blend_backward_kernelILi0E"))
 K6_BASE = (("K6 / K6 probe base", "preprocess_backward_kernelILi0E"),)
+K8_BASE = (("K8 / K8 probe base", "bin_keys_kernelILi0E"),)
+K11_BASE = (("K11 / K11 probe base", "ssim_forward_kernelILi0ELb1E"),
+            ("K11 without partial maps / its probe base", "ssim_forward_kernelILi0ELb0E"))
 
 
 def check_base_is_production(lib_path: str, pairs=BLEND_BASES, phase: str = "2b") -> None:
     """K1 and K3 base are one template instantiation (kFwdBase of
-    blend_forward.cuh) built in two sources, K2 and K4 base likewise, and
-    K6 and its probe's base (K6_BASE, kK6Base of preprocess_backward.cuh):
+    blend_forward.cuh) built in two sources, K2 and K4 base likewise, K6
+    and its probe's base (K6_BASE, kK6Base of preprocess_backward.cuh), K8
+    and K11 and their probes' bases (K8_BASE, K11_BASE: kK8Base of
+    bin_keys.cuh, kK11Base of ssim_forward.cuh):
     the built SASS of each pair must hold the same opcodes in the same
     order."""
     sass = built_sass(lib_path)

@@ -57,6 +57,11 @@ _SIGNATURES = {
     # opacity threshold, keys, touched, sums, stream
     "glic_bin_keys": (_VP, _LL, _VP, _LL) + (_VP,) * 5 + (_LL,) + (_I,) * 8 + (_F,)
                      + (_VP,) * 4,
+    # bytes (or -1), previous (int*)
+    "glic_l2_fetch_granularity": (_I, _VP),
+    # variant, then glic_bin_keys' arguments
+    "glic_bin_keys_probe": (_I, _VP, _LL, _VP, _LL) + (_VP,) * 5 + (_LL,) + (_I,) * 8 + (_F,)
+                           + (_VP,) * 4,
     # keys, slots, m_eff, m_pad, P, T, depth_bits, tile0, sorted_gauss, starts,
     # lens, cnt, stream
     "glic_bin_ranges": (_VP, _VP, _LL, _LL, _I, _I, _I, _I) + (_VP,) * 5,
@@ -65,6 +70,8 @@ _SIGNATURES = {
     # x, x channel and row strides, y, its strides, C, H, W, r0, r1, konst (13
     # host floats), partials (or null), block_sums, stream
     "glic_ssim_forward": (_VP, _LL, _LL, _VP, _LL, _LL) + (_I,) * 5 + (_VP,) * 4,
+    # variant, then glic_ssim_forward's arguments
+    "glic_ssim_forward_probe": (_I, _VP, _LL, _LL, _VP, _LL, _LL) + (_I,) * 5 + (_VP,) * 4,
     # x, its strides, y, its strides, C, H, W, r0, r1, konst, partials, grad,
     # d, stream
     "glic_ssim_backward": (_VP, _LL, _LL, _VP, _LL, _LL) + (_I,) * 5 + (_VP,) * 5,

@@ -33,7 +33,8 @@ recorded with autograd, whose backward is autograd's), so the CPU's floats
 are those of the chains the port ran before the kernels (`*_plain` below).
 `ssim_forward_plain` and `ssim_backward_plain` are K11's and K12's plain
 versions, one rounded operation each in the kernels' order. `LAUNCHES`
-counts kernel launches. Nothing here reads back to the host, so the train
+counts kernel launches; `ssim_forward_probe` launches K11's timing variants
+(`K11_VARIANTS`, off the main path; `PROBE_LAUNCHES` counts them). Nothing here reads back to the host, so the train
 step stays capturable in a CUDA graph.
 """
 
@@ -50,15 +51,45 @@ C2 = 0.03**2
 _WINDOW_SIZE = 11
 _SIGMA = 1.5
 
-_TILE = 32   # a K11 block's output tile, kTile x kTile (csrc/ssim_common.cuh)
-
 # Launch counts of K11 and K12 (plain-version calls are not counted).
 LAUNCHES = {"ssim_forward": 0, "ssim_backward": 0}
+# K11's timing variants (csrc/ssim_forward.cuh K11Variant, in its order), off
+# the main path, and each one's output tile (tile width, tile height: its
+# kK11Shapes row), which sets its block count (the persistent `persist`
+# runs fewer blocks, each over several tiles, and uses as many rows). base
+# is K11; r8 (vertical segments of 8 rows), t32x16, t64x16, t64x16r4 and
+# t128x8r4 are the same design at other geometries, nofold it with the
+# blocks' sums left to the wrapper, persist its persistent blocks that take
+# tiles from a counter, first the first design and first_lb5 it at
+# 5 blocks an SM (all of them K11's partial maps bit for bit); nomaps,
+# nostage, novert and nohoriz take one cost centre out of K11, first_novert,
+# first_nohoriz and first_hregs out of the first design, and are timing
+# only. K11_FOLDS: the variants whose kernel sums its blocks' sums (the last
+# block, in a fixed order) into one more row.
+K11_TILES = {"base": (32, 32), "r8": (32, 32), "t32x16": (32, 16), "t64x16": (64, 16),
+             "nofold": (32, 32), "nomaps": (32, 32), "nostage": (32, 32), "novert": (32, 32),
+             "nohoriz": (32, 32), "t64x16r4": (64, 16), "t128x8r4": (128, 8),
+             "persist": (32, 32), "first": (32, 32), "first_novert": (32, 32),
+             "first_nohoriz": (32, 32), "first_hregs": (32, 32), "first_lb5": (32, 32)}
+K11_VARIANTS = tuple(K11_TILES)
+K11_TIMING_ONLY = ("nomaps", "nostage", "novert", "nohoriz", "first_novert", "first_nohoriz",
+                   "first_hregs")
+K11_FOLDS = ("base", "r8", "t32x16", "t64x16", "nomaps", "nostage", "novert", "nohoriz",
+             "t64x16r4", "t128x8r4", "persist")
+PROBE_LAUNCHES = {v: 0 for v in K11_VARIANTS}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counter in (LAUNCHES, PROBE_LAUNCHES):
+        for k in counter:
+            counter[k] = 0
+
+
+def k11_grid(C: int, rows: int, W: int, variant: str = "base") -> tuple:
+    """K11's launch grid (x, y, z) for a window of `rows` rows of a (C, H, W)
+    image: one block a tile of `variant`'s shape, per channel."""
+    tw, th = K11_TILES[variant]
+    return -(-W // tw), -(-rows // th), C
 
 
 def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -232,12 +263,9 @@ def _konst():
     return (ctypes.c_float * (_WINDOW_SIZE + 2))(*_TAPS, C1, C2)
 
 
-def ssim_forward(img: torch.Tensor, gt: torch.Tensor, r0: int = 0, r1: int = None,
-                 partials: bool = True):
-    """K11: (sums (2,), partial maps (3, C, r1 - r0, W) or None), as
-    `ssim_forward_plain` (CPU tensors: that function)."""
-    if _device_kind(img) == "cpu":
-        return ssim_forward_plain(img, gt, r0, r1, partials)
+def _k11(img, gt, r0, r1, partials, variant=None):
+    """K11 on CUDA tensors; with `variant`, that variant of K11_VARIANTS
+    through the probe entry."""
     from gaussian_lic_tpu_torch import _build
     from gaussian_lic_tpu_torch.ops.blend import _launch, _ptr, _stream
 
@@ -246,15 +274,48 @@ def ssim_forward(img: torch.Tensor, gt: torch.Tensor, r0: int = 0, r1: int = Non
     img = _image("img", img, img.shape, dev)
     gt = _image("gt", gt, img.shape, dev)
     C, H, W = img.shape
-    n_blocks = C * -(-(r1 - r0) // _TILE) * -(-W // _TILE)
-    block_sums = torch.empty((n_blocks, 2), dtype=torch.float32, device=dev)
+    variant_name = variant or "base"
+    n_blocks = int(np.prod(k11_grid(C, r1 - r0, W, variant_name)))
+    folds = variant_name in K11_FOLDS
+    block_sums = torch.empty((n_blocks + folds, 2), dtype=torch.float32, device=dev)
     maps = (torch.empty((3, C, r1 - r0, W), dtype=torch.float32, device=dev) if partials
             else None)
-    _launch(_build.load().cdll.glic_ssim_forward, _ptr(img), img.stride(0), img.stride(1),
-            _ptr(gt), gt.stride(0), gt.stride(1), C, H, W, r0, r1, _konst(),
-            _ptr(maps) if partials else ctypes.c_void_p(None), _ptr(block_sums), _stream(dev))
-    LAUNCHES["ssim_forward"] += 1
-    return block_sums.sum(0), maps
+    args = (_ptr(img), img.stride(0), img.stride(1), _ptr(gt), gt.stride(0), gt.stride(1), C, H,
+            W, r0, r1, _konst(), _ptr(maps) if partials else ctypes.c_void_p(None),
+            _ptr(block_sums), _stream(dev))
+    lib = _build.load().cdll
+    if variant is None:
+        _launch(lib.glic_ssim_forward, *args)
+        LAUNCHES["ssim_forward"] += 1
+    else:
+        _launch(lib.glic_ssim_forward_probe, K11_VARIANTS.index(variant), *args)
+        PROBE_LAUNCHES[variant] += 1
+    return (block_sums[n_blocks] if folds else block_sums.sum(0)), maps
+
+
+def ssim_forward(img: torch.Tensor, gt: torch.Tensor, r0: int = 0, r1: int = None,
+                 partials: bool = True):
+    """K11: (sums (2,), partial maps (3, C, r1 - r0, W) or None), as
+    `ssim_forward_plain` (CPU tensors: that function)."""
+    if _device_kind(img) == "cpu":
+        return ssim_forward_plain(img, gt, r0, r1, partials)
+    return _k11(img, gt, r0, r1, partials)
+
+
+def ssim_forward_probe(variant: str, img: torch.Tensor, gt: torch.Tensor, r0: int = 0,
+                       r1: int = None, partials: bool = True):
+    """K11's timing variant `variant` (K11_VARIANTS), with ssim_forward's
+    arguments and outputs. CPU tensors: `ssim_forward_plain` for the variants
+    that compute K11's outputs; the timing-only ones have no plain version
+    and raise."""
+    if variant not in K11_VARIANTS:
+        raise ValueError(f"unknown K11 variant {variant!r}; one of {K11_VARIANTS}")
+    if _device_kind(img) == "cpu":
+        if variant in K11_TIMING_ONLY:
+            raise ValueError(f"K11 {variant} is a timing probe of the card: it has no plain "
+                             "version")
+        return ssim_forward_plain(img, gt, r0, r1, partials)
+    return _k11(img, gt, r0, r1, partials, variant)
 
 
 def ssim_backward(img: torch.Tensor, gt: torch.Tensor, partials: torch.Tensor,

@@ -28,7 +28,8 @@ Dispatch by the tensors' device, as `ops/blend.py`: CUDA tensors launch the
 kernels (csrc/bin_keys.cu, csrc/bin_ranges.cu, csrc/gather_splats.cu) or
 raise; CPU tensors take the plain versions (`*_plain`: the PyTorch chains
 the port ran before the kernels, and `table[ids.long()]`). `LAUNCHES`
-counts kernel launches. Nothing here reads back to the host, so a train
+counts kernel launches. `bin_keys_probe` launches K8's timing variants
+(`K8_VARIANTS`, off the main path; `PROBE_LAUNCHES` counts them). Nothing here reads back to the host, so a train
 step that bins stays capturable in a CUDA graph.
 
 Everything here is bookkeeping without gradients; callers pass detached tensors.
@@ -52,11 +53,25 @@ KEY_FLIP = 1 << 31         # int32 key = uint32 key - 2^31: the top bit flipped
 
 # Launch counts of K8, K9 and K10 (plain-version calls are not counted).
 LAUNCHES = {"bin_keys": 0, "bin_ranges": 0, "gather_splats": 0}
+# K8's timing variants (csrc/bin_keys.cuh K8Variant), off the main path, by
+# their numbers there: base is K8; rcp takes 1 / t as __frcp_rn, vecload
+# reads the table's columns 0-3 as one 16-byte load, fold keeps the sums on
+# the device between blocks (no zeroed `sums`, so no fill before it), listed
+# evaluates the cull over a dense list of (Gaussian, slot) pairs (all bit for
+# bit); nopower (the cull always passes), onestore (one key store a
+# Gaussian), notable (no table stream), memonly (the loads and stores alone)
+# and listed_nopower are timing only.
+K8_VARIANT_IDS = {"base": 0, "nopower": 1, "onestore": 2, "rcp": 3, "vecload": 4, "notable": 5,
+                  "memonly": 6, "fold": 7, "listed": 8, "listed_nopower": 9}
+K8_VARIANTS = tuple(K8_VARIANT_IDS)
+K8_TIMING_ONLY = ("nopower", "onestore", "notable", "memonly", "listed_nopower")
+PROBE_LAUNCHES = {v: 0 for v in K8_VARIANTS}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counter in (LAUNCHES, PROBE_LAUNCHES):
+        for k in counter:
+            counter[k] = 0
 
 
 def keys_to_int32(keys: torch.Tensor) -> torch.Tensor:
@@ -315,6 +330,47 @@ def gather_splats_plain(table: torch.Tensor, sorted_gauss: torch.Tensor) -> torc
 # kernels
 # ---------------------------------------------------------------------------
 
+def _k8(xy, depth, conic, opacity, radius, active, grid: TileGrid, K: int, depth_bits: int,
+        band_ty0: int, band_n_ty, dkey, variant=None):
+    """K8 on CUDA tensors; with `variant`, that variant of K8_VARIANTS
+    through the probe entry."""
+    dev = xy.device
+    P = xy.shape[0]
+    xy = _rows_view("xy", xy, P, 2, dev)
+    conic = _rows_view("conic", conic, P, 3, dev)
+    if dkey is None:
+        _check("depth", depth, (P,), torch.float32, dev)
+    else:
+        _check("dkey", dkey, (P,), torch.int64, dev)
+    _check("opacity", opacity, (P,), torch.float32, dev)
+    _check("radius", radius, (P,), torch.float32, dev)
+    _check("active", active, (P,), torch.bool, dev)
+    keys = torch.empty(K * P, dtype=torch.int32, device=dev)
+    touched = torch.empty(P, dtype=torch.int32, device=dev)
+    # K8 adds its blocks' sums into zeros; `fold` writes them itself
+    sums = (torch.empty if variant == "fold" and P else torch.zeros)(2, dtype=torch.int32,
+                                                                      device=dev)
+    if P == 0:
+        return keys, touched, sums
+    from gaussian_lic_tpu_torch import _build
+
+    null = ctypes.c_void_p(None)
+    args = (_ptr(xy), xy.stride(0), _ptr(conic), conic.stride(0),
+            null if dkey is not None else _ptr(depth), null if dkey is None else _ptr(dkey),
+            _ptr(opacity), _ptr(radius), _ptr(active), P, K, depth_bits, grid.n_tx, grid.n_ty,
+            grid.tile_w, grid.tile_h, band_ty0, -1 if band_n_ty is None else band_n_ty,
+            ctypes.c_float(OPACITY_THRESHOLD), _ptr(keys), _ptr(touched), _ptr(sums),
+            _stream(dev))
+    lib = _build.load().cdll
+    if variant is None:
+        _launch(lib.glic_bin_keys, *args)
+        LAUNCHES["bin_keys"] += 1
+    else:
+        _launch(lib.glic_bin_keys_probe, K8_VARIANT_IDS[variant], *args)
+        PROBE_LAUNCHES[variant] += 1
+    return keys, touched, sums
+
+
 def bin_keys(xy, depth, conic, opacity, radius, active, grid: TileGrid, K: int,
              depth_bits: int, band_ty0: int = 0, band_n_ty: int = None, *, dkey=None):
     """K8: the K slot keys of every Gaussian. live = active & (radius > 0)
@@ -328,36 +384,29 @@ def bin_keys(xy, depth, conic, opacity, radius, active, grid: TileGrid, K: int,
     if xy.device.type == "cpu":
         return bin_keys_plain(xy, depth, conic, opacity, radius, active, grid, K, depth_bits,
                               band_ty0, band_n_ty, dkey=dkey)
-    dev = xy.device
-    if dev.type != "cuda":
-        raise ValueError(f"bin_keys takes CPU or CUDA tensors, got {dev}")
-    P = xy.shape[0]
-    xy = _rows_view("xy", xy, P, 2, dev)
-    conic = _rows_view("conic", conic, P, 3, dev)
-    if dkey is None:
-        _check("depth", depth, (P,), torch.float32, dev)
-    else:
-        _check("dkey", dkey, (P,), torch.int64, dev)
-    _check("opacity", opacity, (P,), torch.float32, dev)
-    _check("radius", radius, (P,), torch.float32, dev)
-    _check("active", active, (P,), torch.bool, dev)
-    keys = torch.empty(K * P, dtype=torch.int32, device=dev)
-    touched = torch.empty(P, dtype=torch.int32, device=dev)
-    sums = torch.zeros(2, dtype=torch.int32, device=dev)
-    if P == 0:
-        return keys, touched, sums
-    from gaussian_lic_tpu_torch import _build
+    if xy.device.type != "cuda":
+        raise ValueError(f"bin_keys takes CPU or CUDA tensors, got {xy.device}")
+    return _k8(xy, depth, conic, opacity, radius, active, grid, K, depth_bits, band_ty0,
+               band_n_ty, dkey)
 
-    null = ctypes.c_void_p(None)
-    _launch(_build.load().cdll.glic_bin_keys,
-            _ptr(xy), xy.stride(0), _ptr(conic), conic.stride(0),
-            null if dkey is not None else _ptr(depth), null if dkey is None else _ptr(dkey),
-            _ptr(opacity), _ptr(radius), _ptr(active), P, K, depth_bits, grid.n_tx, grid.n_ty,
-            grid.tile_w, grid.tile_h, band_ty0, -1 if band_n_ty is None else band_n_ty,
-            ctypes.c_float(OPACITY_THRESHOLD), _ptr(keys), _ptr(touched), _ptr(sums),
-            _stream(dev))
-    LAUNCHES["bin_keys"] += 1
-    return keys, touched, sums
+
+def bin_keys_probe(variant, xy, depth, conic, opacity, radius, active, grid: TileGrid, K: int,
+                   depth_bits: int, band_ty0: int = 0, band_n_ty: int = None, *, dkey=None):
+    """K8's timing variant `variant` (K8_VARIANTS), with bin_keys' arguments
+    and outputs. CPU tensors: `bin_keys_plain` for the variants that compute
+    K8's outputs; the timing-only ones have no plain version and raise."""
+    if variant not in K8_VARIANTS:
+        raise ValueError(f"unknown K8 variant {variant!r}; one of {K8_VARIANTS}")
+    if xy.device.type == "cpu":
+        if variant in K8_TIMING_ONLY:
+            raise ValueError(f"K8 {variant} is a timing probe of the card: it has no plain "
+                             "version")
+        return bin_keys_plain(xy, depth, conic, opacity, radius, active, grid, K, depth_bits,
+                              band_ty0, band_n_ty, dkey=dkey)
+    if xy.device.type != "cuda":
+        raise ValueError(f"bin_keys takes CPU or CUDA tensors, got {xy.device}")
+    return _k8(xy, depth, conic, opacity, radius, active, grid, K, depth_bits, band_ty0,
+               band_n_ty, dkey, variant)
 
 
 def bin_ranges(sorted_keys, sorted_slots, m_eff: int, m_pad: int, P: int, num_tiles: int,

@@ -16,11 +16,17 @@ copies of floats). Inputs are made with numpy from a seed.
     negative depth whose key spills into the tile field).
   * K10's plain gather equals jnp.take(..., mode="fill") with the dead id P.
 
+CPU, chip_smoke's helpers: the slot mask K8 evaluates and the warp-slots
+of its two designs; K8's variant numbers are the kernel's.
+
 Card (`requires_cuda`): each kernel against its plain version on the card,
 bit for bit: K8 on the edge rows (and a NaN mean) at P = 1, 3, 129 and
 2001, at the 11 tile shapes of 1024 pixels and a 24x40 tile (whose 1/24 is
 not exact), band and global tile ids, depth and depth-key inputs, the mean
-and conic as strided views of a splat table; K9 and K10 on the lists K8
+and conic as strided views of a splat table; K8's listed design on a
+partial block, an all-dead block, a block of rects of K tiles or more, an
+empty band, K = 1 and 16, three launches in a row; every K8 variant that
+claims K8's outputs against K8; K9 and K10 on the lists K8
 produces (empty tiles, a budget cut, m_eff == P K, bands); `bin_gaussians`
 and the gather captured in a CUDA graph and replayed on new inputs.
 
@@ -295,6 +301,87 @@ def test_cpu_tensors_take_the_plain_versions():
     assert ttiles.LAUNCHES == before
 
 
+def chip_smoke():
+    """chip_smoke.py as a module (its helpers run on the CPU)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def test_k8_warp_slots_from_the_slot_mask():
+    """chip_smoke.k8_warp_slots: the first design runs the power's body in
+    every (warp of 32 Gaussians, slot) where one lane evaluates the slot;
+    the listed design in ceil(pairs / 32) passes for each block of 256
+    Gaussians and each 8 slots."""
+    cs = chip_smoke()
+    ok = torch.zeros((2, 300), dtype=torch.bool)
+    ok[0, :70] = True          # warps 0-2 at slot 0
+    ok[1, 5] = True            # warp 0 at slot 1
+    ok[0, 256:260] = True      # the second block: warp 8
+    assert cs.k8_warp_slots(ok) == dict(evaluated=75, serial=5, listed=3 + 1,
+                                        warps=2 * 10)
+    ok = torch.zeros((16, 256), dtype=torch.bool)
+    ok[:, 0] = True            # one Gaussian, 16 slots: two passes of 8 slots
+    assert cs.k8_warp_slots(ok) == dict(evaluated=16, serial=16, listed=2, warps=16 * 8)
+    assert cs.k8_warp_slots(torch.zeros((8, 3), dtype=torch.bool))["listed"] == 0
+
+
+def test_evaluated_mask_is_the_slots_k8_evaluates():
+    """chip_smoke.evaluated_mask: live, in the rect and in the band, the
+    slots whose keys the plain version can keep."""
+    cs = chip_smoke()
+    d = scene(np.random.default_rng(4), 500)
+    g = ttiles.TileGrid(256, 128, 32, 32)
+    x = {k: t(v) for k, v in d.items()}
+    live = x["active"] & (x["radius"] > 0)
+    for band in (None, (1, 2)):
+        ok = cs.evaluated_mask(x["xy"], x["radius"], live, g, 8, band)
+        kw = {} if band is None else dict(band_ty0=band[0], band_n_ty=band[1])
+        keys = ttiles.bin_keys_plain(*(x[k] for k in NAMES), g, 8, 20, **kw)[0]
+        kept = (keys != ttiles.keys_to_int32(torch.tensor([ttiles.INVALID_KEY]))).reshape(8, -1)
+        assert ok.shape == (8, 500) and bool((kept <= ok).all()) and int(ok.sum()) > int(
+            kept.sum()) > 0
+        assert cs.evaluated_slots(x["xy"], x["radius"], live, g, 8, band) == int(ok.sum())
+
+
+def test_k8_variant_numbers_are_the_kernels():
+    """ops/tiles.py K8_VARIANT_IDS holds csrc/bin_keys.cuh's K8Variant
+    numbers, and only variants that compute K8's outputs have a plain
+    version on the CPU."""
+    import os
+    import re
+
+    from torch_port_helpers import ROOT
+
+    with open(os.path.join(ROOT, "gaussian_lic_tpu_torch", "csrc", "bin_keys.cuh")) as f:
+        enum = dict(re.findall(r"^  (kK8\w+) = (\d+),", f.read(), re.M))
+    camel = {"base": "Base", "nopower": "NoPower", "onestore": "OneStore", "rcp": "Rcp",
+             "vecload": "VecLoad", "notable": "NoTable", "memonly": "MemOnly", "fold": "Fold",
+             "listed": "Listed", "listed_nopower": "ListedNoPower"}
+    want = {k: int(enum["kK8" + v]) for k, v in camel.items()}
+    assert set(enum) == {"kK8" + v for v in camel.values()}
+    assert ttiles.K8_VARIANT_IDS == want
+    d, grid, K, M = case_inputs("overflow_k8")
+    g = ttiles.TileGrid(*grid)
+    args = [t(d[k]) for k in NAMES]
+    plain = ttiles.bin_keys_plain(*args, g, K, 20)
+    for v in ttiles.K8_VARIANTS:
+        if v in ttiles.K8_TIMING_ONLY:
+            with pytest.raises(ValueError, match="timing probe"):
+                ttiles.bin_keys_probe(v, *args, g, K, 20)
+        else:
+            got = ttiles.bin_keys_probe(v, *args, g, K, 20)
+            assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    with pytest.raises(ValueError, match="unknown K8 variant"):
+        ttiles.bin_keys_probe("fast", *args, g, K, 20)
+
+
 # ---------------------------------------------------------------------------
 # card: each kernel against its plain version, bit for bit
 # ---------------------------------------------------------------------------
@@ -368,6 +455,79 @@ def test_k8_sizes_and_inputs(cuda_device, P, K):
         want = ttiles._slot_keys_chain(x["xy"], dk, x["conic"], x["opacity"], x["radius"], live,
                                        ttiles.TileGrid(*grid), K, bits)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def listed_case(name, rng):
+    """(scene, grid, K, K8 keyword arguments) of one of the listed design's
+    edge cases: a block whose Gaussians are all dead, a block whose every
+    Gaussian's rect holds K tiles or more, an empty band, P not a multiple
+    of the 256-Gaussian block, K = 1 and K = 16 (two passes of 8 slots)."""
+    grid = (256, 128, 32, 32)
+    K = 16 if name == "k16" else 1 if name == "k1" else 8
+    P = 1000 if name == "partial_block" else 768
+    d = scene(rng, P)
+    kw = dict(band_ty0=0, band_n_ty=4)
+    if name == "dead_block":
+        d["active"][256:512] = False
+    if name in ("wide_block", "k16"):   # rects of 4 x 4 tiles (>= K at K = 8 and 16)
+        d["xy"][256:512] = np.array([128.0, 64.0], np.float32)
+        d["radius"][256:512] = 60.0
+        d["conic"][256:512] = np.array([1e-4, 0.0, 1e-4], np.float32)
+        d["opacity"][256:512] = 0.9
+        d["active"][256:512] = True
+    if name == "empty_band":
+        kw = dict(band_ty0=2, band_n_ty=0)
+    return d, grid, K, kw
+
+
+LISTED_CASES = ["partial_block", "dead_block", "wide_block", "empty_band", "k1", "k16"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", LISTED_CASES)
+def test_k8_listed_design_edge_blocks(cuda_device, name):
+    """K8 and its listed design bit for bit with the plain version on the
+    listed design's edge cases (listed_case), band and global tile ids; the
+    listed design and the device-kept sums (`fold`) launched three times in
+    a row."""
+    d, grid, K, kw = listed_case(name, np.random.default_rng(len(name)))
+    x = on(cuda_device, d)
+    g = ttiles.TileGrid(*grid)
+    bits = ttiles.rank_bits_for(g.num_tiles)
+    args = [x[k] for k in NAMES]
+    for mode in (kw, {}, kw):
+        keys, touched, sums = assert_keys_match(x, grid, K, bits, **mode)
+        for v in ("listed", "fold"):
+            got = ttiles.bin_keys_probe(v, *args, g, K, bits, **mode)
+            assert all(torch.equal(a, b) for a, b in zip(got, (keys, touched, sums))), v
+    if name == "wide_block":
+        assert int(sums[0]) > 0      # the wide rects lost tiles to the K-slot cap
+    if name == "empty_band":
+        assert int(sums[1]) == 0 and int(touched.sum()) == 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("variant", [v for v in ttiles.K8_VARIANTS
+                                     if v not in ttiles.K8_TIMING_ONLY])
+@pytest.mark.parametrize("name", ["partial_block", "wide_block", "k16"])
+def test_k8_variants_bit_for_bit(cuda_device, variant, name):
+    """Every K8 variant that claims K8's outputs (rcp, the 16-byte loads, the
+    sums kept on the device, the listed design) equals K8 bit for bit, with
+    the table's strided views (the 16-byte path) and with contiguous means
+    and conics; the device-kept sums start from zero at every launch."""
+    d, grid, K, kw = listed_case(name, np.random.default_rng(7))
+    bits = ttiles.rank_bits_for(ttiles.TileGrid(*grid).num_tiles)
+    g = ttiles.TileGrid(*grid)
+    for views in (True, False):
+        x = on(cuda_device, d, table_views=views)
+        args = [x[k] for k in NAMES]
+        want = ttiles.bin_keys(*args, g, K, bits, **kw)
+        before = ttiles.PROBE_LAUNCHES[variant]
+        got = ttiles.bin_keys_probe(variant, *args, g, K, bits, **kw)
+        torch.cuda.synchronize()
+        assert ttiles.PROBE_LAUNCHES[variant] == before + 1
+        for what, a, b in zip(("keys", "tiles_touched", "sums"), got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), what
 
 
 def plain_binning(x, grid, K, M, align=256, **kw):

@@ -19,12 +19,19 @@ halo rows at D = 2 and 4. Inputs are made with numpy from a seed.
   * `ssim`, `training_loss` and `training_loss_band_part` still match JAX's
     values; a meta tensor raises; the module imports no JAX.
 
+CPU, K11's geometry: each variant's tile in ops/losses.py is the kernel's,
+and its launch grid; the variants on CPU tensors.
+
 Card (`requires_cuda`): K11's sums and partial maps and K12's gradient
 against their plain versions on the card (the partial maps and the
 gradient bit for bit, the sums within SUM_RTOL), at the CPU tests' shapes,
 bands and a strided view; the loss and gradient through `SSIMLoss` against
 autograd of the plain chain; a gt that needs a gradient raises; a train
 loss and its backward captured in a CUDA graph and replayed on new inputs.
+K11's tile: tiles cut by the image's edges (W not a multiple of 4, C = 1,
+W below a tile), windows that start and end inside a tile, the sums of two
+eager runs and of graph replays bit for bit, every variant that claims
+K11's outputs against the plain version; K12 unchanged.
 
 JAX is imported inside the tests that use it, so the card tests collect on
 a machine without it.
@@ -282,6 +289,46 @@ def test_kernel_constants_are_pytorchs_floats():
     assert np.array_equal(k[:11], tl._gaussian_window())
 
 
+def test_k11_grid_is_the_kernels():
+    """losses.K11_TILES holds each variant's tile as csrc/ssim_forward.cuh's
+    kK11Shapes row of that variant (K11Variant's order), K11_FOLDS the
+    variants whose kernel sums its blocks (kFolds), and k11_grid the launch
+    grid launch_ssim_forward makes from the tile."""
+    import re
+
+    with open(os.path.join(ROOT, "gaussian_lic_tpu_torch", "csrc", "ssim_forward.cuh")) as f:
+        src = f.read()
+    enum = [int(v) for v in re.findall(r"^  kK11\w+ = (\d+),", src, re.M)]
+    assert enum == list(range(len(tl.K11_VARIANTS)))
+    rows = re.findall(r"^    \{(\d+), (\d+), (\d+), (\d+), \d+\},\s+// (\w+)$", src, re.M)
+    assert [r[4] for r in rows] == list(tl.K11_VARIANTS)
+    assert {r[4]: (int(r[0]), int(r[1])) for r in rows} == tl.K11_TILES
+    first = tl.K11_VARIANTS.index("first")
+    assert tl.K11_FOLDS == tuple(v for i, v in enumerate(tl.K11_VARIANTS)
+                                 if i < first and v != "nofold")
+    assert "(im.W + G::TW - 1) / G::TW, (im.r1 - im.r0 + G::TH - 1) / G::TH, C" in src
+    assert tl.k11_grid(3, 512, 640) == (20, 16, 3)
+    assert tl.k11_grid(3, 14, 640, "t32x16") == (20, 1, 3)
+    assert tl.k11_grid(1, 33, 65, "t64x16") == (2, 3, 1)
+    assert tl.k11_grid(3, 1, 40, "persist") == (2, 1, 3)
+
+
+def test_k11_variants_on_the_cpu():
+    """On CPU tensors the K11 variants that compute K11's outputs are its
+    plain version; the timing-only ones raise."""
+    a, b = images((3, 24, 40))
+    want = tl.ssim_forward_plain(t(a), t(b), 2, 20)
+    for v in tl.K11_VARIANTS:
+        if v in tl.K11_TIMING_ONLY:
+            with pytest.raises(ValueError, match="timing probe"):
+                tl.ssim_forward_probe(v, t(a), t(b))
+        else:
+            got = tl.ssim_forward_probe(v, t(a), t(b), 2, 20)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="unknown K11 variant"):
+        tl.ssim_forward_probe("fast", t(a), t(b))
+
+
 # ---------------------------------------------------------------------------
 # card
 # ---------------------------------------------------------------------------
@@ -380,3 +427,83 @@ def test_card_graph_capture(cuda_device):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, value_and_grad(tl.training_loss, x2, y2)[1])
+
+
+# the new tile's edges: W not a multiple of 4 (scalar partial-map stores),
+# tiles cut by the image's right and bottom edges, C = 1, W below a tile
+EDGE_SHAPES = [(3, 33, 65), (3, 40, 38), (1, 20, 20), (1, 5, 12), (3, 64, 68), (2, 47, 97)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=str)
+def test_card_k11_tile_edges(cuda_device, shape):
+    x, y = card_inputs(cuda_device, shape, seed=sum(shape))
+    check_kernels(x, y, 0, shape[1], x.numel())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("r0,r1", [(7, 29), (33, 38), (1, 2), (31, 33)])
+def test_card_k11_windows_inside_tiles(cuda_device, r0, r1):
+    """Windows that start and end inside a tile of the image (3, 40, 70)."""
+    x, y = card_inputs(cuda_device, (3, 40, 70), seed=r0)
+    check_kernels(x, y, r0, r1, x.numel())
+
+
+@pytest.mark.requires_cuda
+def test_card_k11_sums_repeat_bit_for_bit(cuda_device):
+    """Two eager runs and a CUDA graph replay give the same sums, bit for
+    bit: the blocks' sums reduce in a fixed order, and the last block's
+    count starts from zero at every launch."""
+    x, y = card_inputs(cuda_device, (3, 512, 640), seed=13)
+    first = tl.ssim_forward(x, y)[0].clone()
+    second = tl.ssim_forward(x, y)[0].clone()
+    eval_sums = tl.ssim_forward(x, y, partials=False)[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tl.ssim_forward(x, y)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sums, _ = tl.ssim_forward(x, y)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(sums, first)
+    assert torch.equal(first, second) and torch.equal(first, eval_sums)
+    p_sums = tl.ssim_forward_plain(x, y)[0]
+    assert rel_max(n(first), n(p_sums)) < SUM_RTOL
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", [(3, 24, 40), (3, 33, 65), (1, 5, 12)], ids=str)
+def test_card_k12_unchanged(cuda_device, shape):
+    """K12 (its first design's geometry, ssim_common.cuh) stays bit for bit
+    with ssim_backward_plain on K11's partial maps, whole image and a band."""
+    x, y = card_inputs(cuda_device, shape, seed=5)
+    sums, maps = tl.ssim_forward(x, y)
+    g = window_grad(x.numel(), 0.2).to(cuda_device)
+    assert torch.equal(tl.ssim_backward(x, y, maps, g),
+                       tl.ssim_backward_plain(x, y, maps, g))
+    if shape[1] > 2:
+        sums, maps = tl.ssim_forward(x, y, 1, shape[1] - 1)
+        assert torch.equal(tl.ssim_backward(x, y, maps, g, 1, shape[1] - 1),
+                           tl.ssim_backward_plain(x, y, maps, g, 1, shape[1] - 1))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("variant", [v for v in tl.K11_VARIANTS if v not in tl.K11_TIMING_ONLY])
+@pytest.mark.parametrize("shape", [(3, 37, 53), (1, 20, 20), (3, 512, 640)], ids=str)
+def test_card_k11_variants_against_plain(cuda_device, variant, shape):
+    """Every K11 variant that claims K11's outputs gives the plain version's
+    partial maps bit for bit and its sums within SUM_RTOL, whole image and a
+    window."""
+    x, y = card_inputs(cuda_device, shape, seed=3)
+    for r0, r1 in ((0, shape[1]), (shape[1] // 4, shape[1] - shape[1] // 3)):
+        before = tl.PROBE_LAUNCHES[variant]
+        sums, maps = tl.ssim_forward_probe(variant, x, y, r0, r1)
+        p_sums, p_maps = tl.ssim_forward_plain(x, y, r0, r1)
+        torch.cuda.synchronize()
+        assert tl.PROBE_LAUNCHES[variant] == before + 1
+        assert torch.equal(maps, p_maps)
+        assert rel_max(n(sums), n(p_sums)) < SUM_RTOL

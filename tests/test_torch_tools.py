@@ -217,19 +217,23 @@ def test_k6_occupancy_needs_the_card_and_finds_its_bounds(monkeypatch, capsys):
 
 
 def test_ab_train_step_reads_every_kernel_of_the_step():
-    """A --kernels run prints K1, K2, K5, K6, K7, K11 and K12; the tool reads
-    them in that order (a checkout before K11 and K12 prints the first
-    five), and its child times each of them."""
+    """A --kernels run prints K1, K2, K5, K6, K7, K8, K9, K10, K11 and K12;
+    the tool reads them in that order (a checkout before K8-K12 prints the
+    first five), its child times each of them, and K8-K12 in a CUDA graph
+    of 20 calls (chip_smoke.graph_ms), not eagerly."""
     ab = tool("ab_train_step")
     line = ("[ab] NVIDIA H100 80GB HBM3, 700.00 W: K1 0.6921 ms  K2 1.1694 ms  K5 0.1571 ms  "
             "K6 0.2006 ms  K7 0.5943 ms")
     assert ab._readings("other\n" + line + "\n", kernels=True) == (0.6921, 1.1694, 0.1571,
                                                                    0.2006, 0.5943)
-    assert ab._readings(line + "  K11 0.0400 ms  K12 0.0300 ms\n", kernels=True) == (
-        0.6921, 1.1694, 0.1571, 0.2006, 0.5943, 0.04, 0.03)
-    assert ab.KERNELS == ("K1", "K2", "K5", "K6", "K7", "K11", "K12")
+    assert ab._readings(line + "  K8 0.0440 ms  K9 0.0223 ms  K10 0.0768 ms  K11 0.0400 ms  "
+                        "K12 0.0300 ms\n", kernels=True) == (
+        0.6921, 1.1694, 0.1571, 0.2006, 0.5943, 0.044, 0.0223, 0.0768, 0.04, 0.03)
+    assert ab.KERNELS == ("K1", "K2", "K5", "K6", "K7", "K8", "K9", "K10", "K11", "K12")
     for k in ab.KERNELS:
         assert f'ms["{k}"]' in ab._KERNELS or f'"{k}":' in ab._KERNELS
+    for k in ("K8", "K9", "K10", "K11", "K12"):
+        assert f'ms["{k}"] = cs.graph_ms(' in ab._KERNELS
 
 
 @pytest.mark.parametrize("kernel,owner", [

@@ -13,13 +13,15 @@ what makes their difference readable (the card's power limit and the host's
 load vary between calls). Prints each run's phase-4 lines (the card's name
 and power limit in them), then each checkout's ms/step in run order, in
 bundles and eager (each the mean of the run's two turns). With
-`--kernels`, each run times the train step's kernels alone instead (CUDA
-events, 50 launches each after a warm-up) on the arguments of that train
-step (`step_scene`): K1 and K2 on its splat list, K5 and K6 on its
-parameters and camera (K6 on K2's (P, 9) output), K7 on the six groups
-with K6's gradients and zero moments, K11 and K12 on K1's image and the
-keyframe's (a checkout without them prints n/a); the lists are of each
-kernel's ms.
+`--kernels`, each run times the train step's kernels alone instead on the
+arguments of that train step (`step_scene`): K1 and K2 on its splat list,
+K5 and K6 on its parameters and camera (K6 on K2's (P, 9) output), K7 on
+the six groups with K6's gradients and zero moments (CUDA events, 50
+launches each after a warm-up); K8 on K5's output, K9 on the stable sort
+of K8's keys, K10 on K9's list, K11 and K12 on K1's image and the
+keyframe's, each 20 calls in a CUDA graph (`chip_smoke.graph_ms`: eager
+times of these short kernels are the host's launch gaps). A checkout
+without K8-K10 or K11-K12 prints n/a; the lists are of each kernel's ms.
 Needs a CUDA device; imports no JAX.
 """
 
@@ -74,18 +76,33 @@ visible = (pre.preprocess_forward(*fargs)[2] > 0) & x["active"]
 lrs = dict(xyz=1.6e-4, dc=2.5e-3, sh_rest=1.25e-4, opacity=0.05, log_scale=5e-3, quat=1e-3)
 ms["K7"] = cuda_ms(lambda: adam.sparse_adam_update_groups(params, grads, states, visible, lrs),
                    50, warmup=3)
-from gaussian_lic_tpu_torch.ops import losses
+from gaussian_lic_tpu_torch.ops import losses, tiles
+from gaussian_lic_tpu_torch.ops.rasterize import CHUNK
+if hasattr(tiles, "bin_keys"):   # K8, K9 and K10 (a checkout before them has none)
+    table, depth, radius, active = pre.preprocess_forward(*fargs)
+    P = x["xyz"].shape[0]
+    K, M = sc["bin_kw"]["max_tiles_per_gaussian"], sc["bin_kw"]["max_total_splats"]
+    bits, T = tiles.rank_bits_for(g.num_tiles), g.num_tiles
+    kargs = (table[:P, 0:2], depth, table[:P, 2:5], x["opacity"], radius, active, g, K, bits,
+             0, g.n_ty)
+    sk, ss = torch.sort(tiles.bin_keys(*kargs)[0], stable=True)
+    m_eff = min(M, P * K)
+    m_pad = -(-m_eff // CHUNK) * CHUNK
+    ids = tiles.bin_ranges(sk, ss, m_eff, m_pad, P, T, bits)[0]
+    ms["K8"] = cs.graph_ms(lambda: tiles.bin_keys(*kargs))
+    ms["K9"] = cs.graph_ms(lambda: tiles.bin_ranges(sk, ss, m_eff, m_pad, P, T, bits))
+    ms["K10"] = cs.graph_ms(lambda: tiles.gather_splats(table, ids))
 if hasattr(losses, "ssim_forward"):   # K11 and K12 (a checkout before them has neither)
     img = blend.blend_forward(*args, **kw)[0][:, :g.height, :g.width].contiguous()
     gt = sc["gt"]
     n = img.numel()
     d_sums = torch.tensor([-0.2 / n, 0.8 / n], device=dev)
     maps = losses.ssim_forward(img, gt)[1]
-    ms["K11"] = cuda_ms(lambda: losses.ssim_forward(img, gt), 50, warmup=3)
-    ms["K12"] = cuda_ms(lambda: losses.ssim_backward(img, gt, maps, d_sums), 50, warmup=3)
+    ms["K11"] = cs.graph_ms(lambda: losses.ssim_forward(img, gt))
+    ms["K12"] = cs.graph_ms(lambda: losses.ssim_backward(img, gt, maps, d_sums))
 print(f"[ab] {card_line()}: " + "  ".join(f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
 """
-KERNELS = ("K1", "K2", "K5", "K6", "K7", "K11", "K12")
+KERNELS = ("K1", "K2", "K5", "K6", "K7", "K8", "K9", "K10", "K11", "K12")
 
 
 def main(argv=None) -> int:
@@ -93,7 +110,7 @@ def main(argv=None) -> int:
     ap.add_argument("trees", nargs="+", help="checkout directories (each holds chip_smoke.py)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--kernels", action="store_true",
-                    help="time the train step's kernels K1, K2, K5-K7, K11 and K12 alone")
+                    help="time the train step's kernels K1, K2 and K5-K12 alone")
     args = ap.parse_args(argv)
     child = _KERNELS if args.kernels else _CHILD
     whats = (tuple(f"{k} ms" for k in KERNELS) if args.kernels
