@@ -70,8 +70,14 @@ exit code is not 0:
      instantiations of K8's own template: those that compute K8's outputs
      bit for bit against it) timed beside each other in turns, and the
      warp-slots in which K8 runs the power's body against those of the
-     listed design, counted from the slot mask (k8_warp_slots); the built
-     SASS of K8 beside its probe's base;
+     listed design, counted from the slot mask (k8_warp_slots); K9 with K8's
+     outputs (cnt from touched or JAX's survivor compare) and without them
+     (the sharded path's histogram), and K9's timing variants
+     (tiles.K9_VARIANTS: the first design and its cost centres, the listed
+     design with the histogram) held bit for bit at the budget and at a cut
+     and timed beside K9 in turns (k9_variants); the built SASS of K8 and
+     K9 beside their probes' bases, and the registers, spills and shared
+     memory of K8's and K9's kernels (cuobjdump);
   2e. the loss kernels K11 (SSIM and L1 forward: the window's two sums and
      the three partial maps) and K12 (d loss / d img), on phase 2's two
      inputs (the 20k scene's render against a seeded smooth-ish target, the
@@ -88,8 +94,12 @@ exit code is not 0:
      variants (losses.K11_VARIANTS: other geometries, persistent blocks,
      the first design, each with one cost centre taken out) timed beside
      each other in turns, those that compute K11's outputs held bit for bit
-     (partial maps) and within SSIM_SUM_RTOL (sums) wherever K11 is; the
-     built SASS of K11 beside its probe's base;
+     (partial maps) and within SSIM_SUM_RTOL (sums) wherever K11 is; K12's
+     (losses.K12_VARIANTS: the listed design at other geometries, the first
+     design, each with one cost centre taken out) timed beside K12 in turns,
+     those that compute K12's d held bit for bit wherever K12 is; the built
+     SASS of K11 and K12 beside their probes' bases, and the registers,
+     spills and shared memory of K11's and K12's kernels (cuobjdump);
   3. the slice: MappingEngine.add_frame over a 40-frame synthetic stream at
      the fastlivo rig (640x512, SH 3, 16 tile slots, capacity 262144), its
      steps in bundles (CUDA graphs); the launch counters are zeroed just
@@ -1076,13 +1086,69 @@ def k8_variants(args, grid, K: int, bits: int, kw: dict, want, tag: str) -> dict
     return ms
 
 
+def k9_variants(list_args, k8, m_eff: int, cut: int, tag: str) -> dict:
+    """K9's timing variants (tiles.K9_VARIANTS) on the sorted list
+    `list_args` (sorted keys, slots, m_pad's align, P, T, depth bits) with
+    K8's outputs `k8` (keys, touched, sums): those that compute K9's outputs
+    must equal its plain version bit for bit at m_eff and at the budget cut
+    `cut`; then every variant is timed at m_eff beside K9 (the wrapper) in
+    turns (in_turns). Returns each variant's ms."""
+    import torch
+
+    from gaussian_lic_tpu_torch.ops import tiles
+
+    sk, ss, align, P, T, bits = list_args
+    kw = dict(slot_keys=k8[0], touched=k8[1], sums=k8[2])
+    for m in (m_eff, cut):
+        mp = -(-m // align) * align
+        want = tiles.bin_ranges_plain(sk, ss, m, mp, P, T, bits)
+        for v in tiles.K9_VARIANTS:
+            if v in tiles.K9_TIMING_ONLY:
+                continue
+            got = tiles.bin_ranges_probe(v, sk, ss, m, mp, P, T, bits, **kw)
+            torch.cuda.synchronize()
+            if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{tag}: K9 variant {v} differs from K9's plain version "
+                                     f"at {m} entries")
+    mp = -(-m_eff // align) * align
+    calls = {"K9": lambda: tiles.bin_ranges(sk, ss, m_eff, mp, P, T, bits, **kw)}
+    calls.update({v: functools.partial(tiles.bin_ranges_probe, v, sk, ss, m_eff, mp, P, T, bits,
+                                       **kw) for v in tiles.K9_VARIANTS})
+    ms = in_turns(calls)
+    log(f"[2d] {tag} K9 variants in turns at {m_eff} entries (ms, 20 calls in a CUDA graph, "
+        f"each with its own fills; all but {', '.join(tiles.K9_TIMING_ONLY)} bit for bit K9's "
+        f"plain version at {m_eff} and {cut} entries): "
+        + "  ".join(f"{v} " + "/".join(f"{t:.4f}" for t in ms[v]) for v in ms))
+    return ms
+
+
+def kernel_resources(lib_path: str, names, phase: str) -> None:
+    """Registers, stack, spills and shared memory of every built kernel whose
+    name holds one of `names` (cuobjdump --dump-resource-usage)."""
+    import re
+    import subprocess
+
+    from gaussian_lic_tpu_torch import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "--dump-resource-usage", lib_path], capture_output=True,
+                         text=True, check=True).stdout
+    seen = set()
+    for name, res in re.findall(r"Function (\S+):\n\s*(REG:.*)", out):
+        if any(k in name for k in names) and name not in seen:
+            seen.add(name)
+            log(f"[{phase}] resources {name}: {res.strip()}")
+
+
 def check_binning(sc: dict, rates: dict, tag: str) -> dict:
     """K8, K9 and K10 against their plain versions on scene `sc` of phase 2
     with phase 2c's edge rows, through K5 as the main path runs it: K8 with
     global tile ids (the sharded binning); K8, K9 on the stable sort of its
     keys and K10 on K9's list in the whole grid's band (bin_gaussians; also
     at half its live entries, a budget cut) and in every band of D = 2, 4
-    and 8 with the whole grid's depth bits (render_band). Every output bit
+    and 8 with the whole grid's depth bits (render_band), K9 with K8's
+    outputs (bin_gaussians' call) and without (the sharded path's merged
+    list), and K9's variants (k9_variants). Every output bit
     for bit, and K10 against `index_select`. Each timed beside its plain version, K10
     also beside `index_select`, 20 calls in a CUDA graph (graph_ms, the
     rows' times: the bundles run binning in graphs) and eagerly (cuda_ms,
@@ -1125,9 +1191,13 @@ def check_binning(sc: dict, rates: dict, tag: str) -> dict:
         num_valid = int(k8[2][1])
         for m in (m_eff, max(num_valid // 2, 1)) if D == 1 else (m_eff,):
             mp = -(-m // CHUNK) * CHUNK
-            k9 = tiles.bin_ranges(sk, ss, m, mp, P, n_ty * g.n_tx, bits)
-            check(f"K9 in band {b} of {D} at {m} entries", k9,
-                  tiles.bin_ranges_plain(sk, ss, m, mp, P, n_ty * g.n_tx, bits))
+            want = tiles.bin_ranges_plain(sk, ss, m, mp, P, n_ty * g.n_tx, bits)
+            # the merged list of the sharded path: no K8 outputs, a histogram
+            check(f"K9 without K8's outputs in band {b} of {D} at {m} entries",
+                  tiles.bin_ranges(sk, ss, m, mp, P, n_ty * g.n_tx, bits), want)
+            k9 = tiles.bin_ranges(sk, ss, m, mp, P, n_ty * g.n_tx, bits, slot_keys=k8[0],
+                                  touched=k8[1], sums=k8[2])
+            check(f"K9 in band {b} of {D} at {m} entries", k9, want)
             check(f"K10 in band {b} of {D} at {m} entries", (tiles.gather_splats(table, k9[0]),),
                   (tiles.gather_splats_plain(table, k9[0]),))
             if D == 1:
@@ -1135,7 +1205,7 @@ def check_binning(sc: dict, rates: dict, tag: str) -> dict:
                     f"slots, {int(k8[2][0])} rect tiles truncated, {int((k9[2] == 0).sum())} "
                     f"of {T} tiles empty): bit for bit their plain versions")
         if D == 1:   # the main path's list: timed below
-            keys, sk_main, ss_main = k8[0], sk, ss
+            keys, sk_main, ss_main, k8_main = k8[0], sk, ss, k8
     live = active & (radius > 0)
     dk = tiles.depth_key(depth, bits)
     dargs = (args[0], None, args[2], args[3], args[4], live)
@@ -1143,7 +1213,8 @@ def check_binning(sc: dict, rates: dict, tag: str) -> dict:
           tiles.bin_keys(*dargs, g, K, bits, dkey=dk),
           tiles.bin_keys_plain(*dargs, g, K, bits, dkey=dk))
     sk, ss = sk_main, ss_main
-    ids = tiles.bin_ranges(sk, ss, m_eff, m_pad, P, T, bits)[0]
+    k8kw = dict(slot_keys=k8_main[0], touched=k8_main[1], sums=k8_main[2])
+    ids = tiles.bin_ranges(sk, ss, m_eff, m_pad, P, T, bits, **k8kw)[0]
     if not torch.equal(tiles.gather_splats(table, ids), table.index_select(0, ids)):
         raise AssertionError(f"{tag}: K10 differs from index_select")
     log(f"[2d] {tag} K8, K9 and K10 in every band of D = "
@@ -1152,11 +1223,13 @@ def check_binning(sc: dict, rates: dict, tag: str) -> dict:
     grid_band = dict(band_ty0=0, band_n_ty=g.n_ty)
     variants = k8_variants(args, g, K, bits, grid_band, tiles.bin_keys(*args, g, K, bits,
                                                                        **grid_band), tag)
+    k9_ms = k9_variants((sk, ss, CHUNK, P, T, bits), k8_main, m_eff,
+                        max(int(k8_main[2][1]) // 2, 1), tag)
 
     calls = {   # kernel, plain version, library call
         "bin_keys": (lambda: tiles.bin_keys(*args, g, K, bits, **grid_band),
                      lambda: tiles.bin_keys_plain(*args, g, K, bits, **grid_band), None),
-        "bin_ranges": (lambda: tiles.bin_ranges(sk, ss, m_eff, m_pad, P, T, bits),
+        "bin_ranges": (lambda: tiles.bin_ranges(sk, ss, m_eff, m_pad, P, T, bits, **k8kw),
                        lambda: tiles.bin_ranges_plain(sk, ss, m_eff, m_pad, P, T, bits), None),
         "gather_splats": (lambda: tiles.gather_splats(table, ids),
                           lambda: tiles.gather_splats_plain(table, ids),
@@ -1189,13 +1262,15 @@ def check_binning(sc: dict, rates: dict, tag: str) -> dict:
             + ("" if lib is None else f"  index_select {lib:.4f} ({el:.4f}) ms")
             + f"  bound {b_ms:.4f} ms ({by}; {nbytes[k]} bytes"
             + (f", {slots} evaluated slots: {ops_ms:.4f} ms of operations" if k == "bin_keys"
-               else "") + ")")
+               else "") + ")"
+            + (f"; with K8's touched read ({4 * P} B more) "
+               f"{b_ms + 4 * P / HBM_BYTES_PER_S * 1e3:.4f} ms" if k == "bin_ranges" else ""))
     log(f"[2d] {tag} K8's {slots} evaluated slots: the first design runs the power's body in "
         f"{ws['serial']} of {ws['warps']} warp-slots ({slots / max(32 * ws['serial'], 1):.1%} "
         f"of their lanes busy), the listed design in {ws['listed']} warp passes "
         f"({slots / max(32 * ws['listed'], 1):.1%})")
     res["sort_ms"] = sort_ms
-    res["variants"], res["warp_slots"] = variants, ws
+    res["variants"], res["warp_slots"], res["k9_variants"] = variants, ws, k9_ms
     return res
 
 
@@ -1205,7 +1280,8 @@ def phase_binning(scenes, rates: dict) -> list:
     times and bounds."""
     from gaussian_lic_tpu_torch import _build
 
-    check_base_is_production(_build.load().path, K8_BASE, "2d")
+    check_base_is_production(_build.load().path, K8_BASE + K9_BASE, "2d")
+    kernel_resources(_build.load().path, ("bin_keys_kernel", "bin_ranges"), "2d")
     light = check_binning(scenes[0], rates, f"{scenes[0]['n_gauss']}-Gaussian scene")
     step = check_binning(scenes[1], rates, f"{scenes[1]['n_gauss']}-Gaussian train step")
     src = "gaussian_lic_tpu_torch/csrc/"
@@ -1335,6 +1411,13 @@ def check_ssim(x, y, r0: int, r1: int, n_pixels: int, tag: str, f64: bool = Fals
         if ulps(v_maps, p_maps) or v_rel > SSIM_SUM_RTOL:
             raise AssertionError(f"{tag}: K11 variant {v} disagrees with the plain version "
                                  f"({ulps(v_maps, p_maps)} ulps, sums rel {v_rel:.3e})")
+    for v in losses.K12_VARIANTS:   # the variants that compute K12's d
+        if v in losses.K12_TIMING_ONLY:
+            continue
+        v_ulps = ulps(losses.ssim_backward_probe(v, x, y, maps, g, r0, r1), p_d)
+        if v_ulps:
+            raise AssertionError(f"{tag}: K12 variant {v} disagrees with the plain version "
+                                 f"({v_ulps} ulps)")
     res = dict(map_ulps=ulps(maps, p_maps), d_ulps=ulps(d, p_d),
                sum_rel=float(((sums.double() - p_sums.double()).abs()
                               / p_sums.double().abs().clamp_min(1e-30)).max()),
@@ -1418,6 +1501,28 @@ def k11_variants(x, y, tag: str) -> dict:
     return ms
 
 
+def k12_variants(x, y, tag: str, lam: float = 0.2) -> dict:
+    """K12's timing variants (losses.K12_VARIANTS) on (x, y), the whole
+    image with K11's partial maps, timed beside K12 (the wrapper) and each
+    other in turns (in_turns); check_ssim holds the ones that compute K12's
+    d. Returns each variant's ms."""
+    import torch
+
+    from gaussian_lic_tpu_torch.ops import losses
+
+    n = x.numel()
+    g = torch.tensor([-lam / n, (1.0 - lam) / n], device=x.device)
+    maps = losses.ssim_forward(x, y)[1]
+    calls = {"K12": lambda: losses.ssim_backward(x, y, maps, g)}
+    calls.update({v: functools.partial(losses.ssim_backward_probe, v, x, y, maps, g)
+                  for v in losses.K12_VARIANTS})
+    ms = in_turns(calls)
+    log(f"[2e] {tag} K12 variants in turns (ms, 20 calls in a CUDA graph; all but "
+        f"{', '.join(losses.K12_TIMING_ONLY)} give K12's d bit for bit): "
+        + "  ".join(f"{v} " + "/".join(f"{t:.4f}" for t in ms[v]) for v in ms))
+    return ms
+
+
 def ssim_inputs(sc: dict, gt=None, seed: int = 3):
     """(image, target) of scene `sc` on the card: K1's render at the scene's
     size and `gt`, or a smooth-ish seeded target made from the render (as
@@ -1452,7 +1557,8 @@ def phase_ssim(scenes, rates: dict) -> list:
 
     from gaussian_lic_tpu_torch import _build
 
-    check_base_is_production(_build.load().path, K11_BASE, "2e")
+    check_base_is_production(_build.load().path, K11_BASE + K12_BASE, "2e")
+    kernel_resources(_build.load().path, ("ssim_forward", "ssim_backward"), "2e")
     h = losses.HALO
     worst = {k: 0.0 for k in ("map_abs", "sum_abs", "d_abs", "autograd", "autograd64")}
 
@@ -1497,6 +1603,7 @@ def phase_ssim(scenes, rates: dict) -> list:
     x, y = ssim_inputs(scenes[1], scenes[1]["gt"])
     C, H, W = x.shape
     k11_variants(x, y, f"{scenes[1]['n_gauss']}-Gaussian train step {C}x{H}x{W}")
+    k12_variants(x, y, f"{scenes[1]['n_gauss']}-Gaussian train step {C}x{H}x{W}")
     ms = time_ssim(x, y)
     b = ssim_bounds(rates, C, H, W, H)
     log(f"[2e] time at {C}x{H}x{W}, 20 calls in a CUDA graph: K11 {ms['k11']:.4f} ms "
@@ -1661,6 +1768,8 @@ BLEND_BASES = (("K1 / K3 base", "blend_forward_kernelILi0E"),
                ("K2 / K4 base", "blend_backward_kernelILi0E"))
 K6_BASE = (("K6 / K6 probe base", "preprocess_backward_kernelILi0E"),)
 K8_BASE = (("K8 / K8 probe base", "bin_keys_kernelILi0E"),)
+K9_BASE = (("K9 / K9 probe base", "bin_ranges_kernelILi0E"),)
+K12_BASE = (("K12 / K12 probe base", "ssim_backward_kernelILi0E"),)
 K11_BASE = (("K11 / K11 probe base", "ssim_forward_kernelILi0ELb1E"),
             ("K11 without partial maps / its probe base", "ssim_forward_kernelILi0ELb0E"))
 

@@ -62,9 +62,14 @@ _SIGNATURES = {
     # variant, then glic_bin_keys' arguments
     "glic_bin_keys_probe": (_I, _VP, _LL, _VP, _LL) + (_VP,) * 5 + (_LL,) + (_I,) * 8 + (_F,)
                            + (_VP,) * 4,
-    # keys, slots, m_eff, m_pad, P, T, depth_bits, tile0, sorted_gauss, starts,
-    # lens, cnt, stream
-    "glic_bin_ranges": (_VP, _VP, _LL, _LL, _I, _I, _I, _I) + (_VP,) * 5,
+    # keys, slots, m_eff, m_pad, P, T, depth_bits, tile0, magic, shift, touched,
+    # sums, slot_keys (each or null), n_slot_keys, sorted_gauss, starts, lens,
+    # cnt, stream
+    "glic_bin_ranges": (_VP, _VP, _LL, _LL, _I, _I, _I, _I, _LL, _I) + (_VP,) * 3 + (_LL,)
+                       + (_VP,) * 5,
+    # variant, then glic_bin_ranges' arguments
+    "glic_bin_ranges_probe": (_I, _VP, _VP, _LL, _LL, _I, _I, _I, _I, _LL, _I) + (_VP,) * 3
+                             + (_LL,) + (_VP,) * 5,
     # table, n_rows, ids, m, out, stream
     "glic_gather_splats": (_VP, _LL, _VP, _LL, _VP, _VP),
     # x, x channel and row strides, y, its strides, C, H, W, r0, r1, konst (13
@@ -75,6 +80,8 @@ _SIGNATURES = {
     # x, its strides, y, its strides, C, H, W, r0, r1, konst, partials, grad,
     # d, stream
     "glic_ssim_backward": (_VP, _LL, _LL, _VP, _LL, _LL) + (_I,) * 5 + (_VP,) * 5,
+    # variant, then glic_ssim_backward's arguments
+    "glic_ssim_backward_probe": (_I, _VP, _LL, _LL, _VP, _LL, _LL) + (_I,) * 5 + (_VP,) * 5,
     # rows, m_pad, starts, lens, color, final_t, n_contrib,
     # n_tx, n_ty, tile_w, tile_h, no_color, stream
     "glic_blend_forward": (_VP, _LL, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),

@@ -30,72 +30,34 @@
 // flipped, sorted as int32. Tile ids are key >> depth_bits - tile0, capped
 // at T: the dead key's field passes every tile.
 //
+// bin_ranges.cuh holds the design (E entries a thread from 16-byte loads,
+// the neighbours' tile ids by warp shuffles, the remainder from a magic
+// multiplier, cnt as the JAX package computes it from K8's touched, sums
+// and keys, without atomics or zeros) and the first design (one thread an
+// entry, an atomic histogram) among its timing variants
+// (bin_ranges_probe.cu); this entry launches its base instantiation.
+//
 // Plain C interface, loaded with ctypes by gaussian_lic_tpu_torch/_build.py.
 
 #include <cuda_runtime.h>
 
-namespace {
-
-constexpr int kThreads = 256;
-constexpr unsigned kFlip = 0x80000000u;
-constexpr unsigned kInvalid = 0xFFFFFFFFu;
-
-__device__ __forceinline__ unsigned key_at(const int* keys, long long i) {
-  return static_cast<unsigned>(__ldg(keys + i)) ^ kFlip;
-}
-
-__device__ __forceinline__ int tile_of(unsigned key, int depth_bits, int tile0, int T) {
-  return static_cast<int>(min(static_cast<long long>(key >> depth_bits) - tile0,
-                              static_cast<long long>(T)));
-}
-
-__global__ void __launch_bounds__(kThreads) bin_ranges_kernel(
-    const int* __restrict__ keys, const long long* __restrict__ slots, long long m_eff,
-    long long m_pad, long long n_threads, int P, int T, int depth_bits, int tile0,
-    int* __restrict__ sorted_gauss, int* __restrict__ starts, int* __restrict__ lens,
-    int* __restrict__ cnt) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n_threads) return;
-  // tile of the entry before: -1 before the first
-  const int prev =
-      i == 0 || i > m_eff ? -1 : tile_of(key_at(keys, i - 1), depth_bits, tile0, T);
-  if (i >= m_eff) {  // past the list: the tiles after its last entry start at m_eff
-    if (i == m_eff)
-      for (int b = max(prev + 1, 0); b < T; ++b) starts[b] = static_cast<int>(m_eff);
-    if (i < m_pad) sorted_gauss[i] = P;
-    return;
-  }
-  const unsigned key = key_at(keys, i);
-  const int t = tile_of(key, depth_bits, tile0, T);
-  for (int b = max(prev + 1, 0); b <= min(t, T - 1); ++b) starts[b] = static_cast<int>(i);
-  if (t >= 0 && t < T) {
-    if (t != prev) atomicSub(lens + t, static_cast<int>(i));
-    const int next = i + 1 < m_eff ? tile_of(key_at(keys, i + 1), depth_bits, tile0, T) : T;
-    if (t != next) atomicAdd(lens + t, static_cast<int>(i + 1));
-  }
-  int g = P;
-  if (key != kInvalid) {
-    g = static_cast<int>(__ldg(slots + i) % P);
-    atomicAdd(cnt + g, 1);
-  }
-  sorted_gauss[i] = g;
-}
-
-}  // namespace
+#include "bin_ranges.cuh"
 
 // K9 over the first m_eff entries of the sorted keys and slots: sorted_gauss
-// (m_pad,), starts (T,), and lens (T,) and cnt (P,), which must hold zeros.
+// (m_pad,), starts (T,), and lens (T,), which must hold zeros, and cnt (P,).
+// magic and shift: slot / P as (slot * magic) >> shift (ops/tiles.py
+// k9_fastdiv). With touched (K8's (P,) live slots per Gaussian), sums (K8's
+// (2,)) and slot_keys (K8's (n_slot_keys,) keys in slot order), cnt is
+// written whole; without them (null) cnt must hold zeros.
 extern "C" int glic_bin_ranges(const int* keys, const long long* slots, long long m_eff,
                                long long m_pad, int P, int T, int depth_bits, int tile0,
-                               int* sorted_gauss, int* starts, int* lens, int* cnt,
-                               void* stream) {
-  if (m_eff < 0 || m_pad < m_eff || P < 1 || T < 0 || depth_bits < 0 || depth_bits > 31)
+                               long long magic, int shift, const int* touched, const int* sums,
+                               const int* slot_keys, long long n_slot_keys, int* sorted_gauss,
+                               int* starts, int* lens, int* cnt, void* stream) {
+  using namespace glic_k9;
+  Args a;
+  if (!make_args(keys, slots, m_eff, m_pad, P, T, depth_bits, tile0, magic, shift, touched, sums,
+                 slot_keys, n_slot_keys, sorted_gauss, starts, lens, cnt, &a))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_threads = m_pad > m_eff ? m_pad : m_eff + 1;
-  const long long blocks = (n_threads + kThreads - 1) / kThreads;
-  bin_ranges_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      keys, slots, m_eff, m_pad, n_threads, P, T, depth_bits, tile0, sorted_gauss, starts, lens,
-      cnt);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_bin_ranges<kK9Base>(a, static_cast<cudaStream_t>(stream)));
 }

@@ -21,13 +21,20 @@
 // order of ops/losses.py `ssim_backward_plain`, which it equals on the card
 // (up to the sign of a zero).
 //
-// What bounds it on this card: operations and memory alike. Per pixel it
-// does ~140 separate FP32 multiplies and adds (3 maps x 11 taps x 2 passes x
-// 2, the combination) and moves 24 bytes (x, y, three partial maps, d): at
-// 3 x 512 x 640, ~4.1 us of FP32 lanes and ~7.0 us of device memory. The
-// design is K11's (csrc/ssim_common.cuh): the three maps staged once with
-// their apron, the vertical segments in registers, the horizontal taps
-// conflict-free, x and y read coalesced in the epilogue.
+// What bounds it on this card: memory, then operations. Per pixel it
+// does ~134 separate FP32 multiplies and adds (3 maps x 11 taps x 2 passes
+// x 2, the combination) and moves 24 bytes (x, y, three partial maps, d):
+// at 3 x 512 x 640, ~3.9 us of FP32 lanes and ~7.0 us of device memory.
+// Every shared load and address instruction comes on top of those
+// operations in the SM's issue slots. The design stages the three maps of a
+// 64 x 16 tile once with their apron by 16-byte cp.async copies (all of a
+// thread's in flight at once), keeps a vertical segment's running sums in
+// registers,
+// reads the horizontal taps 16 bytes at a time, 4 outputs a thread, and
+// reads x and y and writes d 16 bytes at a time: ssim_backward.cuh holds
+// it, with the first design (33 shared loads a pixel) among its timing
+// variants (ssim_backward_probe.cu); this entry launches its base
+// instantiation.
 //
 // Plain C interface, loaded with ctypes by gaussian_lic_tpu_torch/_build.py.
 
@@ -35,71 +42,7 @@
 
 #include <cstring>
 
-#include "ssim_common.cuh"
-
-namespace glic_ssim {
-
-constexpr int kMaps = 3;
-
-__global__ void __launch_bounds__(kThreads, 4) ssim_backward_kernel(
-    const float* __restrict__ x, long long x_cs, long long x_rs, const float* __restrict__ y,
-    long long y_cs, long long y_rs, int H, int W, int r0, int r1, Konst k,
-    const float* __restrict__ partials, const float* __restrict__ grad,
-    float* __restrict__ d) {
-  __shared__ float ps[kMaps][kSpan][kSpan];
-  __shared__ float vs[kMaps][kTile][kSpan];
-  const int c = blockIdx.z;
-  const int row0 = blockIdx.y * kTile;
-  const int col0 = blockIdx.x * kTile;
-  const int tid = threadIdx.y * kTile + threadIdx.x;
-  const long long plane = static_cast<long long>(r1 - r0) * W;
-  const long long stride = plane * gridDim.z;
-  const float* pc = partials + c * plane;
-  for (int i = tid; i < kSpan * kSpan; i += kThreads) {
-    const int r = i / kSpan, q = i - r * kSpan;
-    const int gr = row0 - kR + r, gc = col0 - kR + q;
-    const bool in = gr >= r0 && gr < r1 && gc >= 0 && gc < W;
-    const long long o = static_cast<long long>(gr - r0) * W + gc;
-#pragma unroll
-    for (int m = 0; m < kMaps; ++m) ps[m][r][q] = in ? __ldg(pc + m * stride + o) : 0.f;
-  }
-  __syncthreads();
-
-  for (int s = tid; s < kSegments; s += kThreads) {
-    const int g = s / kSpan, q = s - g * kSpan;
-#pragma unroll
-    for (int m = 0; m < kMaps; ++m) {
-      float p[kSeg];
-#pragma unroll
-      for (int i = 0; i < kSeg; ++i) p[i] = ps[m][g * kPerThread + i][q];
-      vertical(p, &vs[m][g * kPerThread][q], k);
-    }
-  }
-  __syncthreads();
-
-  const float g_m = __ldg(grad), g_d = __ldg(grad + 1);
-  const int tx = threadIdx.x;
-  const int gc = col0 + tx;
-  if (gc >= W) return;
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int lr = threadIdx.y * kPerThread + j;
-    const int gr = row0 + lr;
-    if (gr >= H) break;
-    const float b1 = blur11(&vs[0][lr][tx], 1, k);
-    const float b2 = blur11(&vs[1][lr][tx], 1, k);
-    const float b3 = blur11(&vs[2][lr][tx], 1, k);
-    const float xv = __ldg(x + c * x_cs + gr * x_rs + gc);
-    const float yv = __ldg(y + c * y_cs + gr * y_rs + gc);
-    const float inner = __fadd_rn(__fadd_rn(b1, __fmul_rn(__fmul_rn(2.f, xv), b2)),
-                                  __fmul_rn(yv, b3));
-    const float sgn = static_cast<float>((xv > yv) - (xv < yv));
-    const float l1 = gr >= r0 && gr < r1 ? __fmul_rn(g_d, sgn) : 0.f;
-    d[(static_cast<long long>(c) * H + gr) * W + gc] = __fadd_rn(__fmul_rn(g_m, inner), l1);
-  }
-}
-
-}  // namespace glic_ssim
+#include "ssim_backward.cuh"
 
 // K12: d (C, H, W) for x and y (C, H, W), K11's partial maps (3, C, r1 - r0,
 // W) of the window [r0, r1), and grad (2,), the gradients of K11's two sums,
@@ -108,13 +51,12 @@ extern "C" int glic_ssim_backward(const float* x, long long x_cs, long long x_rs
                                   long long y_cs, long long y_rs, int C, int H, int W, int r0,
                                   int r1, const float* konst, const float* partials,
                                   const float* grad, float* d, void* stream) {
-  using namespace glic_ssim;
+  using namespace glic_k12;
   if (C < 1 || C > 65535 || H < 1 || W < 1 || r0 < 0 || r1 <= r0 || r1 > H || !konst)
     return static_cast<int>(cudaErrorInvalidValue);
   Konst k;
   std::memcpy(&k, konst, sizeof(Konst));
-  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, C);
-  ssim_backward_kernel<<<grid, dim3(kTile, kRows), 0, static_cast<cudaStream_t>(stream)>>>(
-      x, x_cs, x_rs, y, y_cs, y_rs, H, W, r0, r1, k, partials, grad, d);
-  return static_cast<int>(cudaGetLastError());
+  const Args a{x, x_cs, x_rs, y, y_cs, y_rs, C, H, W, r0, r1, partials, grad, d, false};
+  return static_cast<int>(
+      launch_ssim_backward<kK12Base>(a, k, static_cast<cudaStream_t>(stream)));
 }

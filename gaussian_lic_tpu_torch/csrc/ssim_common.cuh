@@ -1,8 +1,10 @@
 // What K11 (csrc/ssim_forward.cu) and K12 (csrc/ssim_backward.cu) share: the
-// tile geometry, the constants, and the separable 11-tap blur in the plain
-// chain's order (gaussian_lic_tpu_torch/ops/losses.py `_blur`).
+// constants, the separable 11-tap blur in the plain chain's order
+// (gaussian_lic_tpu_torch/ops/losses.py `_blur`), and their first designs'
+// tile geometry (the `first` variants of ssim_forward.cuh and
+// ssim_backward.cuh).
 //
-// A block owns a kTile x kTile tile of one channel's output pixels. It stages
+// A first-design block owns a kTile x kTile tile of one channel's output pixels. It stages
 // its inputs with a kR-pixel apron in shared memory (zeros outside the image,
 // and outside the loss's window rows for K12's partial maps: `_blur`'s zero
 // "same" padding), runs the vertical pass into shared memory (one thread a

@@ -1,8 +1,8 @@
 // K11's kernel templates, shared by K11 (ssim_forward.cu, which launches
 // kK11Base) and its timing variants (ssim_forward_probe.cu, every variant),
 // as K6's preprocess_backward.cuh is shared with its probe. ssim_forward.cu
-// says what K11 computes; this header holds its two designs. K12 keeps the
-// first design's geometry (ssim_common.cuh).
+// says what K11 computes; this header holds its two designs. K12
+// (ssim_backward.cuh) has the same two.
 //
 // The first design (kK11First) gave a 256-thread block a 32 x 32 tile with
 // 41,056 B of static shared memory under __launch_bounds__(256, 4): its

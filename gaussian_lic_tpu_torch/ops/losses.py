@@ -34,8 +34,10 @@ are those of the chains the port ran before the kernels (`*_plain` below).
 `ssim_forward_plain` and `ssim_backward_plain` are K11's and K12's plain
 versions, one rounded operation each in the kernels' order. `LAUNCHES`
 counts kernel launches; `ssim_forward_probe` launches K11's timing variants
-(`K11_VARIANTS`, off the main path; `PROBE_LAUNCHES` counts them). Nothing here reads back to the host, so the train
-step stays capturable in a CUDA graph.
+(`K11_VARIANTS`, off the main path; `PROBE_LAUNCHES` counts them),
+`ssim_backward_probe` K12's (`K12_VARIANTS`; `K12_PROBE_LAUNCHES`). Nothing
+here reads back to the host, so the train step stays capturable in a CUDA
+graph.
 """
 
 from __future__ import annotations
@@ -77,10 +79,30 @@ K11_TIMING_ONLY = ("nomaps", "nostage", "novert", "nohoriz", "first_novert", "fi
 K11_FOLDS = ("base", "r8", "t32x16", "t64x16", "nomaps", "nostage", "novert", "nohoriz",
              "t64x16r4", "t128x8r4", "persist")
 PROBE_LAUNCHES = {v: 0 for v in K11_VARIANTS}
+# K12's timing variants (csrc/ssim_backward.cuh K12Variant, in its order),
+# off the main path, and each one's output tile (its kK12Shapes row). base is
+# K12 (K11's listed design on a 64 x 16 tile: the maps staged by 16-byte
+# cp.async copies, 16-byte rows, vertical segments of 4 rows in registers, 4
+# outputs a thread from 16-byte loads, x, y and d 16 bytes at a time);
+# t32x32 (K11's tile), r8, t32x16 and t32x24 are other geometries, a4 stages
+# by 4-byte copies, sync by plain loads; first is the first design and
+# first_lb5 it at 5 blocks an SM (all of them K12's d bit for bit); nostage,
+# novert, nohoriz and noepi take one cost centre out of K12, first_novert,
+# first_nohoriz and first_noepi out of the first design, and are timing
+# only.
+K12_TILES = {"base": (64, 16), "t32x32": (32, 32), "a4": (64, 16), "sync": (64, 16),
+             "r8": (64, 16), "t32x16": (32, 16), "t32x24": (32, 24), "nostage": (64, 16),
+             "novert": (64, 16), "nohoriz": (64, 16), "noepi": (64, 16), "first": (32, 32),
+             "first_novert": (32, 32), "first_nohoriz": (32, 32), "first_noepi": (32, 32),
+             "first_lb5": (32, 32)}
+K12_VARIANTS = tuple(K12_TILES)
+K12_TIMING_ONLY = ("nostage", "novert", "nohoriz", "noepi", "first_novert", "first_nohoriz",
+                   "first_noepi")
+K12_PROBE_LAUNCHES = {v: 0 for v in K12_VARIANTS}
 
 
 def reset_launches() -> None:
-    for counter in (LAUNCHES, PROBE_LAUNCHES):
+    for counter in (LAUNCHES, PROBE_LAUNCHES, K12_PROBE_LAUNCHES):
         for k in counter:
             counter[k] = 0
 
@@ -318,12 +340,9 @@ def ssim_forward_probe(variant: str, img: torch.Tensor, gt: torch.Tensor, r0: in
     return _k11(img, gt, r0, r1, partials, variant)
 
 
-def ssim_backward(img: torch.Tensor, gt: torch.Tensor, partials: torch.Tensor,
-                  grad: torch.Tensor, r0: int = 0, r1: int = None) -> torch.Tensor:
-    """K12: d (C, H, W), as `ssim_backward_plain` (CPU tensors: that
-    function). `grad` (2,) stays on the device."""
-    if _device_kind(img) == "cpu":
-        return ssim_backward_plain(img, gt, partials, grad, r0, r1)
+def _k12(img, gt, partials, grad, r0, r1, variant=None):
+    """K12 on CUDA tensors; with `variant`, that variant of K12_VARIANTS
+    through the probe entry."""
     from gaussian_lic_tpu_torch import _build
     from gaussian_lic_tpu_torch.ops.blend import _check, _launch, _ptr, _stream
 
@@ -336,11 +355,42 @@ def ssim_backward(img: torch.Tensor, gt: torch.Tensor, partials: torch.Tensor,
     grad = grad.to(torch.float32).contiguous()
     _check("grad", grad, (2,), torch.float32, dev)
     d = torch.empty((C, H, W), dtype=torch.float32, device=dev)
-    _launch(_build.load().cdll.glic_ssim_backward, _ptr(img), img.stride(0), img.stride(1),
-            _ptr(gt), gt.stride(0), gt.stride(1), C, H, W, r0, r1, _konst(), _ptr(partials),
-            _ptr(grad), _ptr(d), _stream(dev))
-    LAUNCHES["ssim_backward"] += 1
+    args = (_ptr(img), img.stride(0), img.stride(1), _ptr(gt), gt.stride(0), gt.stride(1), C, H,
+            W, r0, r1, _konst(), _ptr(partials), _ptr(grad), _ptr(d), _stream(dev))
+    lib = _build.load().cdll
+    if variant is None:
+        _launch(lib.glic_ssim_backward, *args)
+        LAUNCHES["ssim_backward"] += 1
+    else:
+        _launch(lib.glic_ssim_backward_probe, K12_VARIANTS.index(variant), *args)
+        K12_PROBE_LAUNCHES[variant] += 1
     return d
+
+
+def ssim_backward(img: torch.Tensor, gt: torch.Tensor, partials: torch.Tensor,
+                  grad: torch.Tensor, r0: int = 0, r1: int = None) -> torch.Tensor:
+    """K12: d (C, H, W), as `ssim_backward_plain` (CPU tensors: that
+    function). `grad` (2,) stays on the device."""
+    if _device_kind(img) == "cpu":
+        return ssim_backward_plain(img, gt, partials, grad, r0, r1)
+    return _k12(img, gt, partials, grad, r0, r1)
+
+
+def ssim_backward_probe(variant: str, img: torch.Tensor, gt: torch.Tensor,
+                        partials: torch.Tensor, grad: torch.Tensor, r0: int = 0,
+                        r1: int = None) -> torch.Tensor:
+    """K12's timing variant `variant` (K12_VARIANTS), with ssim_backward's
+    arguments and output. CPU tensors: `ssim_backward_plain` for the variants
+    that compute K12's d; the timing-only ones have no plain version and
+    raise."""
+    if variant not in K12_VARIANTS:
+        raise ValueError(f"unknown K12 variant {variant!r}; one of {K12_VARIANTS}")
+    if _device_kind(img) == "cpu":
+        if variant in K12_TIMING_ONLY:
+            raise ValueError(f"K12 {variant} is a timing probe of the card: it has no plain "
+                             "version")
+        return ssim_backward_plain(img, gt, partials, grad, r0, r1)
+    return _k12(img, gt, partials, grad, r0, r1, variant)
 
 
 class SSIMLoss(torch.autograd.Function):

@@ -21,7 +21,8 @@ duplicateWithKeys -> radix sort -> identifyTileRanges
   * K9 cuts the list at a static budget `max_total_splats`, maps each entry
     to its Gaussian (the dead id P past the live entries), writes each
     tile's [start, len) range where the tile id steps (the searchsorted of
-    every tile) and counts each Gaussian's surviving entries.
+    every tile) and each Gaussian's surviving entries (K8's count where the
+    budget cuts nothing).
   * K10 gathers the (M_pad, 16) splat rows the blend kernels stream.
 
 Dispatch by the tensors' device, as `ops/blend.py`: CUDA tensors launch the
@@ -29,8 +30,10 @@ kernels (csrc/bin_keys.cu, csrc/bin_ranges.cu, csrc/gather_splats.cu) or
 raise; CPU tensors take the plain versions (`*_plain`: the PyTorch chains
 the port ran before the kernels, and `table[ids.long()]`). `LAUNCHES`
 counts kernel launches. `bin_keys_probe` launches K8's timing variants
-(`K8_VARIANTS`, off the main path; `PROBE_LAUNCHES` counts them). Nothing here reads back to the host, so a train
-step that bins stays capturable in a CUDA graph.
+(`K8_VARIANTS`, off the main path; `PROBE_LAUNCHES` counts them),
+`bin_ranges_probe` K9's (`K9_VARIANTS`; `K9_PROBE_LAUNCHES`). Nothing here
+reads back to the host, so a train step that bins stays capturable in a
+CUDA graph.
 
 Everything here is bookkeeping without gradients; callers pass detached tensors.
 """
@@ -66,12 +69,37 @@ K8_VARIANT_IDS = {"base": 0, "nopower": 1, "onestore": 2, "rcp": 3, "vecload": 4
 K8_VARIANTS = tuple(K8_VARIANT_IDS)
 K8_TIMING_ONLY = ("nopower", "onestore", "notable", "memonly", "listed_nopower")
 PROBE_LAUNCHES = {v: 0 for v in K8_VARIANTS}
+# K9's timing variants (csrc/bin_ranges.cuh K9Variant), off the main path, by
+# their numbers there: base is K9 (4 entries a thread from 16-byte loads, the
+# neighbours' tiles by warp shuffles, the magic remainder, cnt from K8's
+# touched or JAX's survivor compare), hist it with the atomic histogram
+# always; first is the first design (one thread an entry, 64-bit remainder,
+# histogram), mod32 and fastdiv it with the 32-bit and the magic remainder
+# (all bit for bit); memonly (the first design's loads and id stores alone)
+# and noatomic (no histogram) are timing only. K9_HISTOGRAM: the variants
+# that build the histogram whatever the caller gives (cnt must hold zeros).
+K9_VARIANT_IDS = {"base": 0, "hist": 1, "first": 2, "memonly": 3, "noatomic": 4, "mod32": 5,
+                  "fastdiv": 6}
+K9_VARIANTS = tuple(K9_VARIANT_IDS)
+K9_TIMING_ONLY = ("memonly", "noatomic")
+K9_HISTOGRAM = ("hist", "first", "memonly", "noatomic", "mod32", "fastdiv")
+K9_PROBE_LAUNCHES = {v: 0 for v in K9_VARIANTS}
 
 
 def reset_launches() -> None:
-    for counter in (LAUNCHES, PROBE_LAUNCHES):
+    for counter in (LAUNCHES, PROBE_LAUNCHES, K9_PROBE_LAUNCHES):
         for k in counter:
             counter[k] = 0
+
+
+def k9_fastdiv(P: int) -> tuple:
+    """(magic, shift) with n // P == (n * magic) >> shift for 0 <= n < 2^31:
+    shift = 31 + ceil(log2 P) and magic = ceil(2^shift / P), below 2^32 (K9's
+    remainder: n % P = n - P (n * magic >> shift), one wide multiply)."""
+    if not 1 <= P < 1 << 31:
+        raise ValueError(f"K9's remainder takes 1 <= P < 2^31, got {P}")
+    shift = 31 + (P - 1).bit_length()
+    return -(-(1 << shift) // P), shift
 
 
 def keys_to_int32(keys: torch.Tensor) -> torch.Tensor:
@@ -409,36 +437,94 @@ def bin_keys_probe(variant, xy, depth, conic, opacity, radius, active, grid: Til
                band_n_ty, dkey, variant)
 
 
+def _k9(sorted_keys, sorted_slots, m_eff: int, m_pad: int, P: int, num_tiles: int,
+        depth_bits: int, tile0: int, slot_keys, touched, sums, variant=None):
+    """K9 on CUDA tensors; with `variant`, that variant of K9_VARIANTS through
+    the probe entry."""
+    dev = sorted_keys.device
+    n = sorted_keys.shape[0]
+    if not m_eff <= min(n, sorted_slots.shape[0]) or m_pad < m_eff:
+        raise ValueError(f"bin_ranges: m_eff {m_eff} and m_pad {m_pad} against {n} keys")
+    _check("sorted_keys", sorted_keys, (n,), torch.int32, dev)
+    _check("sorted_slots", sorted_slots, (sorted_slots.shape[0],), torch.int64, dev)
+    given = [v is not None for v in (slot_keys, touched, sums)]
+    if any(given) and not all(given):
+        raise ValueError("bin_ranges takes K8's slot_keys, touched and sums together or none")
+    counted = all(given) and variant not in K9_HISTOGRAM
+    if all(given):
+        _check("touched", touched, (P,), torch.int32, dev)
+        _check("sums", sums, (2,), torch.int32, dev)
+        _check("slot_keys", slot_keys, (slot_keys.shape[0],), torch.int32, dev)
+        if slot_keys.shape[0] % P:
+            raise ValueError(f"slot_keys holds {slot_keys.shape[0]} keys, not K of {P} each")
+    sorted_gauss = torch.empty(m_pad, dtype=torch.int32, device=dev)
+    tile_starts = torch.empty(num_tiles, dtype=torch.int32, device=dev)
+    if counted:   # K9 writes cnt whole: only the lengths' atomics need zeros
+        tile_lens = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
+        cnt = torch.empty(P, dtype=torch.int32, device=dev)
+    else:
+        counts = torch.zeros(num_tiles + P, dtype=torch.int32, device=dev)
+        tile_lens, cnt = counts[:num_tiles], counts[num_tiles:]
+    from gaussian_lic_tpu_torch import _build
+
+    null = ctypes.c_void_p(None)
+    args = (_ptr(sorted_keys), _ptr(sorted_slots), m_eff, m_pad, P, num_tiles, depth_bits, tile0,
+            *k9_fastdiv(P), *((_ptr(touched), _ptr(sums), _ptr(slot_keys)) if all(given)
+                              else (null, null, null)),
+            slot_keys.shape[0] if all(given) else 0, _ptr(sorted_gauss), _ptr(tile_starts),
+            _ptr(tile_lens), _ptr(cnt), _stream(dev))
+    lib = _build.load().cdll
+    if variant is None:
+        _launch(lib.glic_bin_ranges, *args)
+        LAUNCHES["bin_ranges"] += 1
+    else:
+        _launch(lib.glic_bin_ranges_probe, K9_VARIANT_IDS[variant], *args)
+        K9_PROBE_LAUNCHES[variant] += 1
+    return sorted_gauss, tile_starts, tile_lens, cnt
+
+
 def bin_ranges(sorted_keys, sorted_slots, m_eff: int, m_pad: int, P: int, num_tiles: int,
-               depth_bits: int, tile0: int = 0):
+               depth_bits: int, tile0: int = 0, *, slot_keys=None, touched=None, sums=None):
     """K9 over the first `m_eff` entries of K8's keys as the stable sort left
     them (`sorted_keys` int32, `sorted_slots` int64 slot ids k*P + p; tile
     ids are key >> depth_bits - tile0). Returns (sorted_gauss (m_pad,) int32,
     P for dead entries and the tail; tile_starts (num_tiles,) int32, the
     searchsorted of each tile; tile_lens (num_tiles,) int32; cnt (P,) int32,
-    the live entries of each Gaussian)."""
+    the live entries of each Gaussian). With K8's outputs for these keys,
+    `slot_keys` (K*P,) int32, `touched` (P,) and `sums` (2,), K9 takes cnt
+    as the JAX package does (touched where the live slots fit the list, else
+    the survivor compare over slot_keys): no atomics and no zeroed cnt;
+    without them (a list merged from other ranks) it counts the entries."""
     dev = sorted_keys.device
     if dev.type == "cpu":
         return bin_ranges_plain(sorted_keys, sorted_slots, m_eff, m_pad, P, num_tiles,
                                 depth_bits, tile0)
     if dev.type != "cuda":
         raise ValueError(f"bin_ranges takes CPU or CUDA tensors, got {dev}")
-    n = sorted_keys.shape[0]
-    if not m_eff <= min(n, sorted_slots.shape[0]) or m_pad < m_eff:
-        raise ValueError(f"bin_ranges: m_eff {m_eff} and m_pad {m_pad} against {n} keys")
-    _check("sorted_keys", sorted_keys, (n,), torch.int32, dev)
-    _check("sorted_slots", sorted_slots, (sorted_slots.shape[0],), torch.int64, dev)
-    sorted_gauss = torch.empty(m_pad, dtype=torch.int32, device=dev)
-    tile_starts = torch.empty(num_tiles, dtype=torch.int32, device=dev)
-    counts = torch.zeros(num_tiles + P, dtype=torch.int32, device=dev)
-    tile_lens, cnt = counts[:num_tiles], counts[num_tiles:]
-    from gaussian_lic_tpu_torch import _build
+    return _k9(sorted_keys, sorted_slots, m_eff, m_pad, P, num_tiles, depth_bits, tile0,
+               slot_keys, touched, sums)
 
-    _launch(_build.load().cdll.glic_bin_ranges, _ptr(sorted_keys), _ptr(sorted_slots), m_eff,
-            m_pad, P, num_tiles, depth_bits, tile0, _ptr(sorted_gauss), _ptr(tile_starts),
-            _ptr(tile_lens), _ptr(cnt), _stream(dev))
-    LAUNCHES["bin_ranges"] += 1
-    return sorted_gauss, tile_starts, tile_lens, cnt
+
+def bin_ranges_probe(variant, sorted_keys, sorted_slots, m_eff: int, m_pad: int, P: int,
+                     num_tiles: int, depth_bits: int, tile0: int = 0, *, slot_keys=None,
+                     touched=None, sums=None):
+    """K9's timing variant `variant` (K9_VARIANTS), with bin_ranges' arguments
+    and outputs. CPU tensors: `bin_ranges_plain` for the variants that
+    compute K9's outputs; the timing-only ones have no plain version and
+    raise."""
+    if variant not in K9_VARIANTS:
+        raise ValueError(f"unknown K9 variant {variant!r}; one of {K9_VARIANTS}")
+    dev = sorted_keys.device
+    if dev.type == "cpu":
+        if variant in K9_TIMING_ONLY:
+            raise ValueError(f"K9 {variant} is a timing probe of the card: it has no plain "
+                             "version")
+        return bin_ranges_plain(sorted_keys, sorted_slots, m_eff, m_pad, P, num_tiles,
+                                depth_bits, tile0)
+    if dev.type != "cuda":
+        raise ValueError(f"bin_ranges takes CPU or CUDA tensors, got {dev}")
+    return _k9(sorted_keys, sorted_slots, m_eff, m_pad, P, num_tiles, depth_bits, tile0,
+               slot_keys, touched, sums, variant)
 
 
 def gather_splats(table: torch.Tensor, sorted_gauss: torch.Tensor) -> torch.Tensor:
@@ -539,9 +625,11 @@ def bin_gaussians(
     m_eff = min(M, P * K)  # the sorted list can't exceed the slot count
     M_pad = ((m_eff + align - 1) // align) * align
     # with budget loss, a slot survives iff (key, slot) sorts before the
-    # m_eff-th smallest (key, slot): K9 counts the live entries in front
+    # m_eff-th smallest (key, slot): K9 compares K8's keys with that entry's
+    # (JAX's survivor compare); else every live slot survives: cnt = touched
     sorted_gauss, tile_starts, tile_lens, cnt = bin_ranges(
-        sorted_keys, sorted_slots, m_eff, M_pad, P, num_tiles_local, depth_bits)
+        sorted_keys, sorted_slots, m_eff, M_pad, P, num_tiles_local, depth_bits,
+        slot_keys=keys, touched=tiles_touched, sums=sums)
 
     return Binning(
         sorted_gauss=sorted_gauss,

@@ -17,7 +17,10 @@ copies of floats). Inputs are made with numpy from a seed.
   * K10's plain gather equals jnp.take(..., mode="fill") with the dead id P.
 
 CPU, chip_smoke's helpers: the slot mask K8 evaluates and the warp-slots
-of its two designs; K8's variant numbers are the kernel's.
+of its two designs; K8's and K9's variant numbers are the kernels'. K9's
+magic remainder gives n // P and n % P at the edges of its range, and
+`bin_ranges` with K8's keys, touched and sums (CPU: its plain version) gives
+JAX's cnt on every case.
 
 Card (`requires_cuda`): each kernel against its plain version on the card,
 bit for bit: K8 on the edge rows (and a NaN mean) at P = 1, 3, 129 and
@@ -28,7 +31,9 @@ partial block, an all-dead block, a block of rects of K tiles or more, an
 empty band, K = 1 and 16, three launches in a row; every K8 variant that
 claims K8's outputs against K8; K9 and K10 on the lists K8
 produces (empty tiles, a budget cut, m_eff == P K, bands); `bin_gaussians`
-and the gather captured in a CUDA graph and replayed on new inputs.
+and the gather captured in a CUDA graph and replayed on new inputs; every
+K9 variant that claims K9's outputs on every case at the budget and at a
+cut, with K8's outputs and without; K9 in a CUDA graph replayed twice.
 
 JAX is imported inside the tests that use it, so the card tests collect on
 a machine without it.
@@ -382,6 +387,85 @@ def test_k8_variant_numbers_are_the_kernels():
         ttiles.bin_keys_probe("fast", *args, g, K, 20)
 
 
+def test_k9_variant_numbers_are_the_kernels():
+    """ops/tiles.py K9_VARIANT_IDS holds csrc/bin_ranges.cuh's K9Variant
+    numbers, and only variants that compute K9's outputs have a plain
+    version on the CPU."""
+    import os
+    import re
+
+    from torch_port_helpers import ROOT
+
+    with open(os.path.join(ROOT, "gaussian_lic_tpu_torch", "csrc", "bin_ranges.cuh")) as f:
+        enum = dict(re.findall(r"^  (kK9\w+) = (\d+),", f.read(), re.M))
+    camel = {"base": "Base", "hist": "Hist", "first": "First", "memonly": "MemOnly",
+             "noatomic": "NoAtomic", "mod32": "Mod32", "fastdiv": "FastDiv"}
+    assert set(enum) == {"kK9" + v for v in camel.values()}
+    assert ttiles.K9_VARIANT_IDS == {k: int(enum["kK9" + v]) for k, v in camel.items()}
+    assert set(ttiles.K9_HISTOGRAM) == set(ttiles.K9_VARIANTS) - {"base"}
+    d, grid, K, M = case_inputs("overflow_k8")
+    g = ttiles.TileGrid(*grid)
+    keys, touched, sums = ttiles.bin_keys_plain(*(t(d[k]) for k in NAMES), g, K, 20)
+    sk, ss = torch.sort(keys, stable=True)
+    plain = ttiles.bin_ranges_plain(sk, ss, M, 256, 300, g.num_tiles, 20)
+    for v in ttiles.K9_VARIANTS:
+        if v in ttiles.K9_TIMING_ONLY:
+            with pytest.raises(ValueError, match="timing probe"):
+                ttiles.bin_ranges_probe(v, sk, ss, M, 256, 300, g.num_tiles, 20)
+        else:
+            got = ttiles.bin_ranges_probe(v, sk, ss, M, 256, 300, g.num_tiles, 20,
+                                          slot_keys=keys, touched=touched, sums=sums)
+            assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    with pytest.raises(ValueError, match="unknown K9 variant"):
+        ttiles.bin_ranges_probe("fast", sk, ss, M, 256, 300, g.num_tiles, 20)
+
+
+FASTDIV_P = sorted({1, 2, 3, 7, 1_000_003, ((1 << 31) - 1) // 16}
+                   | {(1 << k) + o for k in (1, 2, 4, 10, 16, 20, 26) for o in (-1, 0, 1)})
+
+
+@pytest.mark.parametrize("P", FASTDIV_P)
+def test_k9_fastdiv_magic(P):
+    """K9's remainder: the host's magic multiplier and shift give n // P and
+    n % P for n at 0, P - 1, P and P K - 1 (K = 16, the largest slot id of
+    the 1M-Gaussian scale's lists), below 2^31, in K9's 32-bit arithmetic
+    (a 32 x 32 -> 64-bit product, the magic below 2^32)."""
+    magic, shift = ttiles.k9_fastdiv(P)
+    assert 0 < magic < 1 << 32 and 31 <= shift <= 62
+    for n in (0, P - 1, P, P * 16 - 1, (1 << 31) - 1):
+        if n < 0 or n >= 1 << 31:
+            continue
+        q = (n * magic) >> shift
+        assert q == n // P and (n - q * P) % (1 << 32) == n % P, n
+    with pytest.raises(ValueError):
+        ttiles.k9_fastdiv(0)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_bin_ranges_with_k8_outputs_on_the_cpu(name):
+    """bin_ranges on CPU tensors, with K8's keys, touched and sums and
+    without, is bin_ranges_plain, and its cnt is JAX's (touched where the
+    budget cuts nothing, the survivor compare where it does)."""
+    d, grid, K, M = case_inputs(name)
+    g = ttiles.TileGrid(*grid)
+    bits = ttiles.rank_bits_for(g.num_tiles)
+    keys, touched, sums = ttiles.bin_keys_plain(*(t(d[k]) for k in NAMES), g, K, bits,
+                                                band_n_ty=g.n_ty)
+    sk, ss = torch.sort(keys, stable=True)
+    m_eff = min(M, 300 * K)
+    m_pad = -(-m_eff // 256) * 256
+    plain = ttiles.bin_ranges_plain(sk, ss, m_eff, m_pad, 300, g.num_tiles, bits)
+    for kw in ({}, dict(slot_keys=keys, touched=touched, sums=sums)):
+        got = ttiles.bin_ranges(sk, ss, m_eff, m_pad, 300, g.num_tiles, bits, **kw)
+        assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, plain))
+    want = jax_binning(d, grid, max_tiles_per_gaussian=K, max_total_splats=M, align=256)
+    np.testing.assert_array_equal(n(plain[3]), np.asarray(want.cnt))
+    if name.startswith("overflow"):
+        assert int(sums[1]) > m_eff
+    else:
+        np.testing.assert_array_equal(n(plain[3]), n(touched))
+
+
 # ---------------------------------------------------------------------------
 # card: each kernel against its plain version, bit for bit
 # ---------------------------------------------------------------------------
@@ -617,3 +701,74 @@ def test_binning_and_gather_in_a_cuda_graph(cuda_device):
     assert_binning_equal(b_static, b_eager)
     assert torch.equal(splats_static, splats_eager)
     assert not torch.equal(first, b_eager.sorted_gauss)   # the replay binned the new scene
+
+
+def k9_lists(dev, name):
+    """K8's outputs on the card for case `name` and the stable sort of its
+    keys: (keys, touched, sums, sorted keys, sorted slots, P, T, bits, M)."""
+    d, grid, K, M = case_inputs(name)
+    g = ttiles.TileGrid(*grid)
+    bits = ttiles.rank_bits_for(g.num_tiles)
+    x = on(dev, d)
+    keys, touched, sums = ttiles.bin_keys(*(x[k] for k in NAMES), g, K, bits, band_n_ty=g.n_ty)
+    sk, ss = torch.sort(keys, stable=True)
+    return keys, touched, sums, sk, ss, x["xy"].shape[0], g.num_tiles, bits, M
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("variant", [v for v in ttiles.K9_VARIANTS
+                                     if v not in ttiles.K9_TIMING_ONLY])
+@pytest.mark.parametrize("name", list(CASES))
+def test_k9_variants_bit_for_bit(cuda_device, variant, name):
+    """Every K9 variant that claims K9's outputs equals bin_ranges_plain on
+    the card, all four outputs, at the budget (m_eff) and at a cut (half the
+    live entries), with K8's keys, touched and sums and without them (the
+    histogram); one launch each."""
+    keys, touched, sums, sk, ss, P, T, bits, M = k9_lists(cuda_device, name)
+    for m in (min(M, P * keys.shape[0] // P), max(int(sums[1]) // 2, 1)):
+        mp = -(-m // 256) * 256
+        want = ttiles.bin_ranges_plain(sk, ss, m, mp, P, T, bits)
+        for kw in ({}, dict(slot_keys=keys, touched=touched, sums=sums)):
+            before = ttiles.K9_PROBE_LAUNCHES[variant]
+            got = ttiles.bin_ranges_probe(variant, sk, ss, m, mp, P, T, bits, **kw)
+            torch.cuda.synchronize()
+            assert ttiles.K9_PROBE_LAUNCHES[variant] == before + 1
+            for what, a, b in zip(("sorted_gauss", "tile_starts", "tile_lens", "cnt"), got, want):
+                assert a.dtype == b.dtype and torch.equal(a, b), (what, m, bool(kw))
+
+
+@pytest.mark.requires_cuda
+def test_k9_takes_k8_outputs_together(cuda_device):
+    """K9 takes K8's keys, touched and sums all or none."""
+    keys, touched, sums, sk, ss, P, T, bits, M = k9_lists(cuda_device, "random_k8")
+    m = min(M, keys.shape[0])
+    with pytest.raises(ValueError, match="together"):
+        ttiles.bin_ranges(sk, ss, m, m, P, T, bits, touched=touched, sums=sums)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", ["random_k8", "overflow_k16"])
+def test_k9_graph_replays(cuda_device, name):
+    """K9 with K8's outputs, captured in a CUDA graph and replayed twice,
+    gives the eager kernel's four outputs both times: the count of touched
+    where the budget cuts nothing, the survivor compare where it does."""
+    keys, touched, sums, sk, ss, P, T, bits, M = k9_lists(cuda_device, name)
+    m_eff = min(M, keys.shape[0])
+    m_pad = -(-m_eff // 256) * 256
+    kw = dict(slot_keys=keys, touched=touched, sums=sums)
+    eager = [a.clone() for a in ttiles.bin_ranges(sk, ss, m_eff, m_pad, P, T, bits, **kw)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ttiles.bin_ranges(sk, ss, m_eff, m_pad, P, T, bits, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ttiles.bin_ranges(sk, ss, m_eff, m_pad, P, T, bits, **kw)
+    for _ in range(2):
+        for a in out:
+            a.fill_(-7)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, eager))
+    assert (int(sums[1]) > m_eff) == name.startswith("overflow")

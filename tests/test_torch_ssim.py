@@ -19,8 +19,8 @@ halo rows at D = 2 and 4. Inputs are made with numpy from a seed.
   * `ssim`, `training_loss` and `training_loss_band_part` still match JAX's
     values; a meta tensor raises; the module imports no JAX.
 
-CPU, K11's geometry: each variant's tile in ops/losses.py is the kernel's,
-and its launch grid; the variants on CPU tensors.
+CPU, K11's and K12's geometry: each variant's tile in ops/losses.py is the
+kernel's, and its launch grid; the variants on CPU tensors.
 
 Card (`requires_cuda`): K11's sums and partial maps and K12's gradient
 against their plain versions on the card (the partial maps and the
@@ -31,7 +31,9 @@ loss and its backward captured in a CUDA graph and replayed on new inputs.
 K11's tile: tiles cut by the image's edges (W not a multiple of 4, C = 1,
 W below a tile), windows that start and end inside a tile, the sums of two
 eager runs and of graph replays bit for bit, every variant that claims
-K11's outputs against the plain version; K12 unchanged.
+K11's outputs against the plain version; K12 against its plain version,
+every K12 variant that claims K12's d at 3x512x640, (1, 33, 65), (1, 5,
+12) and bands 0 and 7 of D = 8, and K12 in a CUDA graph replayed twice.
 
 JAX is imported inside the tests that use it, so the card tests collect on
 a machine without it.
@@ -329,6 +331,53 @@ def test_k11_variants_on_the_cpu():
         tl.ssim_forward_probe("fast", t(a), t(b))
 
 
+def test_k12_grid_is_the_kernels():
+    """losses.K12_TILES holds each variant's tile as csrc/ssim_backward.cuh's
+    kK12Shapes row of that variant (K12Variant's order, the enum's names
+    the variants'), each geometry is one the kernel's static checks take,
+    and launch_ssim_backward's grid covers every row of the image from the
+    tile."""
+    import re
+
+    with open(os.path.join(ROOT, "gaussian_lic_tpu_torch", "csrc", "ssim_backward.cuh")) as f:
+        src = f.read()
+    enum = re.findall(r"^  (kK12\w+) = (\d+),", src, re.M)
+    assert [int(v) for _, v in enum] == list(range(len(tl.K12_VARIANTS)))
+    camel = {"Base": "base", "T32x32": "t32x32", "A4": "a4", "Sync": "sync", "R8": "r8",
+             "T32x16": "t32x16", "T32x24": "t32x24", "NoStage": "nostage", "NoVert": "novert",
+             "NoHoriz": "nohoriz", "NoEpi": "noepi", "First": "first",
+             "FirstNoVert": "first_novert", "FirstNoHoriz": "first_nohoriz",
+             "FirstNoEpi": "first_noepi", "FirstLb5": "first_lb5"}
+    assert [camel.get(name[4:], name) for name, _ in enum] == list(tl.K12_VARIANTS)
+    rows = re.findall(r"^    \{(\d+), (\d+), (\d+), (\d+), (\d+)\},\s+// (\w+)$", src, re.M)
+    assert [r[5] for r in rows] == list(tl.K12_VARIANTS)
+    assert {r[5]: (int(r[0]), int(r[1])) for r in rows} == tl.K12_TILES
+    for tw, th, threads, blocks, seg in (tuple(map(int, r[:5])) for r in rows):
+        assert tw % 4 == 0 and th % seg == 0 and threads % 32 == 0 and blocks >= 4
+    assert "(a.W + G::TW - 1) / G::TW, (a.H + G::TH - 1) / G::TH, a.C" in src
+    assert set(tl.K12_TIMING_ONLY) < set(tl.K12_VARIANTS)
+    assert tl.K12_VARIANTS[0] == "base" and "base" not in tl.K12_TIMING_ONLY
+
+
+def test_k12_variants_on_the_cpu():
+    """On CPU tensors the K12 variants that compute K12's d are its plain
+    version, whole image and a window; the timing-only ones raise."""
+    a, b = images((3, 24, 40))
+    x, y = t(a), t(b)
+    g = window_grad(x.numel(), 0.2)
+    for r0, r1 in ((0, 24), (2, 20)):
+        maps = tl.ssim_forward_plain(x, y, r0, r1)[1]
+        want = tl.ssim_backward_plain(x, y, maps, g, r0, r1)
+        for v in tl.K12_VARIANTS:
+            if v in tl.K12_TIMING_ONLY:
+                with pytest.raises(ValueError, match="timing probe"):
+                    tl.ssim_backward_probe(v, x, y, maps, g, r0, r1)
+            else:
+                assert torch.equal(tl.ssim_backward_probe(v, x, y, maps, g, r0, r1), want)
+    with pytest.raises(ValueError, match="unknown K12 variant"):
+        tl.ssim_backward_probe("fast", x, y, maps, g)
+
+
 # ---------------------------------------------------------------------------
 # card
 # ---------------------------------------------------------------------------
@@ -478,8 +527,8 @@ def test_card_k11_sums_repeat_bit_for_bit(cuda_device):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("shape", [(3, 24, 40), (3, 33, 65), (1, 5, 12)], ids=str)
 def test_card_k12_unchanged(cuda_device, shape):
-    """K12 (its first design's geometry, ssim_common.cuh) stays bit for bit
-    with ssim_backward_plain on K11's partial maps, whole image and a band."""
+    """K12 (the listed design, ssim_backward.cuh) stays bit for bit with
+    ssim_backward_plain on K11's partial maps, whole image and a window."""
     x, y = card_inputs(cuda_device, shape, seed=5)
     sums, maps = tl.ssim_forward(x, y)
     g = window_grad(x.numel(), 0.2).to(cuda_device)
@@ -507,3 +556,58 @@ def test_card_k11_variants_against_plain(cuda_device, variant, shape):
         assert tl.PROBE_LAUNCHES[variant] == before + 1
         assert torch.equal(maps, p_maps)
         assert rel_max(n(sums), n(p_sums)) < SUM_RTOL
+
+
+def k12_cases(dev):
+    """(x, y, r0, r1, npix) of K12's variant tests: the 1M step's image
+    size, W not a multiple of 4, an image below a tile, and the first and
+    last band of D = 8 with their halo rows."""
+    out = []
+    for shape in ((3, 512, 640), (1, 33, 65), (1, 5, 12)):
+        x, y = card_inputs(dev, shape, seed=sum(shape))
+        out.append((x, y, 0, shape[1], x.numel()))
+    a, g = images((3, 64, 40), seed=8)
+    for b in (0, 7):
+        ea, eg = (torch.as_tensor(band_ext(v, 8, b), device=dev) for v in (a, g))
+        out.append((ea, eg, tl.HALO, ea.shape[1] - tl.HALO, a.size))
+    return out
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("variant", [v for v in tl.K12_VARIANTS if v not in tl.K12_TIMING_ONLY])
+def test_card_k12_variants_against_plain(cuda_device, variant):
+    """Every K12 variant that claims K12's d gives ssim_backward_plain's bit
+    for bit (up to the sign of a zero) on K11's partial maps: at the 1M
+    step's 3x512x640, at (1, 33, 65) and (1, 5, 12), and on bands 0 and 7 of
+    D = 8 (windows that start and end inside a tile); one launch each."""
+    for x, y, r0, r1, npix in k12_cases(cuda_device):
+        maps = tl.ssim_forward(x, y, r0, r1)[1]
+        g = window_grad(npix, 0.2).to(cuda_device)
+        before = tl.K12_PROBE_LAUNCHES[variant]
+        got = tl.ssim_backward_probe(variant, x, y, maps, g, r0, r1)
+        torch.cuda.synchronize()
+        assert tl.K12_PROBE_LAUNCHES[variant] == before + 1
+        assert torch.equal(got, tl.ssim_backward_plain(x, y, maps, g, r0, r1))
+
+
+@pytest.mark.requires_cuda
+def test_card_k12_graph_replays(cuda_device):
+    """K12 captured in a CUDA graph and replayed twice gives the eager
+    kernel's d both times."""
+    x, y = card_inputs(cuda_device, (3, 512, 640), seed=9)
+    maps = tl.ssim_forward(x, y)[1]
+    g = window_grad(x.numel(), 0.2).to(cuda_device)
+    eager = tl.ssim_backward(x, y, maps, g)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tl.ssim_backward(x, y, maps, g)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        d = tl.ssim_backward(x, y, maps, g)
+    for _ in range(2):
+        d.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(d, eager)

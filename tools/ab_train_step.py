@@ -18,9 +18,11 @@ arguments of that train step (`step_scene`): K1 and K2 on its splat list,
 K5 and K6 on its parameters and camera (K6 on K2's (P, 9) output), K7 on
 the six groups with K6's gradients and zero moments (CUDA events, 50
 launches each after a warm-up); K8 on K5's output, K9 on the stable sort
-of K8's keys, K10 on K9's list, K11 and K12 on K1's image and the
-keyframe's, each 20 calls in a CUDA graph (`chip_smoke.graph_ms`: eager
-times of these short kernels are the host's launch gaps). A checkout
+of K8's keys (with K8's keys, touched and sums where the checkout's
+`bin_ranges` takes them, as `bin_gaussians` passes them), K10 on K9's
+list, K11 and K12 on K1's image and the keyframe's, each 20 calls in a
+CUDA graph (`chip_smoke.graph_ms`: eager times of these short kernels are
+the host's launch gaps). A checkout
 without K8-K10 or K11-K12 prints n/a; the lists are of each kernel's ms.
 Needs a CUDA device; imports no JAX.
 """
@@ -85,12 +87,18 @@ if hasattr(tiles, "bin_keys"):   # K8, K9 and K10 (a checkout before them has no
     bits, T = tiles.rank_bits_for(g.num_tiles), g.num_tiles
     kargs = (table[:P, 0:2], depth, table[:P, 2:5], x["opacity"], radius, active, g, K, bits,
              0, g.n_ty)
-    sk, ss = torch.sort(tiles.bin_keys(*kargs)[0], stable=True)
+    k8 = tiles.bin_keys(*kargs)
+    sk, ss = torch.sort(k8[0], stable=True)
     m_eff = min(M, P * K)
     m_pad = -(-m_eff // CHUNK) * CHUNK
-    ids = tiles.bin_ranges(sk, ss, m_eff, m_pad, P, T, bits)[0]
+    # K8's outputs, as bin_gaussians passes them, where this checkout's K9
+    # takes them (the same list and budget either way)
+    import inspect
+    k9kw = (dict(slot_keys=k8[0], touched=k8[1], sums=k8[2])
+            if "touched" in inspect.signature(tiles.bin_ranges).parameters else {})
+    ids = tiles.bin_ranges(sk, ss, m_eff, m_pad, P, T, bits, **k9kw)[0]
     ms["K8"] = cs.graph_ms(lambda: tiles.bin_keys(*kargs))
-    ms["K9"] = cs.graph_ms(lambda: tiles.bin_ranges(sk, ss, m_eff, m_pad, P, T, bits))
+    ms["K9"] = cs.graph_ms(lambda: tiles.bin_ranges(sk, ss, m_eff, m_pad, P, T, bits, **k9kw))
     ms["K10"] = cs.graph_ms(lambda: tiles.gather_splats(table, ids))
 if hasattr(losses, "ssim_forward"):   # K11 and K12 (a checkout before them has neither)
     img = blend.blend_forward(*args, **kw)[0][:, :g.height, :g.width].contiguous()

@@ -5,14 +5,16 @@
 Runs chip_smoke.py's phases 2d and 2e without the rest of the smoke test:
 builds the kernels, makes phase 2's two inputs (the seeded 20k-Gaussian
 scene and the 1M-Gaussian train step's arguments), then K8, K9 and K10
-against their plain versions with K8's timing variants (tiles.K8_VARIANTS)
-and K8's warp-slot counts, and K11 and K12 against theirs with K11's timing
-variants (losses.K11_VARIANTS), each variant timed beside the others in
-turns, 20 calls in a CUDA graph. Then the device time of each kernel that
-K8's and K11's wrappers launch (K8: base, fold, listed; K11: base, nofold,
-persist, the first design), from torch.profiler over a replay of 20
-calls in a CUDA graph, and each K8 and K11 kernel's registers and shared
-memory (cuobjdump).
+against their plain versions with K8's and K9's timing variants
+(tiles.K8_VARIANTS, tiles.K9_VARIANTS) and K8's warp-slot counts, and K11
+and K12 against theirs with K11's and K12's timing variants
+(losses.K11_VARIANTS, losses.K12_VARIANTS), each variant timed beside the
+others in turns, 20 calls in a CUDA graph, and each kernel's registers,
+spills and shared memory (cuobjdump). Then the device time of each kernel
+that the wrappers launch (K8: base, fold, listed; K9: base, hist, first,
+with their fills; K11: base, nofold, persist, the first design; K12: base,
+the first design), from torch.profiler over a replay of 20 calls in a CUDA
+graph.
 Prints the phases' lines, the first of them the card's name and power
 limit. Needs a CUDA device; imports no JAX.
 """
@@ -69,24 +71,6 @@ def log_split(cs, tag: str, fn) -> None:
                                           sorted(split.items(), key=lambda kv: -kv[1])))
 
 
-def log_resources(cs, lib_path: str) -> None:
-    """Registers, spills and shared memory of K8's and K11's kernels in the
-    built library (cuobjdump --dump-resource-usage)."""
-    import re
-    import subprocess
-
-    from gaussian_lic_tpu_torch import _build
-
-    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    out = subprocess.run([cuobjdump, "--dump-resource-usage", lib_path], capture_output=True,
-                         text=True, check=True).stdout
-    seen = set()
-    for name, res in re.findall(r"Function (\S+):\n\s*(REG:.*)", out):
-        if ("bin_keys_kernel" in name or "ssim_forward" in name) and name not in seen:
-            seen.add(name)
-            cs.log(f"[res] {name}: {res.strip()}")
-
-
 def main(argv=None) -> int:
     import torch
 
@@ -131,6 +115,16 @@ def main(argv=None) -> int:
             g.n_ty)
     for v in ("base", "fold", "listed"):
         log_split(cs, f"K8 {v}", lambda: tiles.bin_keys_probe(v, *args))
+    from gaussian_lic_tpu_torch.ops.rasterize import CHUNK
+
+    k8 = tiles.bin_keys(*args)
+    sk, ss = torch.sort(k8[0], stable=True)
+    m_eff = min(sc["bin_kw"]["max_total_splats"], P * K)
+    m_pad = -(-m_eff // CHUNK) * CHUNK
+    k9kw = dict(slot_keys=k8[0], touched=k8[1], sums=k8[2])
+    for v in ("base", "hist", "first"):
+        log_split(cs, f"K9 {v}", lambda: tiles.bin_ranges_probe(v, sk, ss, m_eff, m_pad, P,
+                                                                g.num_tiles, bits, **k9kw))
     # K8 and K10 at three L2 fetch sizes (a device-wide hint; restored after)
     import ctypes
 
@@ -148,7 +142,11 @@ def main(argv=None) -> int:
     img, gt = cs.ssim_inputs(sc, sc["gt"])
     for v in ("base", "nofold", "persist", "first"):
         log_split(cs, f"K11 {v}", lambda: losses.ssim_forward_probe(v, img, gt))
-    log_resources(cs, lib.path)
+    n = img.numel()
+    d_sums = torch.tensor([-0.2 / n, 0.8 / n], device=dev)
+    maps = losses.ssim_forward(img, gt)[1]
+    for v in ("base", "first"):
+        log_split(cs, f"K12 {v}", lambda: losses.ssim_backward_probe(v, img, gt, maps, d_sums))
     return 0
 
 
