@@ -56,7 +56,15 @@ exit code is not 0:
      own template: base and direct must equal K6 bit for bit, noshio and
      noproj are timed only) with the count of rows whose row gradient is
      not zero, and the built SASS of K6 beside its probe's base (the same
-     opcodes);
+     opcodes, in both input forms). The same from the stored parameters
+     (log_scale, quat, opa_logit: the main path's form, the activations
+     inside K5 and K6) with their edge rows besides (exp overflowing, opacity
+     logits of +-inf, a zero quaternion): K5 bit for bit against the plain
+     chain with its activations, every output and the binned lists; K6
+     within PRE_GRAD_RTOL of the closed form, autograd and float64 autograd,
+     each output's ulps against autograd printed; both timed in CUDA graphs
+     (20 calls) in turns beside the parent's path, the activations as
+     PyTorch ops around K5 and K6 in activated form;
   2d. the binning kernels K8 (slot keys), K9 (sorted list and tile ranges)
      and K10 (the splat gather), on phase 2's two inputs with phase 2c's
      edge rows through K5: K8 with global tile ids; K8, K9 on the stable
@@ -115,8 +123,9 @@ exit code is not 0:
      ms/step, it/s, peak memory, overflow counters, capture seconds and the
      graph pool's bytes; the bundles' losses must agree with the eager
      runs' within their spread, every turn must launch one K1, K5, K6, K7,
-     K8, K9, K10, K11 and K12 a step, and the bundles' launches must equal
-     the eager loop's;
+     K8, K9, K10, K11 and K12 a step, the bundles' launches must equal
+     the eager loop's, and one eager step (profiled) must run no
+     exp, sigmoid or norm op of its own (ACTIVATION_OPS);
   5. the application: phase 3's stream written as a RecordedStream directory
      (stamps 0.1 s apart) and run through `run.main` with config/fastlivo.yaml
      as shipped (100,000 skybox Gaussians, 16 tile slots), randinit LPIPS,
@@ -143,7 +152,8 @@ exit code is not 0:
      and params by tests/test_parallel.py's rule), then 20 timed steps of
      each in turns (ms/step, peak memory), then 100 sharded steps eagerly
      and as the sharded bundles 64+16+16+4 (CUDA graphs over NCCL) in turns
-     as phase 4 runs them, with phase 4's loss and launch checks; (d)
+     as phase 4 runs them, with phase 4's loss, launch and activation-op
+     checks; (d)
      MappingEngine on that group over phase 3's stream, its bundles CUDA
      graphs (the captures printed), the launch counters zeroed just before
      and read just after, train PSNR within 0.1 dB of phase 3's; (e) `run.main
@@ -432,6 +442,10 @@ def kernel_scene(dev, n: int = 20000, seed: int = 1, tile=None) -> dict:
                     max_tiles_per_gaussian=cfg.max_tiles_per_gaussian, max_total_splats=4 * n)
     sc["inputs"] = dict(xyz=xyz, scale=scale, quat=quat, opacity=opacity, camera=cam, dc=dc,
                         sh_rest=sh_rest, sh_degree=3, active=None)
+    # stored parameters of the scene (log_scale, quat, opa_logit), under the
+    # inputs' names: what a map holds and the train step hands K5 and K6
+    sc["stored"] = dict(scale=torch.log(scale), quat=quat,
+                        opacity=torch.log(opacity / (1.0 - opacity)))
     sc["bin_kw"] = dict(max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
                         max_total_splats=4 * n)
     g = sc["grid"]
@@ -458,6 +472,7 @@ def step_scene(state: dict, idx: int = 1) -> dict:
                     dc=gm.dc, sh_rest=gm.sh_rest, sh_degree=gm.sh_degree,
                     active=inputs["active"], **_render_kw(cfg, gm.capacity))
     sc["inputs"] = inputs
+    sc["stored"] = dict(scale=gm.log_scale, quat=gm.quat, opacity=gm.opa_logit)
     kw = _render_kw(cfg, gm.capacity)
     sc["bin_kw"] = {k: kw[k] for k in ("max_tiles_per_gaussian", "max_total_splats")}
     g = sc["grid"]
@@ -628,6 +643,14 @@ PRE_RADIUS_SHARE = 1e-4    # K5 vs plain: share of rows whose radius may differ,
 PRE_GRAD_RTOL = 1e-5       # K6 vs plain / autograd / float64 autograd, of each column's max
 EDGE_ROWS = ("nan_opacity", "behind", "det_zero", "clamp_x", "clamp_y", "sh_negative",
              "inactive")
+# The stored parameters' edge rows besides (rows 14, 16, ..): a log scale
+# above 88.7 (exp gives inf), opacity logits of +inf and -inf, a zero
+# quaternion (the first normalisation's 0 / 1e-12).
+RAW_EDGE_ROWS = ("exp_overflow", "opa_pos_inf", "opa_neg_inf", "zero_quat")
+# Activations of the stored parameters (GaussianMap's exp, norm chain and
+# sigmoid) as PyTorch ops: what a step must no longer launch on the card.
+ACTIVATION_OPS = ("aten::exp", "aten::sigmoid", "aten::linalg_vector_norm", "aten::norm",
+                  "aten::sigmoid_backward")
 # Quaternions whose norm is exact in any summation order (1, 2, 5), so K5's
 # norm and PyTorch's reduction agree and the needle's det is 0 in both.
 EXACT_QUATS = ((1, 1, 1, 1), (2, 1, 2, 4), (1, 2, 4, 2), (4, 2, 1, 2), (2, 4, 2, 1),
@@ -645,12 +668,14 @@ def to_world(cam, pts):
     return (R.transpose(0, 1)[None] * p[:, None, :]).sum(-1)
 
 
-def needle(cam, n: int = 4096, seed: int = 7):
+def needle(cam, n: int = 4096, seed: int = 7, raw: bool = False):
     """(xyz, scale, quat) of a needle (one scale 1e5-1e9, two 1e-3) whose
     float32 EWA determinant is exactly 0 at camera `cam`, from n seeded
-    candidates; raises if none is."""
+    candidates; raises if none is. With `raw`, the scale is its log and the
+    determinant that of the activated parameters (preprocess.activate)."""
     import torch
 
+    from gaussian_lic_tpu_torch.ops.preprocess import activate
     from gaussian_lic_tpu_torch.ops.projection import projection_terms
 
     rng = np.random.default_rng(seed)
@@ -662,7 +687,12 @@ def needle(cam, n: int = 4096, seed: int = 7):
                                       np.full(n, 1e-3)], 1), **f32)
     q = np.array(EXACT_QUATS, np.float64)[rng.integers(0, len(EXACT_QUATS), n)]
     quat = torch.as_tensor(q * rng.choice([-1.0, 1.0], (n, 4)), **f32)
-    t = projection_terms(xyz, scale, quat, cam)
+    if raw:
+        scale = torch.log(scale)
+        s_act, q_act, _ = activate(scale, quat, torch.zeros(n, **f32))
+        t = projection_terms(xyz, s_act, q_act, cam)
+    else:
+        t = projection_terms(xyz, scale, quat, cam)
     hit = torch.nonzero((t["det"] == 0) & t["in_front"])
     if hit.numel() == 0:
         raise AssertionError("no needle of the search has a float32 det of 0")
@@ -670,39 +700,50 @@ def needle(cam, n: int = 4096, seed: int = 7):
     return xyz[i], scale[i], quat[i]
 
 
-def with_edge_rows(inputs: dict) -> tuple:
+def with_edge_rows(inputs: dict, raw: bool = False) -> tuple:
     """A copy of preprocess inputs whose rows 0, 2, .. 12 are the edge rows:
     NaN opacity, behind the camera, det = 0, tx clamped, ty clamped, an SH
-    colour below 0, inactive. Returns (inputs, {edge: row})."""
+    colour below 0, inactive. With `raw` the inputs' scale and opacity are
+    the stored log_scale and opa_logit, and rows 14, 16, .. are
+    RAW_EDGE_ROWS besides. Returns (inputs, {edge: row})."""
     import torch
 
     x = {k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in inputs.items()}
     cam, P = x["camera"], x["xyz"].shape[0]
     if x["active"] is None:
         x["active"] = torch.ones(P, dtype=torch.bool, device=x["xyz"].device)
-    rows = dict(zip(EDGE_ROWS, range(0, 2 * len(EDGE_ROWS), 2)))
+    names = EDGE_ROWS + (RAW_EDGE_ROWS if raw else ())
+    rows = dict(zip(names, range(0, 2 * len(names), 2)))
     x["opacity"][rows["nan_opacity"]] = float("nan")
     x["xyz"][[rows["behind"], rows["clamp_x"], rows["clamp_y"]]] = to_world(
         cam, [[0.3, -0.2, -3.0], [25.0, 0.5, 5.0], [0.5, -30.0, 6.0]])
     r = rows["det_zero"]
-    x["xyz"][r], x["scale"][r], x["quat"][r] = needle(cam)
+    x["xyz"][r], x["scale"][r], x["quat"][r] = needle(cam, raw=raw)
     x["dc"][rows["sh_negative"]] = torch.tensor([-5.0, 0.2, -4.0])
-    x["opacity"][rows["inactive"]] = 0.8
+    x["opacity"][rows["inactive"]] = math.log(0.8 / 0.2) if raw else 0.8
     x["active"][rows["inactive"]] = False
+    if raw:
+        x["scale"][rows["exp_overflow"]] = torch.tensor([89.0, -4.0, -4.0])
+        x["opacity"][rows["opa_pos_inf"]] = float("inf")
+        x["opacity"][rows["opa_neg_inf"]] = float("-inf")
+        x["quat"][rows["zero_quat"]] = 0.0
     return x, rows
 
 
-def column_errors(got, want, rows: dict, leave_out=(), per_column=False):
+def column_errors(got, want, rows: dict, leave_out=(), per_column=False, free=()):
     """The largest error of `got` against `want`, each column relative to its
     max |want| over the scene's rows, and each edge row relative to its own
     max |want| (its values are orders of magnitude off the scene's); NaN
-    must be where `want` has NaN. With `per_column`, also the scene rows'
-    error of each column."""
+    must be where `want` has NaN. Edge rows in `leave_out` are not held to
+    the tolerance, those in `free` not to the NaN either. With
+    `per_column`, also the scene rows' error of each column."""
     import torch
 
     got = got.detach().double().reshape(got.shape[0], -1)
     want = want.detach().double().reshape(want.shape[0], -1)
-    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+    held = torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
+    held[[r for name, r in rows.items() if name in free]] = False
+    if not torch.equal(torch.isnan(got[held]), torch.isnan(want[held])):
         raise AssertionError("NaN where the plain version has none, or none where it has")
     got, want = got.nan_to_num(), want.nan_to_num()
     edge = torch.zeros(got.shape[0], dtype=torch.bool, device=got.device)
@@ -733,9 +774,19 @@ def bit_equal(a, b) -> bool:
     return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def plain_autograd(x: dict, g, dtype=None):
+def same_floats(a, b) -> bool:
+    """Bit for bit where either is a number; NaN where the other is NaN."""
+    import torch
+
+    nan = torch.isnan(a)
+    return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and bit_equal(torch.where(nan, 0.0, a), torch.where(nan, 0.0, b)))
+
+
+def plain_autograd(x: dict, g, dtype=None, raw: bool = False):
     """The six gradients of the plain chain (the parent's main path) for the
-    rows' gradient g (P, 9), by autograd, in `dtype` (default: the inputs')."""
+    rows' gradient g (P, 9), by autograd, in `dtype` (default: the inputs');
+    with `raw`, of the stored parameters through the activations."""
     import torch
     import torch.nn.functional as F
 
@@ -749,7 +800,7 @@ def plain_autograd(x: dict, g, dtype=None):
     leaves = [x[k].detach().to(dtype or x[k].dtype).requires_grad_(True)
               for k in ("xyz", "scale", "quat", "opacity", "dc", "sh_rest")]
     rows = pre.preprocess_forward_plain(*leaves[:4], cam, leaves[4], leaves[5],
-                                        x["sh_degree"], x["active"])["rows"]
+                                        x["sh_degree"], x["active"], raw=raw)["rows"]
     cot = F.pad(g.to(rows.dtype), (0, rows.shape[1] - g.shape[1]))
     return rows, leaves, cot, torch.autograd.grad(rows, leaves, cot, retain_graph=True)
 
@@ -880,11 +931,157 @@ def check_preprocess(sc: dict, tag: str, f64: bool) -> dict:
     return res
 
 
-def k6_variants(bargs, k6, tag: str) -> dict:
+def parent_activation_backward(quat, saved, d_act):
+    """The gradients of the stored (log_scale, quat, opa_logit) for the
+    activated values' gradients d_act = (d scale, d rotation, d opacity),
+    from what autograd saves of the forward, saved = (exp(log_scale), |quat|,
+    |quat| + 1e-12, sigmoid(opa_logit)): autograd's ops for exp, the
+    division, the norm and sigmoid, one by one, as the parent's step ran
+    them after K6 (timed beside K6's fold)."""
+    import torch
+
+    s, n, D, o = saved
+    d_s, d_r, d_o = d_act
+    d_q = d_r / D
+    d_q += (-d_r * ((quat / D) / D)).sum(-1, keepdim=True) * (quat / n).masked_fill_(n == 0, 0)
+    return d_s * s, d_q, torch.ops.aten.sigmoid_backward(d_o, o)
+
+
+def check_preprocess_raw(sc: dict, tag: str, f64: bool) -> dict:
+    """K5 and K6 from the stored parameters (log_scale, quat, opa_logit: the
+    main path's form) on scene `sc` with the edge rows of
+    with_edge_rows(raw=True). K5 bit for bit against the plain chain with the
+    activations (table, depth, radius, base_active and the activated
+    opacity), the lists binned from both equal; K6 against the closed form,
+    autograd of the plain chain and, with `f64`, float64 autograd, within
+    PRE_GRAD_RTOL of each column's max, with each output's ulps against the
+    float32 autograd printed. Then each timed in CUDA graphs (20 calls) in
+    turns beside the parent's path: the activations as PyTorch ops, then K5
+    in activated form; K6 in activated form, then the activations' backward
+    as autograd runs it (parent_activation_backward). Returns each kernel's
+    (max abs error, ms, plain ms, bytes, the parent's ms)."""
+    import torch
+
+    from gaussian_lic_tpu_torch.ops import blend, preprocess as pre, tiles
+    from gaussian_lic_tpu_torch.ops.rasterize import CHUNK
+    from gaussian_lic_tpu_torch.utils.cuda_timing import cuda_ms
+
+    x, rows = with_edge_rows(dict(sc["inputs"], **sc["stored"]), raw=True)
+    P, deg, cam = x["xyz"].shape[0], x["sh_degree"], x["camera"]
+    stored = tuple(x[k] for k in ("scale", "quat", "opacity"))
+    geo = (x["xyz"],) + stored
+    fargs = geo + (cam, x["dc"], x["sh_rest"], deg, x["active"])
+    k5 = pre.preprocess_forward(*fargs, raw=True)
+    p5 = pre.preprocess_forward_plain(*fargs, raw=True)
+    torch.cuda.synchronize()
+    names = ("table", "depth", "radius", "base_active", "opacity")
+    same = {k: (torch.equal(a, p5[k]) if k == "base_active" else same_floats(a, p5[k]))
+            for k, a in zip(names, k5)}
+    g = sc["grid"]
+    kw = dict(max_tiles_per_gaussian=16, max_total_splats=sc["splats"].shape[0], align=CHUNK)
+    lists = [tiles.bin_gaussians(t[:P, 0:2], d, t[:P, 2:5], o, r, b, g, **kw)
+             for t, d, r, b, o in (k5, tuple(p5[k] for k in names))]
+    n_sorted = int((lists[0].sorted_gauss != lists[1].sorted_gauss).sum())
+    log(f"[2c] {tag} K5 from the stored parameters: bit for bit with the plain chain and "
+        f"its activations: {same}; sorted-list entries that differ {n_sorted} of "
+        f"{lists[0].sorted_gauss.numel()}; edge rows {rows}")
+    if not all(same.values()) or n_sorted:
+        raise AssertionError(f"{tag}: K5 from the stored parameters differs from its plain "
+                             "version")
+    culled = [rows[k] for k in ("nan_opacity", "behind", "det_zero", "inactive",
+                                "opa_neg_inf")]
+    if bool(k5[3][culled].any()):
+        raise AssertionError(f"{tag}: a culled edge row is base_active: {k5[3][culled]}")
+
+    table = torch.zeros((P + 1, blend.GAUSS_TABLE_STRIDE), device=k5[0].device)
+    table[:P, :blend.N_ATTR] = sc["k2"]
+    edge = torch.as_tensor(np.random.default_rng(9).normal(size=(len(rows), blend.N_ATTR)),
+                           dtype=torch.float32, device=table.device)
+    table[list(rows.values()), :blend.N_ATTR] = edge * sc["k2"].abs().amax(0)
+    d_attrs = table[:P, :blend.N_ATTR]
+    bargs = geo + (cam, x["dc"], x["sh_rest"], deg, d_attrs)
+    k6 = pre.preprocess_backward(*bargs, raw=True)
+    p6 = pre.preprocess_backward_plain(*bargs, raw=True)
+    rows_t, leaves, cot, a6 = plain_autograd(x, d_attrs, raw=True)
+    torch.cuda.synchronize()
+    e_k6_plain = max(column_errors(a, b, rows) for a, b in zip(k6, p6))
+    e_k6_auto = max(column_errors(a, b, rows) for a, b in zip(k6, a6))
+    scene = torch.ones(P, dtype=torch.bool, device=d_attrs.device)
+    scene[list(rows.values())] = False
+    outs = ("xyz", "log_scale", "quat", "opa_logit", "dc", "sh_rest")
+    apart = "; ".join(f"{k} " + ("bit for bit" if same_floats(a, b) else
+                                 "{} ulps at most, median {}".format(*ulp_spread(a[scene],
+                                                                                b[scene])))
+                      for k, a, b in zip(outs, k6, a6))
+    msg = (f"[2c] {tag} K6 from the stored parameters: against the closed form "
+           f"{e_k6_plain:.3e}, against autograd {e_k6_auto:.3e} of each column's max; "
+           f"against float32 autograd, the scene's rows: {apart}")
+    worst = max(e_k6_plain, e_k6_auto)
+    if f64:
+        # float64 resolves neither the needle's det nor exp(89) as float32 does
+        a64 = plain_autograd(x, d_attrs, torch.float64, raw=True)[3]
+        free = ("det_zero", "exp_overflow")
+        e64 = [max(column_errors(a, b, rows, free, free=free) for a, b in zip(got, a64))
+               for got in (k6, a6)]
+        msg += f"; against float64 autograd: K6 {e64[0]:.3e}, float32 autograd {e64[1]:.3e}"
+        worst = max(worst, *e64)
+        del a64
+    log(msg)
+    if not worst <= PRE_GRAD_RTOL:
+        raise AssertionError(f"{tag}: K6 from the stored parameters disagrees beyond "
+                             f"{PRE_GRAD_RTOL}")
+    variants = k6_variants(bargs, k6, tag, raw=True)
+
+    # the parent's path: the activations as ops, K5 / K6 on the activated
+    # values, the activations' backward as autograd's ops
+    acts = pre.activate(*stored)
+    n = torch.linalg.norm(x["quat"], dim=-1, keepdim=True)
+    saved = (acts[0], n, n + 1e-12, acts[2])
+    a_bargs = (x["xyz"],) + acts + bargs[4:]
+
+    def parent_k5():
+        pre.preprocess_forward(x["xyz"], *pre.activate(*stored), *fargs[4:])
+
+    def parent_k6():
+        d = pre.preprocess_backward(*a_bargs)
+        parent_activation_backward(x["quat"], saved, d[1:4])
+
+    turns = in_turns({"K5": lambda: pre.preprocess_forward(*fargs, raw=True),
+                      "parent K5": parent_k5,
+                      "K6": lambda: pre.preprocess_backward(*bargs, raw=True),
+                      "parent K6": parent_k6})
+    log(f"[2c] {tag} in CUDA graphs (20 calls) in turns, ms: " + "  ".join(
+        f"{k} {' '.join(f'{v:.4f}' for v in ms)}" for k, ms in turns.items()))
+    nbytes = preprocess_bytes(P, x["sh_rest"].shape[1])
+    mean = {k: sum(v) / len(v) for k, v in turns.items()}
+    res = {
+        "preprocess_forward": (
+            max(scene_abs_err(k5[0][:P], p5["table"][:P], rows),
+                scene_abs_err(k5[1], p5["depth"], rows)),
+            mean["K5"], cuda_ms(lambda: pre.preprocess_forward_plain(*fargs, raw=True), 20),
+            nbytes["forward_raw"], mean["parent K5"]),
+        "preprocess_backward": (
+            max(scene_abs_err(a, b, rows) for a, b in zip(k6, a6)),
+            mean["K6"],
+            cuda_ms(lambda: torch.autograd.grad(rows_t, leaves, cot, retain_graph=True), 20),
+            nbytes["backward_raw"], mean["parent K6"]),
+    }
+    for k, (_, tk, tp, nb, tpar) in res.items():
+        log(f"[2c] {tag} time {k} from the stored parameters: kernel {tk:.4f} ms  the "
+            f"parent's path {tpar:.4f} ms  plain {tp:.4f} ms  bound "
+            f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes)")
+    base = variants["base"]
+    log(f"[2c] {tag} K6 variants from the stored parameters: " + "  ".join(
+        f"{v} {ms:.4f} ms ({ms - base:+.4f})" for v, ms in variants.items()))
+    return res
+
+
+def k6_variants(bargs, k6, tag: str, raw: bool = False) -> dict:
     """K6's timing variants (preprocess.K6_VARIANTS) on K6's arguments
-    `bargs`: base and direct must equal K6's outputs `k6` bit for bit (the
-    others are timing only); logs the rows whose nine gradients are not all
-    zero. Returns each variant's ms (20 launches)."""
+    `bargs` (of the stored parameters with `raw`): base and direct must equal
+    K6's outputs `k6` bit for bit (the others are timing only); logs the
+    rows whose nine gradients are not all zero. Returns each variant's ms
+    (20 launches)."""
     import torch
 
     from gaussian_lic_tpu_torch.ops import preprocess as pre
@@ -895,12 +1092,12 @@ def k6_variants(bargs, k6, tag: str) -> dict:
     log(f"[2c] {tag}: {live} of {d_attrs.shape[0]} rows have a nonzero row gradient")
     out = {}
     for v in pre.K6_VARIANTS:
-        got = pre.preprocess_backward_probe(v, *bargs)
+        got = pre.preprocess_backward_probe(v, *bargs, raw=raw)
         torch.cuda.synchronize()
         if v not in pre.K6_TIMING_ONLY and not all(bit_equal(a, b) for a, b in zip(got, k6)):
             raise AssertionError(f"{tag}: K6 variant {v} differs from K6")
         del got
-        out[v] = cuda_ms(lambda: pre.preprocess_backward_probe(v, *bargs), 20)
+        out[v] = cuda_ms(lambda: pre.preprocess_backward_probe(v, *bargs, raw=raw), 20)
     return out
 
 
@@ -911,39 +1108,47 @@ def preprocess_bytes(P: int, S: int) -> dict:
     16-float row, depth, radius and base_active (and the zero row); K6 reads
     the nine row gradients and the inputs but opacity and writes the six
     gradients; K7 reads p, g, m, v and writes p', m', v' of 14 + 3 S floats
-    a row, and reads the mask."""
+    a row, and reads the mask. From the stored parameters (`*_raw`), K5 also
+    writes the activated opacity and K6 also reads the opacity logit."""
     inputs = 4 * (3 + 3 + 4 + 1 + 3 + 3 * S)
-    return dict(forward=P * (inputs + 1 + 4 * 16 + 4 + 4 + 1) + 4 * 16,
-                backward=P * (4 * 9 + (inputs - 4) + inputs),
+    fwd = P * (inputs + 1 + 4 * 16 + 4 + 4 + 1) + 4 * 16
+    bwd = P * (4 * 9 + (inputs - 4) + inputs)
+    return dict(forward=fwd, backward=bwd, forward_raw=fwd + 4 * P, backward_raw=bwd + 4 * P,
                 adam=P * (4 * 7 * (14 + 3 * S) + 1))
 
 
 def phase_preprocess(scenes) -> list:
-    """K6's SASS beside its probe's base, then K5, K6 (and its variants)
-    and K7 on phase 2's 20k scene (K6 also against float64 autograd) and on
-    the 1M train step's inputs; the kernels line's rows, with the train
-    step's times and bounds."""
+    """K6's SASS beside its probe's base (both input forms), then K5, K6
+    (and its variants) and K7 on phase 2's 20k scene (K6 also against
+    float64 autograd) and on the 1M train step's inputs, from activated
+    values and from the stored parameters; the kernels line's rows, with
+    the train step's times and bounds (K5 and K6: from the stored
+    parameters, the main path's form, beside the parent's path)."""
     from gaussian_lic_tpu_torch import _build
 
     check_base_is_production(_build.load().path, K6_BASE, "2c")
-    light = check_preprocess(scenes[0], f"{scenes[0]['n_gauss']}-Gaussian scene", f64=True)
-    step = check_preprocess(scenes[1], f"{scenes[1]['n_gauss']}-Gaussian train step",
-                            f64=False)
+    light, step = ({**check_preprocess(sc, f"{sc['n_gauss']}-Gaussian {what}", f64),
+                    **check_preprocess_raw(sc, f"{sc['n_gauss']}-Gaussian {what}", f64)}
+                   for sc, what, f64 in ((scenes[0], "scene", True),
+                                         (scenes[1], "train step", False)))
     src = "gaussian_lic_tpu_torch/csrc/"
-    chain = ("gaussian_lic_tpu/ops/projection.py:77 + ops/sh.py:47 + "
-             "ops/rasterize.py:78")
+    chain = ("gaussian_lic_tpu/models/gaussians.py:84-94 + ops/projection.py:77 + "
+             "ops/sh.py:47 + ops/rasterize.py:78")
     rows = [("preprocess_forward", "preprocess_forward.cu", chain),
             ("preprocess_backward", "preprocess_backward.cu", "autodiff of " + chain),
             ("sparse_adam", "sparse_adam.cu", "gaussian_lic_tpu/ops/adam.py:40")]
     out = []
     for name, cu, replaces in rows:
-        err, ms, plain_ms, nb = step[name]
+        err, ms, plain_ms, nb, *parent = step[name]
         out.append(dict(name=name, route="cuda", source=src + cu, replaces=replaces,
                         counter=name, max_abs_err=max(err, light[name][0]), ms=ms,
                         plain_ms=plain_ms, bound_ms=nb / HBM_BYTES_PER_S * 1e3,
                         bound_by="bytes", library_ms=None))
+        if parent:
+            out[-1]["parent_ms"] = parent[0]
         log(f"[2c] {name}: {ms:.4f} ms against a bound of {out[-1]['bound_ms']:.4f} ms "
-            f"(bytes), plain {plain_ms:.4f} ms")
+            f"(bytes), plain {plain_ms:.4f} ms"
+            + (f", the parent's path {parent[0]:.4f} ms" if parent else ""))
     return out
 
 
@@ -1163,7 +1368,7 @@ def check_binning(sc: dict, rates: dict, tag: str) -> dict:
 
     x, _ = with_edge_rows(sc["inputs"])
     P = x["xyz"].shape[0]
-    table, depth, radius, active = pre.preprocess_forward(
+    table, depth, radius, active, _ = pre.preprocess_forward(
         *(x[k] for k in ("xyz", "scale", "quat", "opacity", "camera", "dc", "sh_rest",
                          "sh_degree", "active")))
     args = (table[:P, 0:2], depth, table[:P, 2:5], x["opacity"], radius, active)
@@ -1368,6 +1573,18 @@ def ulps(a, b) -> int:
     ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
     ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
     return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+def ulp_spread(a, b) -> tuple:
+    """(the largest, the median) distance of two float32 tensors in units in
+    the last place, over their entries."""
+    import torch
+
+    ia, ib = (t.contiguous().view(torch.int32).long() for t in (a, b))
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    d = (ia - ib).abs().flatten()
+    return (int(d.max()), int(d.median())) if d.numel() else (0, 0)
 
 
 def rel_err(a, b) -> float:
@@ -1766,7 +1983,9 @@ def sass_opcodes(sass: str, kernel: str) -> list:
 
 BLEND_BASES = (("K1 / K3 base", "blend_forward_kernelILi0E"),
                ("K2 / K4 base", "blend_backward_kernelILi0E"))
-K6_BASE = (("K6 / K6 probe base", "preprocess_backward_kernelILi0E"),)
+K6_BASE = (("K6 / K6 probe base, from the stored parameters",
+            "preprocess_backward_kernelILi0ELb1E"),
+           ("K6 / K6 probe base, from activated values", "preprocess_backward_kernelILi0ELb0E"))
 K8_BASE = (("K8 / K8 probe base", "bin_keys_kernelILi0E"),)
 K9_BASE = (("K9 / K9 probe base", "bin_ranges_kernelILi0E"),)
 K12_BASE = (("K12 / K12 probe base", "ssim_backward_kernelILi0E"),)
@@ -1993,6 +2212,22 @@ def graph_line(g) -> str:
             f"{g.warmup_launches}")
 
 
+def activation_ops(fn) -> dict:
+    """The ops of ACTIVATION_OPS that `fn()` runs, with their counts (the
+    profiler's op list of the call, the autograd engine's threads included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.name in ACTIVATION_OPS:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return counts
+
+
 def bundle_turns(dev, card: str, tag: str, what: str, step, make_bundle, graphs, gm0, opt0,
                  kf, sizes, steps: int) -> dict:
     """`steps` steps of `step` from (gm0, opt0), eagerly one by one and as
@@ -2002,9 +2237,10 @@ def bundle_turns(dev, card: str, tag: str, what: str, step, make_bundle, graphs,
     ids; its window ends in synchronize() and the loss's host fetch. The
     bundles' losses must lie within the eager runs' spread, every turn must
     launch one K1, K5, K6, K7, K8, K9, K10, K11 and K12 a step, and the
-    bundles' launches must equal the eager loop's."""
+    bundles' launches must equal the eager loop's. One eager step (what the
+    bundles capture) must run none of the activations as ops of their own
+    (ACTIVATION_OPS: K5 and K6 apply them and their backward)."""
     import torch
-
 
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated(dev)
@@ -2039,6 +2275,11 @@ def bundle_turns(dev, card: str, tag: str, what: str, step, make_bundle, graphs,
                     reserved=torch.cuda.memory_reserved(dev), budget_lost=int(m["budget_lost"]),
                     truncated=int(m["truncated"]), n_visible=int(m["n_visible"]))
 
+    ops = activation_ops(lambda: step(gm0, opt0, kf, idxs[0], 1))
+    log(f"[{tag}] activation ops of one eager step (exp, sigmoid, the norm and their "
+        f"backward): {ops or 'none'}")
+    if ops:
+        raise AssertionError(f"a step runs the activations as ops of their own: {ops}")
     first = turn(bundled)           # captures the graphs
     log(f"[{tag}] bundles {'+'.join(map(str, sizes))} of {steps} steps: first pass (captures "
         f"included) {first['ms']:.3f} ms/step; {graph_line(graphs)}")
@@ -2399,7 +2640,7 @@ def check_bands(state: dict) -> None:
             blend.reset_launches()
             tiles.reset_launches()
             parts = [render_band(
-                gm.xyz, gm.scaling, gm.rotation, gm.opacity, cam, dc=gm.dc,
+                gm.xyz, gm.log_scale, gm.quat, gm.opa_logit, cam, dc=gm.dc,
                 sh_rest=gm.sh_rest, sh_degree=gm.sh_degree, active=gm.active_mask(),
                 band_ty0=b * band_n_ty, band_n_ty=band_n_ty, tile_h=grid.tile_h,
                 tile_w=grid.tile_w, max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,

@@ -40,15 +40,15 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     # xyz, scale, quat, opacity, dc, sh_rest, active, R_cw, t_cw, full_proj,
-    # cam_center, P, S, deg, no_color, W, H, fx, fy, limx_neg, limx_pos,
-    # limy_neg, limy_pos, table, depth, radius, base_active, stream
-    "glic_preprocess_forward": (_VP,) * 11 + (_LL, _I, _I, _I) + (_F,) * 8 + (_VP,) * 5,
-    # xyz, scale, quat, dc, sh_rest, R_cw, t_cw, full_proj, cam_center,
-    # d_attrs, d_stride, P, S, deg, W, H, fx, fy, limits (4), d_xyz, d_scale,
-    # d_quat, d_opacity, d_dc, d_sh_rest, stream
-    "glic_preprocess_backward": (_VP,) * 10 + (_LL, _LL, _I, _I) + (_F,) * 8 + (_VP,) * 7,
+    # cam_center, P, S, deg, no_color, raw, W, H, fx, fy, limx_neg, limx_pos,
+    # limy_neg, limy_pos, table, depth, radius, base_active, opa_out, stream
+    "glic_preprocess_forward": (_VP,) * 11 + (_LL, _I, _I, _I, _I) + (_F,) * 8 + (_VP,) * 6,
+    # xyz, scale, quat, opa_logit, dc, sh_rest, R_cw, t_cw, full_proj,
+    # cam_center, d_attrs, d_stride, P, S, deg, raw, W, H, fx, fy, limits (4),
+    # d_xyz, d_scale, d_quat, d_opacity, d_dc, d_sh_rest, stream
+    "glic_preprocess_backward": (_VP,) * 11 + (_LL, _LL, _I, _I, _I) + (_F,) * 8 + (_VP,) * 7,
     # variant, then glic_preprocess_backward's arguments
-    "glic_preprocess_probe_backward": (_I,) + (_VP,) * 10 + (_LL, _LL, _I, _I) + (_F,) * 8
+    "glic_preprocess_probe_backward": (_I,) + (_VP,) * 11 + (_LL, _LL, _I, _I, _I) + (_F,) * 8
                                       + (_VP,) * 7,
     # groups, n_groups, total, visible, b1, 1 - b1, b2, 1 - b2, eps, stream
     "glic_sparse_adam": (_VP, _I, _LL, _VP) + (_F,) * 5 + (_VP,),

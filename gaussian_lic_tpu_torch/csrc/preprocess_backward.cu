@@ -1,19 +1,21 @@
 // K6: the per-Gaussian preprocess backward, hand-written for Hopper (sm_90a).
 //
 // Replaces the program XLA fuses on the TPU from the autodiff of the JAX
-// package's gaussian_lic_tpu/ops/projection.py:77 project_gaussians,
-// ops/sh.py:47 eval_sh_color and ops/rasterize.py:78 _pack_rows (the
-// reference's BACKWARD::preprocess and its preprocessCUDA,
+// package's gaussian_lic_tpu/models/gaussians.py:84-94 activations (exp,
+// the quaternion's normalisation, sigmoid), ops/projection.py:77
+// project_gaussians, ops/sh.py:47 eval_sh_color and ops/rasterize.py:78
+// _pack_rows (the reference's BACKWARD::preprocess and its preprocessCUDA,
 // backward.cu:312-377, 599-657). In PyTorch that was autograd's backward
 // of ~100 (P,) kernels, with a zero-filled (P, 15, 3) tensor for each of
-// the 15 SH coefficient selects.
+// the 15 SH coefficient selects, and ~10 more for the activations.
 //
 // What bounds it on this card: device memory. Per Gaussian it reads the
 // nine row gradients of K2's output as K2 left them (a (P, 9) view of its
 // 12-float table: no pad or copy between K2 and K6) and the 232 B of inputs,
 // and writes the six gradients (236 B): 504 B a Gaussian at S = 15, of
 // which sh_rest and its gradient are 360, so 0.158 ms at 2^20 Gaussians at
-// 3.35 TB/s. It recomputes the forward terms with K5's arithmetic
+// 3.35 TB/s; from the stored parameters it also reads the opacity logit
+// (508 B, 0.159 ms), one word a thread, read and written in place. It recomputes the forward terms with K5's arithmetic
 // (preprocess_common.cuh) instead of reading saved ones, which would move
 // more bytes than it computes. The closed form is ops/preprocess.py's
 // preprocess_backward_plain line for line, with autograd's masks on the
@@ -58,17 +60,22 @@
 
 // K6. `d_attrs` is (P, 9) with row stride `d_stride` floats; S is the
 // sh_rest coefficient count (>= the active degree's). Every array may start
-// at any 4-byte aligned address (a row shard of a larger one).
+// at any 4-byte aligned address (a row shard of a larger one). With `raw`
+// != 0, scale and quat are log_scale and quat as stored, `opa_logit` (P,)
+// is read, and d_scale, d_quat and d_opacity are the gradients of the
+// stored parameters; otherwise opa_logit is unread (it may be null).
 extern "C" int glic_preprocess_backward(
-    const float* xyz, const float* scale, const float* quat, const float* dc,
-    const float* sh_rest, const float* R_cw, const float* t_cw, const float* full_proj,
-    const float* cam_center, const float* d_attrs, long long d_stride, long long P, int S,
-    int deg, float W, float H, float fx, float fy, float limx_neg, float limx_pos,
-    float limy_neg, float limy_pos, float* d_xyz, float* d_scale, float* d_quat,
-    float* d_opacity, float* d_dc, float* d_sh, void* stream) {
+    const float* xyz, const float* scale, const float* quat, const float* opa_logit,
+    const float* dc, const float* sh_rest, const float* R_cw, const float* t_cw,
+    const float* full_proj, const float* cam_center, const float* d_attrs, long long d_stride,
+    long long P, int S, int deg, int raw, float W, float H, float fx, float fy,
+    float limx_neg, float limx_pos, float limy_neg, float limy_pos, float* d_xyz,
+    float* d_scale, float* d_quat, float* d_opacity, float* d_dc, float* d_sh, void* stream) {
   using namespace glic_pre;
-  return static_cast<int>(launch_preprocess_backward<kK6Base>(
-      xyz, scale, quat, dc, sh_rest, R_cw, t_cw, full_proj, cam_center, d_attrs, d_stride, P,
-      S, deg, W, H, fx, fy, limx_neg, limx_pos, limy_neg, limy_pos, d_xyz, d_scale, d_quat,
-      d_opacity, d_dc, d_sh, static_cast<cudaStream_t>(stream)));
+  auto launch = raw ? launch_preprocess_backward<kK6Base, true>
+                    : launch_preprocess_backward<kK6Base, false>;
+  return static_cast<int>(launch(
+      xyz, scale, quat, opa_logit, dc, sh_rest, R_cw, t_cw, full_proj, cam_center, d_attrs,
+      d_stride, P, S, deg, W, H, fx, fy, limx_neg, limx_pos, limy_neg, limy_pos, d_xyz,
+      d_scale, d_quat, d_opacity, d_dc, d_sh, static_cast<cudaStream_t>(stream)));
 }

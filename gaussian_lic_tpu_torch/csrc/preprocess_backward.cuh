@@ -1,7 +1,10 @@
-// K6's kernel, templated on its timing variant: the production entry
-// (preprocess_backward.cu, which says why the design is what it is)
-// launches kK6Base, the probe entry (preprocess_probe_backward.cu) every
-// variant. One source, so the probe's `base` is K6.
+// K6's kernel, templated on its timing variant and its input form: the
+// production entry (preprocess_backward.cu, which says why the design is
+// what it is) launches kK6Base, the probe entry (preprocess_probe_backward.cu)
+// every variant. One source, so the probe's `base` is K6. With kRaw the
+// inputs are the stored parameters (log_scale, quat, opa_logit): the kernel
+// recomputes their activations as K5 does and writes the gradients of the
+// stored parameters, chained through exp, the norm chain and the sigmoid.
 //
 // A block owns 128 consecutive Gaussians, one a thread. It copies their
 // inputs into shared memory with cp.async, neighbouring threads on
@@ -329,32 +332,55 @@ __device__ __forceinline__ void projection_backward(const float* X, const float*
 
 // One Gaussian's six gradients. The inputs may be rows of shared memory and
 // the outputs the same rows (each input is read before its row is written).
-template <int V>
+// With kRaw, scale and quat are log_scale and quat as stored and opa_logit
+// the stored opacity logit (unread otherwise).
+template <int V, bool kRaw>
 __device__ __forceinline__ void k6_row(const float* xyz, const float* scale, const float* quat,
-                                       const float* dc, const float* sh, const float* g,
-                                       const Camera& cam, const Intr& in, int S, int deg,
-                                       float* o_xyz, float* o_scale, float* o_quat,
+                                       const float* opa_logit, const float* dc, const float* sh,
+                                       const float* g, const Camera& cam, const Intr& in, int S,
+                                       int deg, float* o_xyz, float* o_scale, float* o_quat,
                                        float* o_opacity, float* o_dc, float* o_sh) {
   const float X[3] = {xyz[0], xyz[1], xyz[2]};
-  *o_opacity = g[5];
   float d_dirs[3];
   sh_backward(X, dc, sh, g, cam, S, deg, o_dc, o_sh, d_dirs);
+  float s[3] = {scale[0], scale[1], scale[2]};
+  float q[4] = {quat[0], quat[1], quat[2], quat[3]};
+  // the stored quaternion, for the first normalisation's backward (o_quat
+  // may be the row quat was read from)
+  const float stored[4] = {q[0], q[1], q[2], q[3]};
+  float opa = 0.0f, n0 = 0.0f;
+  if constexpr (kRaw) {
+    opa = *opa_logit;
+    n0 = activate(s, q, opa);   // K5's activations, recomputed
+    // CUDA's sigmoid_backward(grad, result): grad (1 - result) result
+    *o_opacity = mul(mul(g[5], sub(1.0f, opa)), opa);
+  } else {
+    *o_opacity = g[5];
+  }
   if constexpr (V == kK6NoProj) {
     for (int k = 0; k < 3; ++k) o_xyz[k] = d_dirs[k];
     for (int k = 0; k < 3; ++k) o_scale[k] = 0.0f;
     for (int k = 0; k < 4; ++k) o_quat[k] = 0.0f;
   } else {
-    const float s[3] = {scale[0], scale[1], scale[2]};
-    const float q[4] = {quat[0], quat[1], quat[2], quat[3]};
     const float gp[5] = {g[0], g[1], g[2], g[3], g[4]};
-    projection_backward(X, s, q, gp, d_dirs, cam, in, o_xyz, o_scale, o_quat);
+    if constexpr (kRaw) {
+      // exp's backward (d s times s) and the first normalisation's (the
+      // projection's own is the second)
+      float d_s[3], d_q[4];
+      projection_backward(X, s, q, gp, d_dirs, cam, in, o_xyz, d_s, d_q);
+      for (int k = 0; k < 3; ++k) o_scale[k] = mul(d_s[k], s[k]);
+      norm_backward<4>(stored, n0, d_q, o_quat);
+    } else {
+      projection_backward(X, s, q, gp, d_dirs, cam, in, o_xyz, o_scale, o_quat);
+    }
   }
 }
 
-template <int V>
+template <int V, bool kRaw>
 __global__ void __launch_bounds__(kK6Threads, kK6MinBlocks) preprocess_backward_kernel(
     const float* __restrict__ xyz, const float* __restrict__ scale,
-    const float* __restrict__ quat, const float* __restrict__ dc,
+    const float* __restrict__ quat, const float* __restrict__ opa_logit,
+    const float* __restrict__ dc,
     const float* __restrict__ sh_rest, Camera cam_g, Intr in,
     const float* __restrict__ d_attrs, long long d_stride, long long P, int S, int deg,
     float* __restrict__ d_xyz, float* __restrict__ d_scale, float* __restrict__ d_quat,
@@ -389,13 +415,17 @@ __global__ void __launch_bounds__(kK6Threads, kK6MinBlocks) preprocess_backward_
   if (t < nb) {
     const long long i = row0 + t;
     if constexpr (V == kK6Direct) {
-      k6_row<V>(xyz + i * 3, scale + i * 3, quat + i * 4, dc + i * 3, sh_rest + i * W,
-                d_attrs + i * d_stride, cam, in, S, deg, d_xyz + i * 3, d_scale + i * 3,
-                d_quat + i * 4, d_opacity + i, d_dc + i * 3, d_sh + i * W);
+      k6_row<V, kRaw>(xyz + i * 3, scale + i * 3, quat + i * 4, opa_logit + i, dc + i * 3,
+                      sh_rest + i * W, d_attrs + i * d_stride, cam, in, S, deg, d_xyz + i * 3,
+                      d_scale + i * 3, d_quat + i * 4, d_opacity + i, d_dc + i * 3,
+                      d_sh + i * W);
     } else {
-      k6_row<V>(s_xyz + 3 * t, s_scale + 3 * t, s_quat + 4 * t, s_dc + 3 * t, s_sh + W * t,
-                s_g + 9 * t, cam, in, S, deg, s_xyz + 3 * t, s_scale + 3 * t, s_quat + 4 * t,
-                d_opacity + i, s_dc + 3 * t, s_sh + W * t);
+      // the opacity logit and its gradient are one word a thread: read and
+      // written in place, neighbouring threads on neighbouring words
+      k6_row<V, kRaw>(s_xyz + 3 * t, s_scale + 3 * t, s_quat + 4 * t, opa_logit + i,
+                      s_dc + 3 * t, s_sh + W * t, s_g + 9 * t, cam, in, S, deg, s_xyz + 3 * t,
+                      s_scale + 3 * t, s_quat + 4 * t, d_opacity + i, s_dc + 3 * t,
+                      s_sh + W * t);
     }
   }
 
@@ -409,9 +439,11 @@ __global__ void __launch_bounds__(kK6Threads, kK6MinBlocks) preprocess_backward_
   }
 }
 
-template <int V>
+// opa_logit is read with kRaw only (it may be null otherwise).
+template <int V, bool kRaw>
 cudaError_t launch_preprocess_backward(
-    const float* xyz, const float* scale, const float* quat, const float* dc,
+    const float* xyz, const float* scale, const float* quat, const float* opa_logit,
+    const float* dc,
     const float* sh_rest, const float* R_cw, const float* t_cw, const float* full_proj,
     const float* cam_center, const float* d_attrs, long long d_stride, long long P, int S,
     int deg, float W, float H, float fx, float fy, float limx_neg, float limx_pos,
@@ -421,12 +453,14 @@ cudaError_t launch_preprocess_backward(
   const int smem = V == kK6Direct ? 0 : k6_smem_bytes(S);
   if (smem > 48 * 1024) {   // only past S = 24: the opt-in above the default 48 KB
     const cudaError_t err = cudaFuncSetAttribute(
-        preprocess_backward_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        preprocess_backward_kernel<V, kRaw>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return err;
   }
   const long long blocks = (P + kK6Threads - 1) / kK6Threads;
-  preprocess_backward_kernel<V><<<static_cast<unsigned>(blocks), kK6Threads, smem, stream>>>(
-      xyz, scale, quat, dc, sh_rest, Camera{R_cw, t_cw, full_proj, cam_center},
+  preprocess_backward_kernel<V, kRaw>
+      <<<static_cast<unsigned>(blocks), kK6Threads, smem, stream>>>(
+      xyz, scale, quat, opa_logit, dc, sh_rest, Camera{R_cw, t_cw, full_proj, cam_center},
       Intr{W, H, fx, fy, limx_neg, limx_pos, limy_neg, limy_pos}, d_attrs, d_stride, P, S,
       deg, d_xyz, d_scale, d_quat, d_opacity, d_dc, d_sh);
   return cudaGetLastError();

@@ -77,6 +77,23 @@ __device__ __forceinline__ float normalize(const float* v, float* out) {
   return n;
 }
 
+// torch.sigmoid on CUDA, as PyTorch's kernel computes it: 1 / (1 + exp(-x)),
+// its exp CUDA's expf (torch.exp's; NaN and +-inf pass as they do there)
+__device__ __forceinline__ float sigmoid(float x) { return fdiv(1.0f, add(1.0f, expf(-x))); }
+
+// GaussianMap's activations (models/gaussians.py: scaling = exp(log_scale),
+// rotation = q / (|q| + 1e-12), opacity = sigmoid(opa_logit)), in place on
+// the stored parameters of one Gaussian, each as CUDA's torch.exp, the norm
+// chain and torch.sigmoid compute it; returns |q| of the stored quaternion.
+// The projection then normalises the rotation once more, as the JAX package
+// does (ops/projection.py:138).
+__device__ __forceinline__ float activate(float* s, float* q, float& opa) {
+  for (int k = 0; k < 3; ++k) s[k] = expf(s[k]);
+  const float stored[4] = {q[0], q[1], q[2], q[3]};
+  opa = sigmoid(opa);
+  return normalize<4>(stored, q);
+}
+
 // Every forward term the backward reads (ops/projection.py's names).
 struct Terms {
   float pvx, pvy, depth, phx, phy, pw, inv_w, xy[2];

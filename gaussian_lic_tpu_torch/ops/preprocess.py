@@ -2,8 +2,10 @@
 (`preprocess_backward`), joined by the autograd Function `Preprocess`.
 
 The counterpart of the program XLA fuses on the TPU from the JAX package's
-`ops/projection.py:project_gaussians`, `ops/sh.py:eval_sh_color` and
-`ops/rasterize.py:_pack_rows` (and of its autodiff): the reference's
+`models/gaussians.py` activations (scaling = exp, rotation = q / (|q| +
+1e-12), opacity = sigmoid), `ops/projection.py:project_gaussians`,
+`ops/sh.py:eval_sh_color` and `ops/rasterize.py:_pack_rows` (and of its
+autodiff): the reference's
 preprocessCUDA (forward.cu:232-319) and BACKWARD::preprocess
 (backward.cu:312-377, 599-657). Per Gaussian, K5 computes the projection
 (frustum depth, pixel mean, EWA conic, radius), `base_active` and the
@@ -18,9 +20,19 @@ of the nine row attributes, K2's (P, 9) output as it is (a view of K2's
 (fewer bytes) and writes d xyz (projection and SH direction), d scale, d
 quat (through the normalisation), d opacity, d dc and d sh_rest.
 
+Two input forms (`raw`): the map's stored parameters log_scale, quat and
+opa_logit, which K5 activates in registers exactly as `activate` (CUDA's
+torch.exp, the norm chain, torch.sigmoid) and whose gradients K6 writes,
+chained through the activations (the train step, the sharded step, every
+render of a map); or scale, quat and opacity already activated (the dense
+oracle's and the probes' scenes, `colors`). From the stored parameters K5
+also writes the activated opacity (P,), which the binning reads.
+
 Bounds on an H100 (3.35 TB/s) at P = 2^20: K5 reads 59 floats and writes a
 16-float row, depth, radius and a flag (~0.10 ms); K6 reads the 9 gradient
 columns (stride 12) and the 232 B of inputs and writes 236 B (~0.16 ms).
+From the stored parameters K5 also writes the opacity and K6 reads its
+logit, 4 B a Gaussian each (+0.0013 ms).
 Both are one thread per Gaussian over per-row arithmetic, memory bound. K6
 stages a block's 128 rows of every input in shared memory so that every
 device-memory access is coalesced, and writes its gradients back the same
@@ -83,6 +95,14 @@ class Splats(NamedTuple):
     depth: torch.Tensor        # (P,)
     radius: torch.Tensor       # (P,) ceil'd radius, 0 where not base_active
     base_active: torch.Tensor  # (P,) bool: in front, det != 0, opacity >= 1/255, active
+    opacity: torch.Tensor      # (P,) activated opacity, detached
+
+
+def activate(log_scale, quat, opa_logit):
+    """GaussianMap's activations of the stored parameters (models/gaussians.py):
+    (exp(log_scale), quat / (|quat| + 1e-12), sigmoid(opa_logit))."""
+    rotation = quat / (torch.linalg.norm(quat, dim=-1, keepdim=True) + 1e-12)
+    return torch.exp(log_scale), rotation, torch.sigmoid(opa_logit)
 
 
 def pack_rows(xy, conic, opacity, rgb) -> torch.Tensor:
@@ -117,12 +137,17 @@ def _camera_args(camera: Camera):
 # ---------------------------------------------------------------------------
 
 def preprocess_forward_plain(xyz, scale, quat, opacity, camera, dc=None, sh_rest=None,
-                             sh_degree=3, active=None, no_color=False, colors=None) -> dict:
-    """The plain chain K5 replaces: `project_gaussians`, the binning's
-    base_active and masked radius, `eval_sh_color` (zeros with `no_color`,
-    `colors` where given) and `pack_rows`. Returns rows (P, 16),
-    differentiable as its inputs are, the (P+1, 16) table, depth, radius
-    and base_active."""
+                             sh_degree=3, active=None, no_color=False, colors=None,
+                             raw=False) -> dict:
+    """The plain chain K5 replaces: with `raw`, `activate` of the stored
+    parameters (scale, quat, opacity then hold log_scale, quat, opa_logit);
+    `project_gaussians`, the binning's base_active and masked radius,
+    `eval_sh_color` (zeros with `no_color`, `colors` where given) and
+    `pack_rows`. Returns rows (P, 16), differentiable as its inputs are,
+    the (P+1, 16) table, depth, radius, base_active and the activated
+    opacity, detached."""
+    if raw:
+        scale, quat, opacity = activate(scale, quat, opacity)
     t = projection_terms(xyz, scale, quat, camera)
     base_active = t["in_front"] & t["det_valid"] & (opacity >= OPACITY_THRESHOLD)
     if active is not None:
@@ -136,7 +161,7 @@ def preprocess_forward_plain(xyz, scale, quat, opacity, camera, dc=None, sh_rest
         rgb = sh_ops.eval_sh_color(sh_degree, dc, sh_rest, xyz - camera.cam_center)
     rows = pack_rows(t["xy"], t["conic"], opacity, rgb)
     return dict(rows=rows, table=row_table(rows.detach()), depth=t["depth"].detach(),
-                radius=radius.detach(), base_active=base_active)
+                radius=radius.detach(), base_active=base_active, opacity=opacity.detach())
 
 
 def _norm_backward(v, n, g):
@@ -181,7 +206,7 @@ def _sh_basis(d, deg):
 
 @torch.no_grad()
 def preprocess_backward_plain(xyz, scale, quat, opacity, camera, dc, sh_rest, sh_degree,
-                              d_attrs):
+                              d_attrs, raw=False):
     """The closed-form backward of the plain chain for the rows' gradient
     `d_attrs` (P, 9) (x, y, A, B, C, opacity, r, g, b): (d xyz, d scale,
     d quat, d opacity, d dc, d sh_rest). It recomputes the forward terms
@@ -189,8 +214,20 @@ def preprocess_backward_plain(xyz, scale, quat, opacity, camera, dc, sh_rest, sh
     closed bounds, the selects on tz and det_valid pass where they take the
     computed value, the colour's clamp at 0 where the colour is >= 0, the
     ceil'd radius and the detached outputs give nothing, and coefficients
-    above the active degree get zero. K6 (csrc/preprocess_backward.cu) is
-    its line-for-line counterpart."""
+    above the active degree get zero. With `raw` (scale, quat, opacity are
+    log_scale, quat, opa_logit as stored) it applies `activate` first and
+    returns the stored parameters' gradients: exp's backward (d s times s),
+    the first normalisation's (0 where |quat| is 0, as the second's) and
+    torch.sigmoid's, `d (1 - s) s`. K6 (csrc/preprocess_backward.cu) is its
+    line-for-line counterpart."""
+    if raw:
+        stored, (scale, quat, opacity) = quat, activate(scale, quat, opacity)
+        out = list(preprocess_backward_plain(xyz, scale, quat, opacity, camera, dc, sh_rest,
+                                             sh_degree, d_attrs))
+        out[1] = out[1] * scale
+        out[2] = _norm_backward(stored, torch.linalg.norm(stored, dim=-1, keepdim=True), out[2])
+        out[3] = torch.ops.aten.sigmoid_backward(out[3], opacity)
+        return tuple(out)
     intr = camera.intr
     Rc, Fp = camera.pose.R_cw, camera.full_proj
     t = projection_terms(xyz, scale, quat, camera)
@@ -319,8 +356,10 @@ def _sh_args(sh_rest, sh_degree, no_color):
     return S
 
 
-def _k5(xyz, scale, quat, opacity, camera, dc, sh_rest, sh_degree, active, no_color):
-    """K5 on CUDA tensors: (table, depth, radius, base_active)."""
+def _k5(xyz, scale, quat, opacity, camera, dc, sh_rest, sh_degree, active, no_color,
+        raw=False):
+    """K5 on CUDA tensors: (table, depth, radius, base_active, the activated
+    opacity); with `raw`, from the stored parameters."""
     from gaussian_lic_tpu_torch import _build
 
     P, dev = xyz.shape[0], xyz.device
@@ -335,27 +374,35 @@ def _k5(xyz, scale, quat, opacity, camera, dc, sh_rest, sh_degree, active, no_co
     depth = torch.empty((P,), dtype=torch.float32, device=dev)
     radius = torch.empty((P,), dtype=torch.float32, device=dev)
     base_active = torch.empty((P,), dtype=torch.bool, device=dev)
+    opa = torch.empty((P,), dtype=torch.float32, device=dev) if raw else opacity
     null = ctypes.c_void_p(None)
     _launch(lib.cdll.glic_preprocess_forward, _ptr(xyz), _ptr(scale), _ptr(quat),
             _ptr(opacity), null if no_color else _ptr(dc), null if no_color else _ptr(sh_rest),
             null if active is None else _ptr(active), *(_ptr(t) for t in cam),
-            ctypes.c_longlong(P), S, sh_degree, int(no_color), *floats,
-            _ptr(table), _ptr(depth), _ptr(radius), _ptr(base_active), _stream(dev))
+            ctypes.c_longlong(P), S, sh_degree, int(no_color), int(raw), *floats,
+            _ptr(table), _ptr(depth), _ptr(radius), _ptr(base_active),
+            _ptr(opa) if raw else null, _stream(dev))
     LAUNCHES["preprocess_forward"] += 1
-    return table, depth, radius, base_active
+    return table, depth, radius, base_active, opa
 
 
-def _k6(xyz, scale, quat, camera, dc, sh_rest, sh_degree, d_attrs, variant=None):
+def _k6(xyz, scale, quat, camera, dc, sh_rest, sh_degree, d_attrs, variant=None,
+        opacity=None, raw=False):
     """K6 on CUDA tensors: (d xyz, d scale, d quat, d opacity, d dc,
     d sh_rest); with `variant`, that variant of K6_VARIANTS through the
-    probe entry. `d_attrs` (P, 9) may have any row stride (K2's is 12) and
-    must have unit column stride; every array may start at any row of a
-    larger one (the mesh step's shards)."""
+    probe entry; with `raw`, of the stored parameters (scale, quat and
+    `opacity` then hold log_scale, quat and opa_logit; opacity is read only
+    then). `d_attrs` (P, 9) may have any row stride (K2's is 12) and must
+    have unit column stride; every array may start at any row of a larger
+    one (the mesh step's shards)."""
     from gaussian_lic_tpu_torch import _build
 
     P, dev = xyz.shape[0], xyz.device
     S = _sh_args(sh_rest, sh_degree, False)
+    if raw and opacity is None:
+        raise ValueError("K6 from the stored parameters reads opa_logit: pass opacity")
     _check_inputs(dict(xyz=(xyz, (P, 3)), scale=(scale, (P, 3)), quat=(quat, (P, 4)),
+                       opacity=(opacity if raw else None, (P,)),
                        dc=(dc, (P, 3)), sh_rest=(sh_rest, (P, S, 3)),
                        d_attrs=(d_attrs, (P, N_ATTR))), dev)
     if d_attrs.stride(1) != 1:
@@ -366,9 +413,11 @@ def _k6(xyz, scale, quat, camera, dc, sh_rest, sh_degree, d_attrs, variant=None)
     outs = [torch.empty_like(t) for t in (xyz, scale, quat)]
     outs.append(torch.empty((P,), dtype=torch.float32, device=dev))
     outs += [torch.empty_like(dc), torch.empty_like(sh_rest)]
-    args = (_ptr(xyz), _ptr(scale), _ptr(quat), _ptr(dc), _ptr(sh_rest),
+    args = (_ptr(xyz), _ptr(scale), _ptr(quat),
+            _ptr(opacity) if raw else ctypes.c_void_p(None), _ptr(dc), _ptr(sh_rest),
             *(_ptr(t) for t in cam), _ptr(d_attrs), ctypes.c_longlong(d_attrs.stride(0)),
-            ctypes.c_longlong(P), S, sh_degree, *floats, *(_ptr(t) for t in outs), _stream(dev))
+            ctypes.c_longlong(P), S, sh_degree, int(raw), *floats, *(_ptr(t) for t in outs),
+            _stream(dev))
     if variant is None:
         _launch(lib.cdll.glic_preprocess_backward, *args)
         LAUNCHES["preprocess_backward"] += 1
@@ -379,13 +428,14 @@ def _k6(xyz, scale, quat, camera, dc, sh_rest, sh_degree, d_attrs, variant=None)
 
 
 def preprocess_forward(xyz, scale, quat, opacity, camera, dc=None, sh_rest=None,
-                       sh_degree=3, active=None, no_color=False):
-    """K5, no gradient: (table (P+1, 16), depth, radius, base_active) on the
-    inputs' device (CPU tensors: the plain version's)."""
+                       sh_degree=3, active=None, no_color=False, raw=False):
+    """K5, no gradient: (table (P+1, 16), depth, radius, base_active, the
+    activated opacity) on the inputs' device (CPU tensors: the plain
+    version's); with `raw`, from the stored log_scale, quat and opa_logit."""
     if xyz.device.type == "cpu":
         p = preprocess_forward_plain(xyz, scale, quat, opacity, camera, dc, sh_rest,
-                                     sh_degree, active, no_color)
-        return p["table"], p["depth"], p["radius"], p["base_active"]
+                                     sh_degree, active, no_color, raw=raw)
+        return p["table"], p["depth"], p["radius"], p["base_active"], p["opacity"]
     if xyz.device.type != "cuda":
         raise ValueError(f"the preprocess takes CPU or CUDA tensors, got {xyz.device}")
     xyz, scale, quat, opacity = (t.contiguous() for t in (xyz, scale, quat, opacity))
@@ -393,23 +443,28 @@ def preprocess_forward(xyz, scale, quat, opacity, camera, dc=None, sh_rest=None,
         dc, sh_rest = dc.contiguous(), sh_rest.contiguous()
     if active is not None:
         active = active.contiguous()
-    return _k5(xyz, scale, quat, opacity, camera, dc, sh_rest, sh_degree, active, no_color)
+    return _k5(xyz, scale, quat, opacity, camera, dc, sh_rest, sh_degree, active, no_color,
+               raw)
 
 
-def preprocess_backward(xyz, scale, quat, opacity, camera, dc, sh_rest, sh_degree, d_attrs):
+def preprocess_backward(xyz, scale, quat, opacity, camera, dc, sh_rest, sh_degree, d_attrs,
+                        raw=False):
     """K6: the six gradients for the rows' gradient d_attrs (P, 9) (CPU
-    tensors: `preprocess_backward_plain`)."""
+    tensors: `preprocess_backward_plain`); with `raw`, of the stored
+    log_scale, quat and opa_logit."""
     if xyz.device.type == "cpu":
         return preprocess_backward_plain(xyz, scale, quat, opacity, camera, dc, sh_rest,
-                                         sh_degree, d_attrs)
+                                         sh_degree, d_attrs, raw)
     if xyz.device.type != "cuda":
         raise ValueError(f"the preprocess takes CPU or CUDA tensors, got {xyz.device}")
-    xyz, scale, quat, dc, sh_rest = (t.contiguous() for t in (xyz, scale, quat, dc, sh_rest))
-    return _k6(xyz, scale, quat, camera, dc, sh_rest, sh_degree, d_attrs)
+    xyz, scale, quat, opacity, dc, sh_rest = (
+        t.contiguous() for t in (xyz, scale, quat, opacity, dc, sh_rest))
+    return _k6(xyz, scale, quat, camera, dc, sh_rest, sh_degree, d_attrs, opacity=opacity,
+               raw=raw)
 
 
 def preprocess_backward_probe(variant, xyz, scale, quat, opacity, camera, dc, sh_rest,
-                              sh_degree, d_attrs):
+                              sh_degree, d_attrs, raw=False):
     """K6's timing variant `variant` (K6_VARIANTS), with preprocess_backward's
     arguments and outputs. CPU tensors: `preprocess_backward_plain` for the
     variants that compute K6's outputs; the timing-only ones have no plain
@@ -421,49 +476,53 @@ def preprocess_backward_probe(variant, xyz, scale, quat, opacity, camera, dc, sh
             raise ValueError(f"K6 {variant} is a timing probe of the card: it has no plain "
                              "version")
         return preprocess_backward_plain(xyz, scale, quat, opacity, camera, dc, sh_rest,
-                                         sh_degree, d_attrs)
+                                         sh_degree, d_attrs, raw)
     if xyz.device.type != "cuda":
         raise ValueError(f"the preprocess takes CPU or CUDA tensors, got {xyz.device}")
-    xyz, scale, quat, dc, sh_rest = (t.contiguous() for t in (xyz, scale, quat, dc, sh_rest))
-    return _k6(xyz, scale, quat, camera, dc, sh_rest, sh_degree, d_attrs, variant)
+    xyz, scale, quat, opacity, dc, sh_rest = (
+        t.contiguous() for t in (xyz, scale, quat, opacity, dc, sh_rest))
+    return _k6(xyz, scale, quat, camera, dc, sh_rest, sh_degree, d_attrs, variant, opacity,
+               raw)
 
 
 class Preprocess(torch.autograd.Function):
     """(xyz, scale, quat, opacity, dc, sh_rest) -> (table, attrs, depth,
-    radius, base_active), differentiable through `attrs`. On CUDA tensors
-    the forward is K5 and the backward K6; on CPU tensors the forward is
-    the plain chain, recorded on detached copies of the inputs, and the
-    backward is autograd's over that record (the same floats as autograd
-    of the chain itself)."""
+    radius, base_active, the activated opacity), differentiable through
+    `attrs`; with `raw`, scale, quat and opacity are the stored log_scale,
+    quat and opa_logit. On CUDA tensors the forward is K5 and the backward
+    K6; on CPU tensors the forward is the plain chain, recorded on detached
+    copies of the inputs, and the backward is autograd's over that record
+    (the same floats as autograd of the chain itself)."""
 
     @staticmethod
-    def forward(ctx, xyz, scale, quat, opacity, dc, sh_rest, camera, sh_degree, active):
+    def forward(ctx, xyz, scale, quat, opacity, dc, sh_rest, camera, sh_degree, active, raw):
         P = xyz.shape[0]
-        ctx.camera, ctx.sh_degree, ctx.record = camera, sh_degree, None
+        ctx.camera, ctx.sh_degree, ctx.raw, ctx.record = camera, sh_degree, raw, None
         if xyz.device.type == "cpu":
             with torch.enable_grad():
                 leaves = [t.detach().requires_grad_(need) for t, need in
                           zip((xyz, scale, quat, opacity, dc, sh_rest), ctx.needs_input_grad)]
                 p = preprocess_forward_plain(*leaves[:4], camera, leaves[4], leaves[5],
-                                             sh_degree, active)
+                                             sh_degree, active, raw=raw)
             ctx.record = (p["rows"], leaves)
-            table, depth, radius, base_active = (p[k] for k in
-                                                 ("table", "depth", "radius", "base_active"))
+            table, depth, radius, base_active, opa = (
+                p[k] for k in ("table", "depth", "radius", "base_active", "opacity"))
         else:
-            table, depth, radius, base_active = preprocess_forward(
-                xyz, scale, quat, opacity, camera, dc, sh_rest, sh_degree, active)
+            table, depth, radius, base_active, opa = preprocess_forward(
+                xyz, scale, quat, opacity, camera, dc, sh_rest, sh_degree, active, raw=raw)
             ctx.save_for_backward(xyz, scale, quat, opacity, dc, sh_rest)
+        opa = opa if raw else opa.detach()   # the activated form hands back its input
         attrs = table.new_zeros(()).expand(P, N_ATTR)
-        ctx.mark_non_differentiable(table, depth, radius, base_active)
-        return table, attrs, depth, radius, base_active
+        ctx.mark_non_differentiable(table, depth, radius, base_active, opa)
+        return table, attrs, depth, radius, base_active, opa
 
     @staticmethod
-    def backward(ctx, _d_table, d_attrs, _d_depth, _d_radius, _d_base_active):
-        none = (None,) * 3
+    def backward(ctx, _d_table, d_attrs, _d_depth, _d_radius, _d_base_active, _d_opa):
+        none = (None,) * 4
         if ctx.record is None:
             xyz, scale, quat, opacity, dc, sh_rest = ctx.saved_tensors
             return preprocess_backward(xyz, scale, quat, opacity, ctx.camera, dc, sh_rest,
-                                       ctx.sh_degree, d_attrs) + none
+                                       ctx.sh_degree, d_attrs, ctx.raw) + none
         rows, leaves = ctx.record
         need = [t for t in leaves if t.requires_grad]
         got = iter(torch.autograd.grad(rows, need, F.pad(d_attrs, (0, SPLAT_ROWS - N_ATTR)),
@@ -472,26 +531,29 @@ class Preprocess(torch.autograd.Function):
 
 
 def preprocess(xyz, scale, quat, opacity, camera, dc=None, sh_rest=None, sh_degree=3,
-               active=None, no_color=False, colors=None) -> Splats:
+               active=None, no_color=False, colors=None, raw=False) -> Splats:
     """K5 with K6 as its backward (`Preprocess`) where a gradient is wanted,
-    else K5 alone (always with `no_color`, the alpha-only pass). Given
-    `colors` in place of SH, the plain chain on every device: `attrs` is
-    then its differentiable (P, 16) rows."""
+    else K5 alone (always with `no_color`, the alpha-only pass). With
+    `raw`, scale, quat and opacity are the map's stored log_scale, quat and
+    opa_logit, and the gradients are theirs. Given `colors` in place of SH,
+    the plain chain on every device: `attrs` is then its differentiable
+    (P, 16) rows."""
     P = xyz.shape[0]
     inputs = (xyz, scale, quat, opacity, dc, sh_rest)
     if colors is not None:
         p = preprocess_forward_plain(xyz, scale, quat, opacity, camera, active=active,
-                                     colors=colors)
-        table, attrs, depth, radius, base_active = (
-            p[k] for k in ("table", "rows", "depth", "radius", "base_active"))
+                                     colors=colors, raw=raw)
+        table, attrs, depth, radius, base_active, opa = (
+            p[k] for k in ("table", "rows", "depth", "radius", "base_active", "opacity"))
     elif no_color or not (torch.is_grad_enabled()
                           and any(t is not None and t.requires_grad for t in inputs)):
-        table, depth, radius, base_active = preprocess_forward(
+        table, depth, radius, base_active, opa = preprocess_forward(
             xyz.detach(), scale.detach(), quat.detach(), opacity.detach(), camera,
             None if no_color else dc.detach(), None if no_color else sh_rest.detach(),
-            sh_degree, active, no_color)
+            sh_degree, active, no_color, raw)
         attrs = table.new_zeros(()).expand(P, N_ATTR)
     else:
-        table, attrs, depth, radius, base_active = Preprocess.apply(
-            xyz, scale, quat, opacity, dc, sh_rest, camera, sh_degree, active)
-    return Splats(table, attrs, table[:P, 0:2], table[:P, 2:5], depth, radius, base_active)
+        table, attrs, depth, radius, base_active, opa = Preprocess.apply(
+            xyz, scale, quat, opacity, dc, sh_rest, camera, sh_degree, active, raw)
+    return Splats(table, attrs, table[:P, 0:2], table[:P, 2:5], depth, radius, base_active,
+                  opa)

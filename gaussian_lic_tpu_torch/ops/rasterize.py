@@ -3,9 +3,10 @@
 The counterpart of the JAX package's `ops/rasterize.py` (reference render stack,
 renderer.cpp:21-88 -> rasterizer.cpp:21-183 -> CudaRasterizer):
 
-  preprocess: projection / EWA / SH into packed splat rows (ops.preprocess:
-     K5 forward, K6 backward on the card; the plain chain with autograd on
-     the CPU)
+  preprocess: the activations of a map's stored parameters (`raw`), then
+     projection / EWA / SH into packed splat rows (ops.preprocess: K5
+     forward, K6 backward on the card; the plain chain with autograd on the
+     CPU)
   -> tile binning on detached values (ops.tiles: K8 slot keys, a stable
      sort, K9 ranges on the card)
   -> `_Blend`, a torch.autograd.Function: gather the sorted splat rows (K10),
@@ -111,17 +112,21 @@ class SplatInputs(NamedTuple):
 
 def splat_inputs(xyz, scale, quat, opacity, camera, dc=None, sh_rest=None, sh_degree=3,
                  colors=None, active=None, no_color=False, tile_h=32, tile_w=32,
-                 max_tiles_per_gaussian=16, max_total_splats=1 << 21) -> SplatInputs:
+                 max_tiles_per_gaussian=16, max_total_splats=1 << 21,
+                 raw=False) -> SplatInputs:
     """Preprocess (K5, ops/preprocess.py) and binning: what the blend
-    kernels are handed (after `_gather_splats(table, binning.sorted_gauss)`)."""
+    kernels are handed (after `_gather_splats(table, binning.sorted_gauss)`).
+    With `raw`, scale, quat and opacity are the stored log_scale, quat and
+    opa_logit (ops.preprocess.preprocess)."""
     intr = camera.intr
     grid = tiles_ops.TileGrid(
         width=intr.width, height=intr.height, tile_w=tile_w, tile_h=tile_h
     )
     s = preprocess(xyz, scale, quat, opacity, camera, dc=dc, sh_rest=sh_rest,
-                   sh_degree=sh_degree, active=active, no_color=no_color, colors=colors)
+                   sh_degree=sh_degree, active=active, no_color=no_color, colors=colors,
+                   raw=raw)
     binning = tiles_ops.bin_gaussians(
-        s.xy, s.depth, s.conic, opacity.detach(), s.radius, s.base_active, grid,
+        s.xy, s.depth, s.conic, s.opacity, s.radius, s.base_active, grid,
         max_tiles_per_gaussian=max_tiles_per_gaussian,
         max_total_splats=max_total_splats,
         align=CHUNK,
@@ -139,9 +144,9 @@ def expose(image: torch.Tensor, exposure: torch.Tensor) -> torch.Tensor:
 
 def render_tiled(
     xyz: torch.Tensor,         # (P,3)
-    scale: torch.Tensor,       # (P,3) activated
+    scale: torch.Tensor,       # (P,3) activated (raw: log_scale)
     quat: torch.Tensor,        # (P,4)
-    opacity: torch.Tensor,     # (P,) activated
+    opacity: torch.Tensor,     # (P,) activated (raw: opa_logit)
     camera: Camera,
     dc: Optional[torch.Tensor] = None,
     sh_rest: Optional[torch.Tensor] = None,
@@ -156,16 +161,20 @@ def render_tiled(
     tile_w: int = 32,
     max_tiles_per_gaussian: int = 16,
     max_total_splats: int = 1 << 21,
+    raw: bool = False,
 ) -> TiledRenderOutput:
     """Full differentiable render (reference `render` outputs,
     renderer.cpp:81-87): image, final_T, n_contrib, visible, radii and the
-    binning overflow counters."""
+    binning overflow counters. With `raw`, scale, quat and opacity are a
+    map's stored log_scale, quat and opa_logit, activated inside K5 (and
+    their gradients K6's); else the values already activated."""
     del bg
     intr = camera.intr
     grid, rows, table, binning, radius = splat_inputs(
         xyz, scale, quat, opacity, camera, dc=dc, sh_rest=sh_rest, sh_degree=sh_degree,
         colors=colors, active=active, no_color=no_color, tile_h=tile_h, tile_w=tile_w,
         max_tiles_per_gaussian=max_tiles_per_gaussian, max_total_splats=max_total_splats,
+        raw=raw,
     )
     visible = radius > 0.0
 
@@ -211,12 +220,13 @@ def render_map(
     no_color: bool = False,
     **kw,
 ) -> TiledRenderOutput:
-    """Render a GaussianMap (activations + active-count mask applied)."""
+    """Render a GaussianMap from its stored parameters (K5 applies the
+    activations, K6 chains their backward) with the active-count mask."""
     return render_tiled(
         gm.xyz,
-        gm.scaling,
-        gm.rotation,
-        gm.opacity,
+        gm.log_scale,
+        gm.quat,
+        gm.opa_logit,
         camera,
         dc=gm.dc,
         sh_rest=gm.sh_rest,
@@ -225,5 +235,6 @@ def render_map(
         exposure=gm.exposure,
         apply_exposure=apply_exposure,
         no_color=no_color,
+        raw=True,
         **kw,
     )

@@ -203,9 +203,9 @@ def _band_grid(grid: tiles_ops.TileGrid, band_n_ty: int) -> tiles_ops.TileGrid:
 
 def render_band(
     xyz: torch.Tensor,
-    scale: torch.Tensor,
+    log_scale: torch.Tensor,
     quat: torch.Tensor,
-    opacity: torch.Tensor,
+    opa_logit: torch.Tensor,
     camera: Camera,
     *,
     dc: torch.Tensor,
@@ -227,15 +227,16 @@ def render_band(
     than one rank the binning is distributed and the overflow counters are
     this rank's partials; otherwise the band is binned here (bin_gaussians
     with band_ty0/band_n_ty and the whole grid's depth bits, so the bands
-    stitched are the whole image's render)."""
+    stitched are the whole image's render). It takes the stored parameters,
+    log_scale, quat and opa_logit: K5 applies the activations."""
     intr = camera.intr
     grid = tiles_ops.TileGrid(width=intr.width, height=intr.height, tile_w=tile_w,
                               tile_h=tile_h)
-    s = preprocess(xyz, scale, quat, opacity, camera, dc=dc, sh_rest=sh_rest,
-                   sh_degree=sh_degree, active=active)
+    s = preprocess(xyz, log_scale, quat, opa_logit, camera, dc=dc, sh_rest=sh_rest,
+                   sh_degree=sh_degree, active=active, raw=True)
     visible = s.radius > 0.0
 
-    detached = (s.xy, s.depth, s.conic, opacity.detach(), s.radius, s.base_active)
+    detached = (s.xy, s.depth, s.conic, s.opacity, s.radius, s.base_active)
     if mesh is not None and mesh.size > 1:
         sorted_gauss, tile_starts, tile_lens, _, _, budget_lost, truncated = (
             bin_gaussians_sharded(
@@ -350,13 +351,12 @@ def make_sharded_train_step(intr: Intrinsics, cfg: Params, mesh: Mesh,
             exposure = gm_s.exposure.detach().requires_grad_(True)
             leaves.append(exposure)
 
-        xyz = trainable["xyz"]
-        scaling = torch.exp(trainable["log_scale"])
-        quat = trainable["quat"]
-        rot = quat / (torch.linalg.norm(quat, dim=-1, keepdim=True) + 1e-12)
-        opa = torch.sigmoid(trainable["opacity"])
-        s = preprocess(xyz, scaling, rot, opa, cam, dc=trainable["dc"],
-                       sh_rest=trainable["sh_rest"], sh_degree=gm_s.sh_degree, active=active_s)
+        # the stored parameters: K5 applies the activations, K6 chains their
+        # backward (train_step's render_map likewise)
+        s = preprocess(trainable["xyz"], trainable["log_scale"], trainable["quat"],
+                       trainable["opacity"], cam, dc=trainable["dc"],
+                       sh_rest=trainable["sh_rest"], sh_degree=gm_s.sh_degree, active=active_s,
+                       raw=True)
         visible_s = s.radius > 0.0
         # every rank's rows, shifted into this band's pixel rows; the rows'
         # gradient goes back to its shard through gather_grad's reduce-scatter
@@ -365,7 +365,7 @@ def make_sharded_train_step(intr: Intrinsics, cfg: Params, mesh: Mesh,
 
         sorted_gauss, tile_starts, tile_lens, _, _, budget_lost, truncated = (
             bin_gaussians_sharded(
-                s.xy, s.depth, s.conic, opa.detach(), s.radius, s.base_active, grid,
+                s.xy, s.depth, s.conic, s.opacity, s.radius, s.base_active, grid,
                 mesh=mesh, band_n_ty=band_n_ty, max_tiles_per_gaussian=K, m_pair=m_pair,
                 align=CHUNK, sharded_inputs=True,
             ))
@@ -395,7 +395,8 @@ def make_sharded_train_step(intr: Intrinsics, cfg: Params, mesh: Mesh,
             loss = losses.training_loss(image, gt, cfg.lambda_dssim) / D
         if cfg.lambda_erank > 0:
             # the shard's part: gradients reach only this shard's scales
-            loss = loss + erank_regularizer(scaling, cfg.lambda_erank)
+            loss = loss + erank_regularizer(torch.exp(trainable["log_scale"]),
+                                            cfg.lambda_erank)
         grad_list = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = {name: torch.zeros_like(leaf) if g is None else g
                  for name, leaf, g in zip(PARAM_GROUPS + ("exposure",), leaves, grad_list)}
@@ -469,7 +470,7 @@ def make_sharded_render(intr: Intrinsics, cfg: Params, mesh: Mesh):
     def render(gm: GaussianMap, kf, idx: int):
         m_local = max(_splat_budget_for(gm.capacity, cfg) // D, 1 << 10)
         color_l, final_t_l, _, _, _ = render_band(
-            gm.xyz, gm.scaling, gm.rotation, gm.opacity, kf.camera(intr, idx),
+            gm.xyz, gm.log_scale, gm.quat, gm.opa_logit, kf.camera(intr, idx),
             dc=gm.dc, sh_rest=gm.sh_rest, sh_degree=gm.sh_degree, active=gm.active_mask(),
             band_ty0=mesh.rank * band_n_ty, band_n_ty=band_n_ty, tile_h=grid.tile_h,
             tile_w=grid.tile_w, max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,

@@ -364,6 +364,29 @@ class TestShardedRender:
             np.testing.assert_allclose(ft, want_ft, atol=2e-6)
 
 
+@pytest.mark.parametrize("lambda_erank", [0.0, 0.1], ids=["no_erank", "erank"])
+def test_one_rank_sharded_step_equals_train_step(lambda_erank):
+    """The sharded step at D = 1 (a one-rank gloo group in this process)
+    against train_step, two steps by tests/test_parallel.py's rule: both
+    hand the stored log_scale, quat and opa_logit to the preprocess (the
+    activations inside it), with erank's own exp where lambda_erank > 0."""
+    import torch.distributed as dist
+
+    d = load_golden("parallel", "file")
+    intr, cfg, gm, kf = setup_scene(d, lambda_erank=lambda_erank)
+    mesh = make_mesh(1, device="cpu")
+    try:
+        got = two_steps(make_sharded_train_step(intr, cfg, mesh, with_grads=True), gm,
+                        zero_moments(gm), kf, mesh)
+    finally:
+        dist.destroy_process_group()
+    step = lambda g, o, k, i, e: train_step(g, o, k, i, e, intr=intr, cfg=cfg,  # noqa: E731
+                                            with_grads=True)
+    want = two_steps(step, gm, zero_moments(gm), kf)
+    assert_steps_match(got, want, lr_map_of(cfg))
+    assert all(np.abs(s["grads"]["opacity"]).max() > 0 for s in got)
+
+
 class TestShardedTrainStep:
     def test_two_steps_match_jax(self, ranks):
         D, d, res = ranks
@@ -589,7 +612,7 @@ class TestBandsOnOneDevice:
         full = render_map(gm, cam, **kw)
         band_n_ty = 8 // n_bands
         with torch.no_grad():
-            parts = [render_band(gm.xyz, gm.scaling, gm.rotation, gm.opacity, cam, dc=gm.dc,
+            parts = [render_band(gm.xyz, gm.log_scale, gm.quat, gm.opa_logit, cam, dc=gm.dc,
                                  sh_rest=gm.sh_rest, sh_degree=gm.sh_degree,
                                  active=gm.active_mask(), band_ty0=b * band_n_ty,
                                  band_n_ty=band_n_ty, **kw) for b in range(n_bands)]

@@ -25,9 +25,20 @@ the scene's (the needle's scale is 1e7).
   * the Function's CPU gradient equals autograd's bit for bit (its backward
     is autograd over the plain chain's record).
 
+The stored parameters (`raw`: log_scale, quat and opa_logit, activated
+inside the preprocess as GaussianMap's exp, norm chain and sigmoid) are held
+the same way against JAX's activations followed by its chain, with the
+stored parameters' edge rows besides (RAW_EDGES: a log scale above 88.7,
+opacity logits of +inf and -inf, a zero quaternion). JAX's norm has no
+gradient at 0 (NaN), PyTorch's norm backward masks it to 0, so the zero
+quaternion's row is held against autograd only; float64 resolves exp(89)
+(about 4.5e38) where float32 overflows, so that row is left out of the
+float64 check like the needle's.
+
 The `requires_cuda` cases hold K5 and K6 against their plain versions on the
-card (K5 within 1e-6 of each column's max, K6 within 1e-5). JAX is imported
-inside the tests that use it, so the card tests collect without it.
+card (K5 within 1e-6 of each column's max, from the stored parameters bit
+for bit, K6 within 1e-5). JAX is imported inside the tests that use it, so
+the card tests collect without it.
 """
 
 import numpy as np
@@ -46,6 +57,7 @@ FWD_RTOL = 1e-6     # of each column's max: K5 against its plain version
 JAX_FWD_RTOL = 2e-6  # of each column's max: the plain chain against JAX's
 GRAD_RTOL = 1e-5    # of each column's max
 EDGES = ("nan_opacity", "behind", "det_zero", "clamp_x", "clamp_y", "sh_negative", "inactive")
+RAW_EDGES = ("exp_overflow", "opa_pos_inf", "opa_neg_inf", "zero_quat")
 INPUTS = ("xyz", "scale", "quat", "opacity", "dc", "sh_rest")
 
 
@@ -115,13 +127,14 @@ def jax_chain(deg, active):
     return f
 
 
-def check_columns(got, want, rtol, groups, what):
+def check_columns(got, want, rtol, groups, what, nan_rows=None):
     """Each column of `got` within rtol of the column's max |want| over the
     scene's rows, and each edge row within rtol of its own max |want|; NaN
-    where `want` is NaN."""
+    where `want` is NaN (on `nan_rows` where given, else on every row)."""
     got = np.asarray(got, np.float64).reshape(got.shape[0], -1)
     want = np.asarray(want, np.float64).reshape(want.shape[0], -1)
-    np.testing.assert_array_equal(np.isnan(got), np.isnan(want), err_msg=what)
+    held = slice(None) if nan_rows is None else nan_rows
+    np.testing.assert_array_equal(np.isnan(got[held]), np.isnan(want[held]), err_msg=what)
     got, want = np.nan_to_num(got), np.nan_to_num(want)
     for name, rows in groups.items():
         scale = np.abs(want[rows]).max(0 if name == "scene" else None)
@@ -129,6 +142,36 @@ def check_columns(got, want, rtol, groups, what):
         bad = err > rtol * scale
         assert not bad.any(), (f"{what} rows {name}: columns {np.where(bad)[0].tolist()} off by "
                                f"{(err / np.maximum(scale, 1e-300))[bad].tolist()} of their max")
+
+
+def raw_scene(seed=3, P=P_SCENE):
+    """scene() as stored parameters: scale and opacity hold log_scale and
+    opa_logit (the logit of NaN is NaN), with RAW_EDGES at rows 14, 16, ..
+    Returns (numpy inputs, active mask, {edge: row})."""
+    d, active, rows = scene(seed, P)
+    d = dict(d, scale=np.log(d["scale"]),
+             opacity=np.log(d["opacity"] / (1.0 - d["opacity"])).astype(np.float32))
+    rows.update(zip(RAW_EDGES, range(2 * len(EDGES), 2 * len(EDGES + RAW_EDGES), 2)))
+    # scene()'s needle with a log scale whose exp (PyTorch's and XLA's alike,
+    # 2148137.0) keeps the float32 det at exactly 0
+    d["scale"][rows["det_zero"]] = [14.580111503601074, np.log(np.float32(1e-3)),
+                                    np.log(np.float32(1e-3))]
+    d["scale"][rows["exp_overflow"]] = [89.0, -4.0, -4.0]
+    d["opacity"][rows["opa_pos_inf"]] = np.inf
+    d["opacity"][rows["opa_neg_inf"]] = -np.inf
+    d["quat"][rows["zero_quat"]] = 0.0
+    return d, active, rows
+
+
+def jax_activated(d):
+    """JAX's GaussianMap activations of stored parameters (numpy in, JAX out)."""
+    import jax
+    import jax.numpy as jnp
+
+    q = jnp.asarray(d["quat"])
+    return dict(d, scale=jnp.exp(jnp.asarray(d["scale"])),
+                quat=q / (jnp.linalg.norm(q, axis=-1, keepdims=True) + 1e-12),
+                opacity=jax.nn.sigmoid(jnp.asarray(d["opacity"])))
 
 
 def row_groups(rows, leave_out=()):
@@ -245,6 +288,178 @@ def test_function_gradient_is_autograds(deg):
                                          x["sh_rest"], deg, act)
     for k in ("table", "depth", "radius", "base_active"):
         np.testing.assert_array_equal(n(getattr(s, k)), n(plain[k]), err_msg=k)
+
+
+def check_raw_columns(got, want, rows, leave_out, what):
+    """check_columns on raw_scene()'s rows but the edge rows `leave_out`,
+    which are held to nothing (module docstring says why each is left out)."""
+    groups = row_groups(rows, leave_out)
+    check_columns(got, want, GRAD_RTOL, groups, what,
+                  nan_rows=np.concatenate(list(groups.values())))
+
+
+def test_the_raw_edge_rows_are_live():
+    """The stored parameters' edge rows: the needle's det is 0 after exp, a
+    scale is inf, opacities 1 and 0 of the infinite logits, NaN of the NaN
+    logit, a zero rotation of the zero quaternion."""
+    d, _, rows = raw_scene()
+    x = torch_inputs(d)
+    s, q, o = pre.activate(x["scale"], x["quat"], x["opacity"])
+    terms = pre.projection_terms(x["xyz"], s, q, torch_camera())
+    assert float(terms["det"][rows["det_zero"]]) == 0.0
+    assert bool(torch.isinf(s[rows["exp_overflow"], 0]))
+    assert float(o[rows["opa_pos_inf"]]) == 1.0 and float(o[rows["opa_neg_inf"]]) == 0.0
+    assert bool(torch.isnan(o[rows["nan_opacity"]]))
+    assert not n(q[rows["zero_quat"]]).any()
+
+
+@pytest.mark.parametrize("deg", DEGREES)
+def test_raw_forward_against_jax(deg):
+    """From the stored parameters: the rows, depth, radius and base_active
+    against JAX's activations followed by its chain, every edge row
+    included; the activated opacity against jax.nn.sigmoid."""
+    import jax.numpy as jnp
+
+    d, active, rows = raw_scene()
+    x = torch_inputs(d, grad=True)
+    s = pre.preprocess(x["xyz"], x["scale"], x["quat"], x["opacity"], torch_camera(),
+                       x["dc"], x["sh_rest"], deg, torch.as_tensor(active), raw=True)
+    act = jax_activated(d)
+    want = jax_chain(deg, jnp.asarray(active))(*(jnp.asarray(act[k]) for k in INPUTS))
+    groups = row_groups(rows)
+    table = n(s.table)
+    assert not table[-1].any()
+    check_columns(table[:-1], n(want[0]), JAX_FWD_RTOL, groups, "rows")
+    check_columns(n(s.depth)[:, None], n(want[1])[:, None], JAX_FWD_RTOL, groups, "depth")
+    np.testing.assert_array_equal(n(s.radius), n(want[2]))
+    np.testing.assert_array_equal(n(s.base_active), n(want[3]))
+    check_columns(n(s.opacity)[:, None], n(act["opacity"])[:, None], JAX_FWD_RTOL, groups,
+                  "opacity")
+    assert s.opacity.grad_fn is None
+
+
+def jax_raw_vjp(deg, d, active, g):
+    """jax.vjp of JAX's activations + chain with respect to the stored
+    parameters, for the rows' gradient g."""
+    import jax
+    import jax.numpy as jnp
+
+    f = jax_chain(deg, jnp.asarray(active))
+
+    def raw_rows(xyz, log_scale, quat, opa_logit, dc, sh_rest):
+        act = jax_activated(dict(scale=log_scale, quat=quat, opacity=opa_logit))
+        return f(xyz, act["scale"], act["quat"], act["opacity"], dc, sh_rest)[0]
+
+    _, pull = jax.vjp(raw_rows, *(jnp.asarray(d[k]) for k in INPUTS))
+    return pull(jnp.asarray(np.pad(n(g), ((0, 0), (0, 16 - N_ATTR)))))
+
+
+@pytest.mark.parametrize("deg", DEGREES)
+def test_raw_backward_against_jax_vjp(deg):
+    """The closed form from the stored parameters against jax.vjp with
+    respect to log_scale, quat and opa_logit, at GRAD_RTOL; the zero
+    quaternion's row apart (JAX's norm has no gradient at 0)."""
+    d, active, rows = raw_scene()
+    g = d_attrs_for(P_SCENE)
+    want = jax_raw_vjp(deg, d, active, g)
+    x = torch_inputs(d)
+    got = pre.preprocess_backward_plain(*(x[k] for k in INPUTS[:4]), torch_camera(), x["dc"],
+                                        x["sh_rest"], deg, g, raw=True)
+    for name, a, b in zip(INPUTS, got, want):
+        check_raw_columns(n(a), n(b), rows, ("zero_quat",), name)
+
+
+def raw_autograd(x, cam, deg, active, d_attrs):
+    """Autograd of the plain chain with its activations, from the stored
+    parameters, for the rows' gradient d_attrs."""
+    rows = pre.preprocess_forward_plain(x["xyz"], x["scale"], x["quat"], x["opacity"], cam,
+                                        x["dc"], x["sh_rest"], deg, active, raw=True)["rows"]
+    cot = torch.nn.functional.pad(d_attrs, (0, rows.shape[1] - N_ATTR))
+    return torch.autograd.grad(rows, [x[k] for k in INPUTS], cot, allow_unused=True)
+
+
+@pytest.mark.parametrize("deg", DEGREES)
+def test_raw_backward_plain_against_autograd(deg):
+    """The closed form from the stored parameters against autograd of the
+    plain chain with its activations: in float32 on every row (the zero
+    quaternion's too), and against float64 autograd without the needle and
+    exp(89)'s rows (module docstring)."""
+    d, active, rows = raw_scene()
+    act = torch.as_tensor(active)
+    for dtype, leave_out in ((torch.float32, ()), (torch.float64, ("det_zero", "exp_overflow"))):
+        cam = torch_camera(dtype)
+        x = torch_inputs(d, dtype, grad=True)
+        g = d_attrs_for(P_SCENE, dtype)
+        want = raw_autograd(x, cam, deg, act, g)
+        got = pre.preprocess_backward_plain(*(x[k].detach() for k in INPUTS[:4]), cam,
+                                            x["dc"].detach(), x["sh_rest"].detach(), deg, g,
+                                            raw=True)
+        for name, a, b in zip(INPUTS, got, want):
+            if b is None:   # sh_rest at degree 0
+                b = torch.zeros_like(a)
+            check_raw_columns(n(a), n(b), rows, leave_out, f"{name} {dtype}")
+        # the opacity logit's gradient is sigmoid_backward of the row's: as autograd's
+        np.testing.assert_array_equal(n(got[3]), n(want[3]), err_msg=str(dtype))
+
+
+@pytest.mark.parametrize("deg", DEGREES)
+def test_raw_function_gradient_is_autograds(deg):
+    """Preprocess from the stored parameters on CPU tensors: forward the
+    plain chain's floats with its activations, gradient autograd's bit for
+    bit."""
+    d, active, _ = raw_scene()
+    cam = torch_camera()
+    act = torch.as_tensor(active)
+    x = torch_inputs(d, grad=True)
+    g = d_attrs_for(P_SCENE)
+    s = pre.preprocess(x["xyz"], x["scale"], x["quat"], x["opacity"], cam, x["dc"],
+                       x["sh_rest"], deg, act, raw=True)
+    got = torch.autograd.grad(s.attrs, [x[k] for k in INPUTS], g, allow_unused=True)
+    want = raw_autograd(x, cam, deg, act, g)
+    for name, a, b in zip(INPUTS, got, want):
+        assert (a is None) == (b is None), name
+        if a is not None:   # NaN where autograd has NaN (the inf scale's row)
+            np.testing.assert_array_equal(n(a), n(b), err_msg=name)
+    plain = pre.preprocess_forward_plain(*(x[k] for k in INPUTS[:4]), cam, x["dc"],
+                                         x["sh_rest"], deg, act, raw=True)
+    for k in ("table", "depth", "radius", "base_active", "opacity"):
+        np.testing.assert_array_equal(n(getattr(s, k)), n(plain[k]), err_msg=k)
+
+
+@pytest.mark.parametrize("raw", [False, True], ids=["activated", "stored"])
+@pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])
+def test_both_input_forms_render_alike(raw, grad):
+    """render_tiled from activated values (raw=False) and from the stored
+    parameters (raw=True) of one map: the same image, radii and activated
+    opacity bit for bit (the activations are `activate`'s floats either
+    way), and with a gradient, the stored parameters' gradients equal
+    autograd through `activate` of the activated form's."""
+    from gaussian_lic_tpu_torch.ops.rasterize import render_tiled
+
+    d, active, _ = raw_scene()
+    cam = torch_camera()
+    x = torch_inputs(d, grad=grad)
+    act = pre.activate(x["scale"], x["quat"], x["opacity"])
+    geo = (x["xyz"],) + ((x["scale"], x["quat"], x["opacity"]) if raw else act)
+    kw = dict(dc=x["dc"], sh_rest=x["sh_rest"], sh_degree=3, active=torch.as_tensor(active),
+              tile_h=32, tile_w=32)
+    with torch.set_grad_enabled(grad):
+        out = render_tiled(*geo, cam, raw=raw, **kw)
+        ref = render_tiled(x["xyz"], *(t.detach() for t in act), cam, **dict(kw, dc=x["dc"]))
+    np.testing.assert_array_equal(n(out.image), n(ref.image))
+    np.testing.assert_array_equal(n(out.radii), n(ref.radii))
+    if grad:
+        w = torch.as_tensor(np.random.default_rng(4).normal(size=out.image.shape),
+                            dtype=torch.float32)
+        got = torch.autograd.grad((out.image * w).sum(), [x[k] for k in INPUTS],
+                                  allow_unused=True)
+        chained = render_tiled(x["xyz"], *pre.activate(x["scale"], x["quat"], x["opacity"]),
+                               cam, **kw)
+        want = torch.autograd.grad((chained.image * w).sum(), [x[k] for k in INPUTS],
+                                   allow_unused=True)
+        for name, a, b in zip(INPUTS, got, want):
+            np.testing.assert_array_equal(n(a), n(b), err_msg=name)
+        assert np.nan_to_num(n(got[1])).any() and np.nan_to_num(n(got[3])).any()
 
 
 def test_no_grad_and_no_color_take_k5_alone():
@@ -380,6 +595,18 @@ def k6_case(P, layout, device, off=3):
     return d, active[lo:lo + P], edges, tuple(x[k] for k in INPUTS), g
 
 
+def assert_same_floats(a, b, what):
+    """a and b bit for bit where either is a number (signs of zero too), NaN
+    where the other is NaN."""
+    if a.dtype == np.bool_:
+        np.testing.assert_array_equal(a, b, err_msg=what)
+        return
+    nan = np.isnan(a)
+    np.testing.assert_array_equal(nan, np.isnan(b), err_msg=what)
+    np.testing.assert_array_equal(np.where(nan, 0, a.view(np.int32)),
+                                  np.where(nan, 0, b.view(np.int32)), err_msg=what)
+
+
 def case_groups(P, edges):
     normal = np.setdiff1d(np.arange(P), list(edges.values()))
     return {**({"scene": normal} if normal.size else {}),
@@ -474,3 +701,57 @@ class TestKernelsOnTheCard:
             if variant not in pre.K6_TIMING_ONLY:
                 for a, b in zip(got, want):
                     assert torch.equal(a, b), layout
+
+    @pytest.mark.parametrize("deg", DEGREES)
+    def test_k5_from_the_stored_parameters(self, cuda_device, deg):
+        """K5 from the stored parameters, bit for bit with the plain chain
+        and its activations on the same card (its exp, norm and sigmoid are
+        CUDA's torch.exp, norm chain and torch.sigmoid), every edge row
+        included; the activated opacity too."""
+        d, active, _ = raw_scene()
+        x = torch_inputs(d, device=cuda_device)
+        cam = torch_camera(device=cuda_device)
+        act = torch.as_tensor(active, device=cuda_device)
+        args = (*(x[k] for k in INPUTS[:4]), cam, x["dc"], x["sh_rest"], deg, act)
+        before = pre.LAUNCHES["preprocess_forward"]
+        got = pre.preprocess_forward(*args, raw=True)
+        assert pre.LAUNCHES["preprocess_forward"] == before + 1
+        want = pre.preprocess_forward_plain(*args, raw=True)
+        for k, a in zip(("table", "depth", "radius", "base_active", "opacity"), got):
+            assert_same_floats(n(a), n(want[k]), k)
+
+    @pytest.mark.parametrize("layout", ["k2_table", "shard"])
+    @pytest.mark.parametrize("deg", DEGREES)
+    def test_k6_from_the_stored_parameters(self, cuda_device, deg, layout):
+        """K6 from the stored parameters against the closed form and
+        autograd of the plain chain with its activations at GRAD_RTOL (the
+        opacity logit's gradient bit for bit with autograd's), on K2's
+        layout and a shard's; base and direct of its probe bit for bit."""
+        lo = 3 if layout == "shard" else 0
+        d, active, rows = raw_scene(P=P_SCENE + lo)
+        x = {k: torch.as_tensor(d[k], device=cuda_device)[lo:] for k in INPUTS}
+        d = {k: v[lo:] for k, v in d.items()}
+        rows = {k: r - lo for k, r in rows.items() if r >= lo}
+        cam = torch_camera(device=cuda_device)
+        g = torch.zeros((P_SCENE + 1, 12), device=cuda_device)
+        g[:P_SCENE, :N_ATTR] = d_attrs_for(P_SCENE, device=cuda_device)
+        g = g[:P_SCENE, :N_ATTR]
+        args = (*(x[k] for k in INPUTS[:4]), cam, x["dc"], x["sh_rest"], deg, g)
+        before = pre.LAUNCHES["preprocess_backward"]
+        got = pre.preprocess_backward(*args, raw=True)
+        torch.cuda.synchronize()
+        assert pre.LAUNCHES["preprocess_backward"] == before + 1
+        groups = case_groups(P_SCENE, rows)
+        for name, a, b in zip(INPUTS, got, pre.preprocess_backward_plain(*args, raw=True)):
+            check_columns(n(a), n(b), GRAD_RTOL, groups, name)
+        xg = torch_inputs(d, device=cuda_device, grad=True)
+        auto = raw_autograd(xg, cam, deg, torch.as_tensor(active[lo:], device=cuda_device),
+                            g.contiguous())
+        for name, a, b in zip(INPUTS, got, auto):
+            if b is None:   # sh_rest at degree 0
+                b = torch.zeros_like(a)
+            check_columns(n(a), n(b), GRAD_RTOL, groups, name)
+        np.testing.assert_array_equal(n(got[3]), n(auto[3]))
+        for v in ("base", "direct"):
+            for a, b in zip(pre.preprocess_backward_probe(v, *args, raw=True), got):
+                assert_same_floats(n(a), n(b), v)

@@ -124,11 +124,14 @@ class TestExposureAndErank:
         assert float(m["loss"]) == pytest.approx(float(jv), rel=1e-5)
         np.testing.assert_allclose(n(gm1.exposure), np.asarray(e1), rtol=1e-5, atol=1e-7)
 
-    def test_erank_not_ported_yet(self):
+    def test_erank_gradient_matches_jax(self):
         """lambda_erank > 0: the log-scale gradient of the step minus that of
         the lambda = 0 step equals JAX's erank VJP chained through exp, within
-        1e-6 of its largest entry. Scales are drawn away from the gate's lower
-        edge, where float32 log/exp differences are magnified
+        1e-6 of its largest entry. The step takes K6's log-scale gradient (exp
+        folded into the preprocess) and autograd's of the erank term through
+        its own exp, summed; JAX chains the sum of the two scale gradients
+        through one exp. Scales are drawn away from the gate's lower edge,
+        where float32 log/exp differences are magnified
         (tests/test_torch_erank.py)."""
         d = load_golden("train", "file")
         intr, cfg, count, gm, kf, opt = initial_state(d)
@@ -151,6 +154,28 @@ class TestExposureAndErank:
         want = np.asarray(pull(jnp.float32(1.0))[0]) * scale
         assert rel_max(n(grads[1] - grads[0]), want) <= 1e-6
         assert np.abs(want[:count, :2]).max() > 0     # the gate is open somewhere
+
+
+    @pytest.mark.parametrize("lam", [0.0, 0.1])
+    def test_stored_parameter_gradients_match_jax(self, lam):
+        """The step's gradients with respect to the stored parameters
+        (log_scale, quat and opa_logit among them: the activations are
+        folded into the preprocess) against JAX's first step, at lambda_erank
+        0 and > 0, within the first step's 1e-4 of each group's max. JAX's
+        gradient at lambda > 0 is its lambda = 0 gradient plus its erank VJP
+        chained through exp (the term is linear in the cotangent)."""
+        d = load_golden("train", "file")
+        intr, cfg, count, gm, kf, opt = initial_state(d)
+        grads = train_step(gm, opt, kf, int(d["idxs"][0]), 1, intr=intr, with_grads=True,
+                           cfg=cfg.replace(lambda_erank=lam))[2]["grads"]
+        want = {g: d[f"grad1_{g}"] for g in PARAM_GROUPS}
+        if lam > 0:
+            scale = np.exp(n(gm.log_scale)[:count])
+            _, pull = jax.vjp(lambda x: jerank.erank_regularizer(x, lam), jnp.asarray(scale))
+            want["log_scale"] = want["log_scale"] + np.asarray(pull(jnp.float32(1.0))[0]) * scale
+        for g in PARAM_GROUPS:
+            assert rel_max(n(grads[g])[:count], want[g]) < 1e-4, g
+        assert n(grads["opacity"])[:count].any() and n(grads["log_scale"])[:count].any()
 
 
 class TestEngine:

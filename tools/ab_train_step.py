@@ -22,8 +22,13 @@ of K8's keys (with K8's keys, touched and sums where the checkout's
 `bin_ranges` takes them, as `bin_gaussians` passes them), K10 on K9's
 list, K11 and K12 on K1's image and the keyframe's, each 20 calls in a
 CUDA graph (`chip_smoke.graph_ms`: eager times of these short kernels are
-the host's launch gaps). A checkout
-without K8-K10 or K11-K12 prints n/a; the lists are of each kernel's ms.
+the host's launch gaps); K5f and K6f, the preprocess with the activations
+of the stored parameters as that checkout's train step runs them, 20 calls
+in a CUDA graph: K5 and K6 from the stored log_scale, quat and opa_logit
+where its preprocess takes them (`raw`), else the activations as PyTorch
+ops, then K5; K6, then the activations' backward as autograd's ops. A
+checkout without K8-K10 or K11-K12 prints n/a; the lists are of each
+kernel's ms.
 Needs a CUDA device; imports no JAX.
 """
 
@@ -53,7 +58,8 @@ import chip_smoke as cs
 from gaussian_lic_tpu_torch.ops import adam, blend, preprocess as pre
 from gaussian_lic_tpu_torch.utils.cuda_timing import card_line, cuda_ms
 dev = torch.device("cuda:0")
-sc = cs.step_scene(cs.bench_state(dev))
+state = cs.bench_state(dev)
+sc = cs.step_scene(state)
 g = sc["grid"]
 kw = dict(n_tx=g.n_tx, n_ty=g.n_ty, tile_h=g.tile_h, tile_w=g.tile_w)
 args = (sc["splats"], sc["starts"], sc["lens"])
@@ -68,6 +74,28 @@ fargs = geo + (x["camera"], x["dc"], x["sh_rest"], x["sh_degree"], x["active"])
 bargs = geo + (x["camera"], x["dc"], x["sh_rest"], x["sh_degree"], k2_call())
 ms["K5"] = cuda_ms(lambda: pre.preprocess_forward(*fargs), 50, warmup=3)
 ms["K6"] = cuda_ms(lambda: pre.preprocess_backward(*bargs), 50, warmup=3)
+import inspect
+gm = state["gm"]
+stored = (gm.log_scale, gm.quat, gm.opa_logit)
+rest = (x["camera"], x["dc"], x["sh_rest"], x["sh_degree"])
+d_rows = bargs[-1]
+if "raw" in inspect.signature(pre.preprocess_forward).parameters:   # the fold
+    k5f = lambda: pre.preprocess_forward(x["xyz"], *stored, *rest, x["active"], raw=True)
+    k6f = lambda: pre.preprocess_backward(x["xyz"], *stored, *rest, d_rows, raw=True)
+else:   # the activations as PyTorch ops around K5 and K6 (and autograd's backward ops)
+    def activate(ls, q, ol):
+        return torch.exp(ls), q / (torch.linalg.norm(q, dim=-1, keepdim=True) + 1e-12), torch.sigmoid(ol)
+    acts = activate(*stored)
+    qn = torch.linalg.norm(gm.quat, dim=-1, keepdim=True)
+    qd = qn + 1e-12
+    k5f = lambda: pre.preprocess_forward(x["xyz"], *activate(*stored), *rest, x["active"])
+    def k6f():
+        d = pre.preprocess_backward(x["xyz"], *acts, *rest, d_rows)
+        d_q = d[2] / qd
+        d_q += (-d[2] * ((gm.quat / qd) / qd)).sum(-1, keepdim=True) * (gm.quat / qn).masked_fill_(qn == 0, 0)
+        return d[1] * acts[0], d_q, torch.ops.aten.sigmoid_backward(d[3], acts[2])
+ms["K5f"] = cs.graph_ms(k5f)
+ms["K6f"] = cs.graph_ms(k6f)
 params = dict(xyz=x["xyz"], log_scale=torch.log(x["scale"]), quat=x["quat"],
               opacity=x["opacity"], dc=x["dc"], sh_rest=x["sh_rest"])
 params = {k: v.contiguous() for k, v in params.items()}
@@ -81,7 +109,7 @@ ms["K7"] = cuda_ms(lambda: adam.sparse_adam_update_groups(params, grads, states,
 from gaussian_lic_tpu_torch.ops import losses, tiles
 from gaussian_lic_tpu_torch.ops.rasterize import CHUNK
 if hasattr(tiles, "bin_keys"):   # K8, K9 and K10 (a checkout before them has none)
-    table, depth, radius, active = pre.preprocess_forward(*fargs)
+    table, depth, radius, active = pre.preprocess_forward(*fargs)[:4]
     P = x["xyz"].shape[0]
     K, M = sc["bin_kw"]["max_tiles_per_gaussian"], sc["bin_kw"]["max_total_splats"]
     bits, T = tiles.rank_bits_for(g.num_tiles), g.num_tiles
@@ -110,7 +138,7 @@ if hasattr(losses, "ssim_forward"):   # K11 and K12 (a checkout before them has 
     ms["K12"] = cs.graph_ms(lambda: losses.ssim_backward(img, gt, maps, d_sums))
 print(f"[ab] {card_line()}: " + "  ".join(f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
 """
-KERNELS = ("K1", "K2", "K5", "K6", "K7", "K8", "K9", "K10", "K11", "K12")
+KERNELS = ("K1", "K2", "K5", "K6", "K7", "K8", "K9", "K10", "K11", "K12", "K5f", "K6f")
 
 
 def main(argv=None) -> int:
@@ -118,7 +146,8 @@ def main(argv=None) -> int:
     ap.add_argument("trees", nargs="+", help="checkout directories (each holds chip_smoke.py)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--kernels", action="store_true",
-                    help="time the train step's kernels K1, K2 and K5-K12 alone")
+                    help="time the train step's kernels K1, K2 and K5-K12 alone (and K5f, "
+                         "K6f: K5 and K6 with the activations)")
     args = ap.parse_args(argv)
     child = _KERNELS if args.kernels else _CHILD
     whats = (tuple(f"{k} ms" for k in KERNELS) if args.kernels
@@ -142,10 +171,13 @@ def main(argv=None) -> int:
         for line in out.stdout.splitlines():
             if line.startswith("[ab]" if args.kernels else "[4]"):
                 print(f"{t}: {line}", flush=True)
-        ms[t].append(values)
+                if args.kernels:   # each kernel's reading by the name it printed
+                    values = dict(zip(re.findall(r"(K\d+f?) [0-9.]+ ms", line), values))
+        ms[t].append(values if args.kernels else dict(zip(whats, values)))
     for t in trees:
-        for i, what in enumerate(whats):
-            print(f"{t}: {what} " + " ".join(f"{v[i]:.4f}" if i < len(v) else "n/a"
+        for what in whats:
+            key = what.split()[0] if args.kernels else what
+            print(f"{t}: {what} " + " ".join(f"{v[key]:.4f}" if key in v else "n/a"
                                              for v in ms[t]))
     return 0
 
@@ -156,7 +188,7 @@ def _readings(stdout: str, kernels: bool):
     of its turns. None if the run printed none."""
     if kernels:
         m = re.search(r"^\[ab\].*$", stdout, re.M)
-        found = re.findall(r"K\d+ ([0-9.]+) ms", m.group(0)) if m else []
+        found = re.findall(r"K\d+f? ([0-9.]+) ms", m.group(0)) if m else []
         return tuple(float(v) for v in found) or None
     turns = {mode: [float(v) for v in re.findall(rf"^\[4\].*\), {mode}: ([0-9.]+) ms/step",
                                                  stdout, re.M)]

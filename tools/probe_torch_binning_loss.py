@@ -105,7 +105,7 @@ def main(argv=None) -> int:
 
     sc = scenes[1]
     x = sc["inputs"]
-    table, depth, radius, active = pre.preprocess_forward(
+    table, depth, radius, active, _ = pre.preprocess_forward(
         *(x[k] for k in ("xyz", "scale", "quat", "opacity", "camera", "dc", "sh_rest",
                          "sh_degree", "active")))
     P = x["xyz"].shape[0]

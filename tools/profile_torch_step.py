@@ -78,6 +78,42 @@ def owner(name: str) -> str:
     return next((o for o, pat in OWNERS if pat in name), "other")
 
 
+# The activations of GaussianMap (exp of the log scales, q / (|q| + 1e-12),
+# the opacity sigmoid) and their autograd backward, where PyTorch runs them
+# as ops of their own: the ops they are made of, on per-Gaussian tensors of
+# P rows only ((P,), (P, 1), (P, 3), (P, 4), scalars). Since they were
+# folded into K5 and K6, none should match in a train step.
+ACT_OPS = ("aten::exp", "aten::linalg_vector_norm", "aten::add", "aten::div", "aten::sigmoid",
+           "aten::mul", "aten::sigmoid_backward", "aten::neg", "aten::sum", "aten::masked_fill",
+           "aten::masked_fill_", "aten::eq", "aten::where", "aten::add_", "aten::div_",
+           "aten::mul_")
+
+
+def is_activation(key: str, shapes, P: int) -> bool:
+    """Whether the op `key` on `shapes` is one of the activations' (ACT_OPS
+    on per-Gaussian tensors of P rows; a sum of a (P,) tensor is the step's
+    visible count, not theirs)."""
+    tensors = [tuple(s) for s in shapes if s]
+    return (key in ACT_OPS and bool(tensors)
+            and all(s[0] == P and s[1:] in ((), (1,), (3,), (4,)) for s in tensors)
+            and not (key == "aten::sum" and tensors[0] == (P,)))
+
+
+def activation_split(ops, P: int, steps: int):
+    """(device ms/step of the activations' ops, of every other PyTorch op,
+    [(ms/step, calls/step, op, shapes)] of the activations' ops) from
+    key_averages(group_by_input_shape=True) events `ops`."""
+    act, rest, rows = 0.0, 0.0, []
+    for e in ops:
+        ms = self_dev_us(e) / 1e3 / steps
+        if is_activation(e.key, e.input_shapes, P):
+            act += ms
+            rows.append((ms, e.count / steps, e.key, e.input_shapes))
+        else:
+            rest += ms
+    return act, rest, sorted(rows, key=lambda r: r[0], reverse=True)
+
+
 def self_dev_us(e) -> float:
     """An event's own device time, microseconds."""
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -225,6 +261,19 @@ def main() -> int:
         for e in ops[:25]:
             print(f"  {self_dev_us(e) / 1e3 / args.steps:9.3f}  x{e.count / args.steps:<7.1f} "
                   f"{e.key:20s} {str(e.input_shapes)[:90]}")
+        # the elementwise and reduction owners split into the activations'
+        # ops (exp, norm, sigmoid and their backward) and the rest
+        owned = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and self_dev_us(e) > 0:
+                owned[owner(e.key)] = owned.get(owner(e.key), 0.0) + self_dev_us(e) / 1e3
+        ew = sum(owned.get(o, 0.0) for o in ("elementwise", "reductions")) / args.steps
+        act, rest, rows = activation_split(ops, gm.capacity, args.steps)
+        print(f"[activations] elementwise + reductions {ew:.3f} ms/step: the activations' "
+              f"ops {act:.3f}, the rest {ew - act:.3f} (every PyTorch op but the "
+              f"activations' {rest:.3f}); {len(rows)} (op, shapes) of the activations:")
+        for ms, calls, key, shapes in rows:
+            print(f"  {ms:9.3f}  x{calls:<7.1f} {key:24s} {str(shapes)[:80]}")
     if args.sharded:
         torch.distributed.destroy_process_group()
     return 0
