@@ -21,6 +21,8 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
+from gaussian_lic_tpu_torch.utils import trace
+
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
 
@@ -108,7 +110,9 @@ class CameraPose:
         V = torch.zeros(batch + (4, 4), dtype=self.R_cw.dtype, device=self.R_cw.device)
         V[..., :3, :3] = self.R_cw
         V[..., :3, 3] = self.t_cw
-        V[..., 3, 3] = 1.0
+        # a Python scalar stored into a CUDA tensor is a pageable copy that
+        # waits for the stream
+        trace.sync("upload", V.__setitem__, (..., 3, 3), 1.0)
         return V
 
 
@@ -140,12 +144,12 @@ def make_camera(
     tensor `R_wc`, else the CPU."""
     if device is None:
         device = R_wc.device if isinstance(R_wc, torch.Tensor) else "cpu"
-    R_wc = torch.as_tensor(R_wc, dtype=torch.float32, device=device)
-    t_wc = torch.as_tensor(t_wc, dtype=torch.float32, device=device)
+    R_wc = trace.upload(R_wc, dtype=torch.float32, device=device)
+    t_wc = trace.upload(t_wc, dtype=torch.float32, device=device)
     R_cw = R_wc.transpose(-1, -2).contiguous()
     t_cw = -matvec(R_cw, t_wc)
     pose = CameraPose(R_cw=R_cw, t_cw=t_cw)
-    P = torch.as_tensor(intr.projection_matrix(), device=device)
+    P = trace.upload(intr.projection_matrix(), device=device)
     V = pose.view_matrix()
     # P @ V with the batch on V
     full_proj = (P.unsqueeze(-1) * V.unsqueeze(-3)).sum(-2)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from gaussian_lic_tpu_torch.camera import Camera, CameraPose, Intrinsics, make_camera
+from gaussian_lic_tpu_torch.utils import trace
 
 Device = Union[str, torch.device]
 # an int, or a 0-d integer tensor on the buffer's device (a CUDA graph's step)
@@ -86,7 +87,7 @@ class KeyframeBuffer:
         self.R_cw[idx] = cam.pose.R_cw
         self.t_cw[idx] = cam.pose.t_cw
         self.full_proj[idx] = cam.full_proj
-        self.images[idx] = torch.from_numpy(chw).to(self.images.device)
+        self.images[idx] = trace.upload(chw, device=self.images.device)
         return self
 
     def camera(self, intr: Intrinsics, idx: KeyframeIndex) -> Camera:

@@ -5,6 +5,8 @@ The counterpart of the JAX package's `engine/evaluate.py`: renders every
 train keyframe and every held-out in-sequence test view, one view at a time,
 computes PSNR / SSIM / LPIPS per split, and dumps render/ and gt/ PNG pairs.
 The per-view metrics stay on the device and come to the host once per split.
+Each view is the span `eval.view` (utils/trace.py) with its name as the id:
+`eval.inputs`, `eval.render`, `sync.overflow`, `eval.score` inside it.
 LPIPS uses the artifact at `lpips_path` (ops.lpips); without one the metric
 is reported as None. The PNGs are written by a small zlib encoder, so the
 dumps need no imaging library.
@@ -24,6 +26,7 @@ from gaussian_lic_tpu_torch.camera import Camera, make_camera
 from gaussian_lic_tpu_torch.ops import losses
 from gaussian_lic_tpu_torch.ops.lpips import LPIPS, load_lpips_params
 from gaussian_lic_tpu_torch.ops.rasterize import CHUNK, _splat_budget_for, render_map
+from gaussian_lic_tpu_torch.utils import trace
 
 
 def png_bytes(rgb: np.ndarray) -> bytes:
@@ -45,7 +48,8 @@ def png_bytes(rgb: np.ndarray) -> bytes:
 
 def _to_u8(img: torch.Tensor) -> np.ndarray:
     """(3, H, W) in [0, 1] -> (H, W, 3) uint8 on the host."""
-    return (img.permute(1, 2, 0) * 255.0).clamp(0, 255).to(torch.uint8).cpu().numpy()
+    u8 = (img.permute(1, 2, 0) * 255.0).clamp(0, 255).to(torch.uint8)
+    return trace.sync("save", u8.cpu).numpy()
 
 
 def _save_image_pair(result_path: str, name: str, render: torch.Tensor, gt: torch.Tensor):
@@ -91,10 +95,13 @@ def evaluate_visual_quality(
 
     def render_clean(cam: Camera) -> torch.Tensor:
         while True:
-            out = render_map(gm, cam, apply_exposure=cfg.apply_exposure, tile_h=cfg.tile_h,
-                             tile_w=cfg.tile_w, max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
-                             max_total_splats=budget[0])
-            lost, truncated = torch.stack([out.budget_lost, out.truncated]).tolist()
+            with trace.span("eval.render"):
+                out = render_map(gm, cam, apply_exposure=cfg.apply_exposure, tile_h=cfg.tile_h,
+                                 tile_w=cfg.tile_w,
+                                 max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
+                                 max_total_splats=budget[0])
+            lost, truncated = trace.sync("overflow", torch.Tensor.tolist,
+                                         torch.stack([out.budget_lost, out.truncated]))
             if lost == 0:
                 if truncated > 0:
                     print(f"[eval] WARNING: {truncated} rect tiles truncated at the "
@@ -107,21 +114,28 @@ def evaluate_visual_quality(
             print(f"[eval] splat budget overflow ({lost} entries lost): budget grows "
                   f"{budget[0]} -> {new_m}, re-rendering")
             budget[0] = new_m
+            trace.count("eval.rerenders")
 
     def run_split(names: List[str], view: Callable[[int], tuple]) -> Dict[str, Optional[float]]:
         per_view = []
         for i, name in enumerate(names):
-            cam, gt = view(i)
-            rendered = render_clean(cam)
-            m = [losses.psnr(rendered, gt), losses.ssim(rendered, gt)]
-            if lpips is not None:
-                m.append(lpips(rendered[None], gt[None])[0])
-            per_view.append(torch.stack(m))
-            if save_images and result_path:
-                _save_image_pair(result_path, f"{name}.png", rendered, gt)
+            with trace.span("eval.view", name):
+                with trace.span("eval.inputs"):
+                    cam, gt = view(i)
+                rendered = render_clean(cam)
+                with trace.span("eval.score"):
+                    m = [losses.psnr(rendered, gt), losses.ssim(rendered, gt)]
+                    if lpips is not None:
+                        m.append(lpips(rendered[None], gt[None])[0])
+                    per_view.append(torch.stack(m))
+                if save_images and result_path:
+                    with trace.span("eval.save"):
+                        _save_image_pair(result_path, f"{name}.png", rendered, gt)
         if not per_view:
             return {}
-        vals = np.asarray(torch.stack(per_view).tolist(), np.float64)  # one fetch per split
+        # one fetch per split
+        vals = np.asarray(trace.sync("split", torch.Tensor.tolist, torch.stack(per_view)),
+                          np.float64)
         # PSNR, SSIM and LPIPS are the reference's three headline metrics:
         # lpips is None, never absent, when there are no weights
         return {"psnr": float(np.mean(vals[:, 0])), "ssim": float(np.mean(vals[:, 1])),
@@ -132,7 +146,7 @@ def evaluate_visual_quality(
 
     def test_view(i):
         tc = engine.test_cameras[i]
-        gt = torch.as_tensor(tc.image_u8, device=dev).permute(2, 0, 1).float() / 255.0
+        gt = trace.upload(tc.image_u8, device=dev).permute(2, 0, 1).float() / 255.0
         return make_camera(intr, tc.R_wc, tc.t_wc, device=dev), gt
 
     results: Dict[str, Optional[float]] = {}

@@ -25,12 +25,19 @@ GPU per rank, or on the CPU with gloo for `--device cpu`), N = 1 runs a
 one-rank group in this process. Rank 0 opens the input and broadcasts each
 aligned frame to the others; rank 0 alone prints the results and writes the
 result path, the PLY and the checkpoint.
+
+`--profile DIR` records the stream and its end-of-run eval under
+torch.profiler: DIR/trace.json is the chrome trace, the port's `glic.*`
+spans (utils/trace.py) beside the kernels, and DIR/record.json the spans'
+counts and host ms by name and the counters (`host_syncs`, `h2d_bytes`,
+`extend.candidates` / `extend.added`, the growths and graph captures).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import os
 import sys
 import time
@@ -50,6 +57,7 @@ from gaussian_lic_tpu_torch.engine.stream import (
 )
 from gaussian_lic_tpu_torch.engine.trainer import MappingEngine
 from gaussian_lic_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from gaussian_lic_tpu_torch.utils import trace
 
 
 def _demo_frames(cfg: Params, n_frames: int = 25, device="cpu"):
@@ -197,8 +205,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-aligner", action="store_true",
                     help="bypass the stream aligner (frames are pre-aligned)")
     ap.add_argument("--profile", metavar="DIR",
-                    help="write a torch.profiler chrome trace of the stream to "
-                         "DIR/trace.json")
+                    help="write a torch.profiler chrome trace of the stream and "
+                         "its eval, with the port's glic.* spans, to DIR/trace.json, "
+                         "and the spans' counts and host ms and the counters to "
+                         "DIR/record.json")
     ap.add_argument("--phase-timers", action="store_true",
                     help="measure the forward/backward/optimizer split of one "
                          "train step at the end of the run (mapping.cpp:188-195)")
@@ -317,21 +327,24 @@ def _run(args, device: torch.device, mesh, engine_factory) -> int:
     with profiler as prof:
         run_stream(engine, frames, use_aligner=use_aligner, verbose=not args.quiet,
                    mesh=mesh)
+        results = engine.finalize()
     if args.profile and main:
         os.makedirs(args.profile, exist_ok=True)
         path = os.path.join(args.profile, "trace.json")
         prof.export_chrome_trace(path)
-        print(f"profiler trace written to {path}")
+        rec = trace.record()
+        with open(os.path.join(args.profile, "record.json"), "w") as f:
+            json.dump(rec.summary() if rec is not None else {}, f, indent=1)
+        print(f"profiler trace and span record written to {args.profile}")
 
-    if args.phase_timers and main:
-        engine.measure_phase_split()
-
-    results = engine.finalize()
     if results and main:
         print("\n===== quality (cf. gaussian.cpp:784-829) =====")
         for k in sorted(results):
             v = results[k]
             print(f"  {k:16s}: " + (f"{v:.4f}" if v is not None else "skipped"))
+
+    if args.phase_timers and main:
+        engine.measure_phase_split()
 
     if args.checkpoint and engine.initialized and main:
         save_checkpoint(args.checkpoint, engine.gm, engine.opt_state,

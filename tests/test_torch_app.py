@@ -14,6 +14,7 @@ train steps, and sparse Adam without bias correction moves an entry whose
 gradient is float noise by ~lr per flipped sign (test_torch_train.py).
 """
 
+import json
 import os
 import time
 
@@ -102,7 +103,16 @@ class TestCli:
                                   "--lpips-path", "randinit", "--profile", str(prof)]) == 0
         text = capsys.readouterr().out
         assert "aligner: native" in text and "===== quality" in text
-        assert (prof / "trace.json").stat().st_size > 0
+        with open(prof / "trace.json") as f:
+            ranges = {e.get("name") for e in json.load(f)["traceEvents"]}
+        assert {"glic.frame", "glic.frame.ingest", "glic.frame.initialize", "glic.frame.optimize",
+                "glic.optimize", "glic.bundle", "glic.sync.upload", "glic.sync.fetch",
+                "glic.eval.view", "glic.eval.render", "glic.sync.split"} <= ranges
+        with open(prof / "record.json") as f:
+            rec = json.load(f)
+        assert rec["counts"]["host_syncs"] == sum(
+            v["n"] for k, v in rec["spans"].items() if k.startswith("sync."))
+        assert rec["spans"]["frame"]["n"] == 5 and rec["spans"]["frame"]["ms"] > 0
         m = ply.load_ply(str(out / "point_cloud.ply"))
         gm, opt, extra = checkpoint.load_checkpoint(str(ckpt), device="cpu")
         assert m["xyz"].shape[0] == int(gm.count) > 100 and int(extra["kf_count"]) == 1

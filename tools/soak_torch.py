@@ -21,7 +21,10 @@ CUDA-graph bundles, whose captures (seconds, graph pool) end the run's
 output beside the card's line. A keyframe's wall time ends in the host
 fetch of its last step's loss (`MappingEngine.optimize`); the PSNR probe is
 not billed to the stream. "Steady" keyframes are those past
-max_iters_per_keyframe / 2, as in tools/soak.py.
+max_iters_per_keyframe / 2, as in tools/soak.py. `iters_per_sec` divides
+by `PhaseTimers.optimize_steps`, the `frame.optimize` span's seconds: each
+keyframe's whole `optimize()` call, its keyframe draw, ids upload and
+overflow handling included, not the train steps alone.
 """
 
 from __future__ import annotations

@@ -9,6 +9,10 @@ without CUDA it exits with an error unless `--device cpu` is given) and
 `--tiny` (the 128x64 rig of tools/soak_torch.py, for a CPU run of the
 harness). Imports no JAX.
 
+The train rate divides the iterations by `PhaseTimers.optimize_steps`, the
+`frame.optimize` span's seconds: each keyframe's whole `optimize()` call,
+its keyframe draw, ids upload and overflow handling included.
+
 Usage: python tools/validate_scale_torch.py [--frames 40] [--points 50000] [--iters 40]
 """
 
