@@ -1157,6 +1157,9 @@ def phase_preprocess(scenes) -> list:
 # ---------------------------------------------------------------------------
 
 BINNING = ("bin_keys", "bin_ranges", "gather_splats")
+# K13, one per K8 wherever the binning is bin_gaussians': all but the sharded
+# step, whose list merged from the ranks keeps torch.sort
+LIVE_SORT = "sort_live"
 # K8's operations per slot whose power it evaluates (live, in the rect and
 # in the band), counted from csrc/bin_keys.cu: 70 FP32 operations of the
 # tile's pixel rect and max_contrib_power, and two IEEE divisions of ~8 FP32
@@ -1211,15 +1214,19 @@ def k8_warp_slots(ok) -> dict:
                 listed=listed, warps=K * (-(-P // 32)))
 
 
-def binning_bytes(P: int, K: int, m_eff: int, m_pad: int, T: int, rows: int) -> dict:
-    """Bytes K8, K9 and K10 must move: each input read once, each output
-    written once. K8 reads a Gaussian's mean and conic (20 B), depth,
+def binning_bytes(P: int, K: int, m_eff: int, m_pad: int, T: int, rows: int,
+                  live: int) -> dict:
+    """Bytes K8, K13, K9 and K10 must move: each input read once, each
+    output written once. K8 reads a Gaussian's mean and conic (20 B), depth,
     opacity, radius and its flag (13 B) and writes K keys and its count;
-    K9 reads m_eff 4-B keys and 8-B slots and writes m_pad ids, T starts
-    and lengths and P counts; K10 reads m_pad ids and the `rows` distinct
-    rows they name (64 B each) and writes m_pad rows."""
+    K13 reads the P K keys once and, for the `live` pairs (4-B key, 4-B
+    slot), reads and writes 8 B a pair in each of its 4 radix passes; K9
+    reads m_eff 4-B keys and 4-B slots and writes m_pad ids, T starts and
+    lengths and P counts; K10 reads m_pad ids and the `rows` distinct rows
+    they name (64 B each) and writes m_pad rows."""
     return dict(bin_keys=P * (33 + 4 * K + 4) + 8,
-                bin_ranges=m_eff * 12 + m_pad * 4 + 8 * T + 4 * P,
+                sort_live=4 * P * K + 4 * 16 * live,
+                bin_ranges=m_eff * 8 + m_pad * 4 + 8 * T + 4 * P,
                 gather_splats=m_pad * 4 + rows * 64 + m_pad * 64)
 
 
@@ -1393,7 +1400,12 @@ def check_binning(sc: dict, rates: dict, tag: str) -> dict:
         k8 = tiles.bin_keys(*args, g, K, bits, **kw)
         check(f"K8 in band {b} of {D}", k8, tiles.bin_keys_plain(*args, g, K, bits, **kw))
         sk, ss = torch.sort(k8[0], stable=True)
+        ss = ss.to(torch.int32)   # K9's slot ids
         num_valid = int(k8[2][1])
+        # K13: the first num_valid entries of the whole sort, and its count
+        live = tiles.sort_live_slots(k8[0])
+        check(f"K13 in band {b} of {D}", (live[0][:num_valid], live[1][:num_valid], live[2]),
+              (sk[:num_valid], ss[:num_valid], k8[2][1]))
         for m in (m_eff, max(num_valid // 2, 1)) if D == 1 else (m_eff,):
             mp = -(-m // CHUNK) * CHUNK
             want = tiles.bin_ranges_plain(sk, ss, m, mp, P, n_ty * g.n_tx, bits)
@@ -1405,8 +1417,12 @@ def check_binning(sc: dict, rates: dict, tag: str) -> dict:
             check(f"K9 in band {b} of {D} at {m} entries", k9, want)
             check(f"K10 in band {b} of {D} at {m} entries", (tiles.gather_splats(table, k9[0]),),
                   (tiles.gather_splats_plain(table, k9[0]),))
+            # K9 on K13's list (bin_gaussians' call): entries past num_valid read as dead
+            check(f"K9 on K13's list in band {b} of {D} at {m} entries",
+                  tiles.bin_ranges(live[0], live[1], m, mp, P, n_ty * g.n_tx, bits,
+                                   slot_keys=k8[0], touched=k8[1], sums=k8[2]), want)
             if D == 1:
-                log(f"[2d] {tag} K8, K9 and K10 in the grid at {m} entries ({num_valid} live "
+                log(f"[2d] {tag} K8, K13, K9 and K10 in the grid at {m} entries ({num_valid} live "
                     f"slots, {int(k8[2][0])} rect tiles truncated, {int((k9[2] == 0).sum())} "
                     f"of {T} tiles empty): bit for bit their plain versions")
         if D == 1:   # the main path's list: timed below
@@ -1422,7 +1438,7 @@ def check_binning(sc: dict, rates: dict, tag: str) -> dict:
     ids = tiles.bin_ranges(sk, ss, m_eff, m_pad, P, T, bits, **k8kw)[0]
     if not torch.equal(tiles.gather_splats(table, ids), table.index_select(0, ids)):
         raise AssertionError(f"{tag}: K10 differs from index_select")
-    log(f"[2d] {tag} K8, K9 and K10 in every band of D = "
+    log(f"[2d] {tag} K8, K13, K9 and K10 in every band of D = "
         f"{', '.join(map(str, BAND_MESHES))} (the grid's depth bits) and K8 from depth keys: "
         f"bit for bit their plain versions; K10 equals index_select")
     grid_band = dict(band_ty0=0, band_n_ty=g.n_ty)
@@ -1439,17 +1455,28 @@ def check_binning(sc: dict, rates: dict, tag: str) -> dict:
         "gather_splats": (lambda: tiles.gather_splats(table, ids),
                           lambda: tiles.gather_splats_plain(table, ids),
                           lambda: table.index_select(0, ids)),
+        # the plain version reads its count back (nonzero): eager only
+        "sort_live": (lambda: tiles.sort_live_slots(keys), None,
+                      lambda: torch.sort(keys, stable=True)),
     }
     ms, eager = {}, {}
     for k, fns in calls.items():
         ms[k] = tuple(None if f is None else graph_ms(f) for f in fns)
         eager[k] = tuple(None if f is None else cuda_ms(f, 20) for f in fns)
+    plain_sort = cuda_ms(lambda: tiles.sort_live_slots_plain(keys), 20)
+    ms["sort_live"] = (ms["sort_live"][0], plain_sort, ms["sort_live"][2])
+    eager["sort_live"] = (eager["sort_live"][0], plain_sort, eager["sort_live"][2])
     keys64 = tiles.keys_from_int32(keys)
-    sort_ms = [cuda_ms(lambda: torch.sort(k, stable=True), 20)
-               for k in (keys64, keys, keys, keys64)]
-    log(f"[2d] {tag} stable sort of {keys.numel()} keys, in turns int64 int32 int32 int64: "
+    sort_ms = [graph_ms(f) for f in (
+        lambda: torch.sort(keys64, stable=True), lambda: torch.sort(keys, stable=True),
+        lambda: tiles.sort_live_slots(keys), lambda: tiles.sort_live_slots(keys),
+        lambda: torch.sort(keys, stable=True), lambda: torch.sort(keys64, stable=True))]
+    n_live = int(k8_main[2][1])
+    log(f"[2d] {tag} stable sort of {keys.numel()} keys ({n_live} live, "
+        f"{n_live / keys.numel():.4%} of the slots), 20 calls in a CUDA graph, in turns "
+        f"torch.sort int64, int32, K13, K13, torch.sort int32, int64: "
         + " ".join(f"{v:.4f}" for v in sort_ms) + " ms")
-    nbytes = binning_bytes(P, K, m_eff, m_pad, T, int(torch.unique(ids).numel()))
+    nbytes = binning_bytes(P, K, m_eff, m_pad, T, int(torch.unique(ids).numel()), n_live)
     ws = k8_warp_slots(evaluated_mask(args[0], radius, live, g, K, (0, g.n_ty)))
     slots = ws["evaluated"]
     ops_ms = max(slots * K8_SLOT_FP32 / (rates["sms"] * FP32_LANES_PER_SM * rates["hz"]),
@@ -1464,7 +1491,8 @@ def check_binning(sc: dict, rates: dict, tag: str) -> dict:
         ek, ep, el = eager[k]
         log(f"[2d] {tag} time {k}, in a CUDA graph (eager): kernel {tk:.4f} ({ek:.4f}) ms  "
             f"plain {tp:.4f} ({ep:.4f}) ms"
-            + ("" if lib is None else f"  index_select {lib:.4f} ({el:.4f}) ms")
+            + ("" if lib is None else f"  {'torch.sort' if k == 'sort_live' else 'index_select'}"
+                                      f" {lib:.4f} ({el:.4f}) ms")
             + f"  bound {b_ms:.4f} ms ({by}; {nbytes[k]} bytes"
             + (f", {slots} evaluated slots: {ops_ms:.4f} ms of operations" if k == "bin_keys"
                else "") + ")"
@@ -1486,11 +1514,12 @@ def phase_binning(scenes, rates: dict) -> list:
     from gaussian_lic_tpu_torch import _build
 
     check_base_is_production(_build.load().path, K8_BASE + K9_BASE, "2d")
-    kernel_resources(_build.load().path, ("bin_keys_kernel", "bin_ranges"), "2d")
+    kernel_resources(_build.load().path, ("bin_keys_kernel", "bin_ranges", "radix_"), "2d")
     light = check_binning(scenes[0], rates, f"{scenes[0]['n_gauss']}-Gaussian scene")
     step = check_binning(scenes[1], rates, f"{scenes[1]['n_gauss']}-Gaussian train step")
     src = "gaussian_lic_tpu_torch/csrc/"
     rows = [("bin_keys", "gaussian_lic_tpu/ops/tiles.py:181"),
+            ("sort_live", "gaussian_lic_tpu/ops/tiles.py:325"),
             ("bin_ranges", "gaussian_lic_tpu/ops/tiles.py:327"),
             ("gather_splats", "gaussian_lic_tpu/ops/rasterize.py:116")]
     out = []
@@ -1500,17 +1529,22 @@ def phase_binning(scenes, rates: dict) -> list:
                         counter=name, max_abs_err=max(err, light[name][0]), ms=ms,
                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=lib))
         log(f"[2d] {name}: {ms:.4f} ms against a bound of {b_ms:.4f} ms ({by}), plain "
-            f"{plain_ms:.4f} ms" + ("" if lib is None else f", index_select {lib:.4f} ms"))
+            f"{plain_ms:.4f} ms" + ("" if lib is None else
+                                    f", {'torch.sort' if name == 'sort_live' else 'index_select'}"
+                                    f" {lib:.4f} ms"))
     return out
 
 
-def check_binning_launches(launches: dict, tag: str) -> None:
+def check_binning_launches(launches: dict, tag: str, sharded: bool = False) -> None:
     """One K8, one K9 and one K10 per render: each as many launches as K1
-    (color and no_color together), and at least one."""
+    (color and no_color together), and at least one; and one K13 per K8
+    unless the sharded step bins (`sharded`)."""
     renders = launches["forward"] + launches["forward_no_color"]
     if renders <= 0 or any(launches[k] != renders for k in BINNING):
         raise AssertionError(f"{tag}: not one K8, K9 and K10 launch per render ({renders} "
                              f"K1 launches): {launches}")
+    if not sharded and launches[LIVE_SORT] != launches["bin_keys"]:
+        raise AssertionError(f"{tag}: not one K13 launch per K8: {launches}")
 
 
 # ---------------------------------------------------------------------------
@@ -2229,7 +2263,7 @@ def activation_ops(fn) -> dict:
 
 
 def bundle_turns(dev, card: str, tag: str, what: str, step, make_bundle, graphs, gm0, opt0,
-                 kf, sizes, steps: int) -> dict:
+                 kf, sizes, steps: int, sharded: bool = False) -> dict:
     """`steps` steps of `step` from (gm0, opt0), eagerly one by one and as
     the bundles `make_bundle(k)` of `sizes` (CUDA graphs in `graphs`), in
     turns (eager, bundle, bundle, eager) after an untimed pass that
@@ -2239,7 +2273,8 @@ def bundle_turns(dev, card: str, tag: str, what: str, step, make_bundle, graphs,
     launch one K1, K5, K6, K7, K8, K9, K10, K11 and K12 a step, and the
     bundles' launches must equal the eager loop's. One eager step (what the
     bundles capture) must run none of the activations as ops of their own
-    (ACTIVATION_OPS: K5 and K6 apply them and their backward)."""
+    (ACTIVATION_OPS: K5 and K6 apply them and their backward). Unless the
+    step is the sharded one (`sharded`), it must also launch one K13 a step."""
     import torch
 
     torch.cuda.synchronize()
@@ -2306,11 +2341,12 @@ def bundle_turns(dev, card: str, tag: str, what: str, step, make_bundle, graphs,
         raise AssertionError("the bundles' loss lies outside the eager runs' spread")
     want = runs[0][1]["launches"]
     once = (("forward", "preprocess_forward", "preprocess_backward", "sparse_adam") + BINNING
-            + SSIM)
+            + SSIM + (() if sharded else (LIVE_SORT,)))
     if (any(want[k] != steps for k in once)
             or any(r["launches"] != want for _, r in runs + [("", first)])):
         raise AssertionError(f"the launches are not one K1, K5, K6, K7, K8, K9, K10, K11 and "
-                             f"K12 a step, or the bundles' differ from the eager loop's: "
+                             f"K12 (and K13 but sharded) a step, or the bundles' differ from "
+                             f"the eager loop's: "
                              + str([r["launches"] for _, r in runs]))
     ms = {name: [r["ms"] for nm, r in runs if nm == name] for name in ("eager", "bundle")}
     return dict(ms_per_step=ms, losses=dict(eager=eager_l, bundle=bundle_l), first=first,
@@ -2760,7 +2796,7 @@ def check_sharded_bundles(dev, card: str, state: dict, mesh, steps: int = BUNDLE
         dev, card, "6c", f"sharded, D = 1, {state['n']} Gaussians 640x512",
         make_sharded_train_step(intr, cfg, mesh),
         lambda k: make_sharded_train_bundle(intr, cfg, mesh, k, graphs), graphs, gs, os_,
-        state["kf"], _decompose_bundles(steps, cfg.opt_bundle_sizes), steps)
+        state["kf"], _decompose_bundles(steps, cfg.opt_bundle_sizes), steps, sharded=True)
 
 
 def phase_sharded(dev, card: str, slice_res: dict, app_res: dict, tmp: str) -> dict:
@@ -2808,7 +2844,7 @@ def phase_sharded(dev, card: str, slice_res: dict, app_res: dict, tmp: str) -> d
         f"({time.perf_counter() - t0:.2f} s)")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel never launched on the sharded path: {launches}")
-    check_binning_launches(launches, "phase 6d")
+    check_binning_launches(launches, "phase 6d", sharded=True)
     check_loss_launches(launches, "phase 6d")
     if not eng.graphs.captures:
         raise AssertionError("the mesh engine ran its bundles without CUDA graphs")

@@ -72,6 +72,8 @@ _SIGNATURES = {
                              + (_LL,) + (_VP,) * 5,
     # table, n_rows, ids, m, out, stream
     "glic_gather_splats": (_VP, _LL, _VP, _LL, _VP, _VP),
+    # keys, n_slots, keys_a, slots_a, keys_b, slots_b, scratch, sort_words, stream
+    "glic_sort_live": (_VP, _LL) + (_VP,) * 7,
     # x, x channel and row strides, y, its strides, C, H, W, r0, r1, konst (13
     # host floats), partials (or null), block_sums, stream
     "glic_ssim_forward": (_VP, _LL, _LL, _VP, _LL, _LL) + (_I,) * 5 + (_VP,) * 4,

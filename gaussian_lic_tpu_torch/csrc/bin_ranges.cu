@@ -10,8 +10,8 @@
 // against the budget's boundary key.
 //
 // What bounds it on this card: device memory. Per entry of the sorted list it
-// reads a 4-byte key and an 8-byte slot and writes a 4-byte Gaussian id
-// (about 29 MB at 1,782,784 entries, ~0.01 ms at 3.35 TB/s); the tile ranges
+// reads a 4-byte key and a 4-byte slot and writes a 4-byte Gaussian id
+// (about 21 MB at 1,782,784 entries, ~0.006 ms at 3.35 TB/s); the tile ranges
 // and counts are small. One thread per entry, one pass:
 //   * sorted_gauss[i] = slot % P for a live entry of [0, m_eff), else P (the
 //     dead id, also for the tail up to m_pad);
@@ -27,7 +27,9 @@
 // Nothing reads back to the host: the bundles capture it in a CUDA graph.
 //
 // Keys are K8's (csrc/bin_keys.cu): the uint32 key with its top bit
-// flipped, sorted as int32. Tile ids are key >> depth_bits - tile0, capped
+// flipped, sorted as int32 by K13 (csrc/sort_live.cu), with int32 slot ids;
+// given K8's sums, entries from sums[1] on read as dead (K13 sorts only the
+// live slots and leaves the rest of its buffers as they were). Tile ids are key >> depth_bits - tile0, capped
 // at T: the dead key's field passes every tile.
 //
 // bin_ranges.cuh holds the design (E entries a thread from 16-byte loads,
@@ -43,13 +45,14 @@
 
 #include "bin_ranges.cuh"
 
-// K9 over the first m_eff entries of the sorted keys and slots: sorted_gauss
+// K9 over the first m_eff entries of the sorted keys and int32 slots (with
+// sums, the first min(m_eff, sums[1]), the rest dead): sorted_gauss
 // (m_pad,), starts (T,), and lens (T,), which must hold zeros, and cnt (P,).
 // magic and shift: slot / P as (slot * magic) >> shift (ops/tiles.py
 // k9_fastdiv). With touched (K8's (P,) live slots per Gaussian), sums (K8's
 // (2,)) and slot_keys (K8's (n_slot_keys,) keys in slot order), cnt is
 // written whole; without them (null) cnt must hold zeros.
-extern "C" int glic_bin_ranges(const int* keys, const long long* slots, long long m_eff,
+extern "C" int glic_bin_ranges(const int* keys, const int* slots, long long m_eff,
                                long long m_pad, int P, int T, int depth_bits, int tile0,
                                long long magic, int shift, const int* touched, const int* sums,
                                const int* slot_keys, long long n_slot_keys, int* sorted_gauss,

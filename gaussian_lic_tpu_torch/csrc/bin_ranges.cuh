@@ -20,7 +20,7 @@
 //
 // The listed design (bin_ranges_kernel; kK9Base) gives a thread 4 adjacent
 // entries and 4 Gaussians:
-//  (a) it reads their keys as one 16-byte load and the slots as two,
+//  (a) it reads their keys as one 16-byte load and the slots as one,
 //      where the list allows (16-byte aligned, the whole group inside it),
 //      and skips the slot loads of a group of dead entries;
 //  (b) the tile ids of the entries before and after its group come from the
@@ -36,6 +36,12 @@
 //      histogram into zeros as the first design.
 // Its variant kK9Hist is the same with the histogram always (bit for bit;
 // cnt must hold zeros).
+//
+// Slot ids are int32 (k P + p below 2^31: the sort's values). Given K8's
+// sums, every kernel reads only the first sums[1] entries (the live slots,
+// which K13's sort leaves at the front of buffers it does not clear) and
+// takes the entries from there to m_eff as dead, which is what a sort of all
+// P K slots holds there.
 
 #pragma once
 
@@ -64,7 +70,7 @@ constexpr int kGauss = 4;     // Gaussians a thread of the listed design
 
 struct Args {
   const int* keys;          // sorted keys, K8's int32 form
-  const long long* slots;   // their slot ids k P + p
+  const int* slots;         // their slot ids k P + p
   long long m_eff, m_pad;
   int P, T, depth_bits, tile0;
   unsigned magic;           // slot / P = (slot * magic) >> shift for slot < 2^31
@@ -86,6 +92,16 @@ __device__ __forceinline__ int tile_of(unsigned key, int depth_bits, int tile0, 
 
 __device__ __forceinline__ unsigned key_at(const int* keys, long long i) {
   return static_cast<unsigned>(__ldg(keys + i)) ^ kFlip;
+}
+
+// The entries the list holds: the first sums[1] (K8's live slots) where the
+// caller gives K8's sums, else m_eff. Entries from there on read as dead.
+__device__ __forceinline__ long long list_end(const Args& a) {
+  return a.sums ? min(a.m_eff, static_cast<long long>(__ldg(a.sums + 1))) : a.m_eff;
+}
+
+__device__ __forceinline__ unsigned key_in(const Args& a, long long end, long long i) {
+  return i < end ? key_at(a.keys, i) : kInvalid;
 }
 
 // slot % P, the first design's 64-bit signed remainder
@@ -122,22 +138,23 @@ template <int V>
 __global__ void __launch_bounds__(kThreads) bin_ranges_first_kernel(Args a, long long n_threads) {
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n_threads) return;
+  const long long end = list_end(a);
   // tile of the entry before: -1 before the first
   const int prev =
-      i == 0 || i > a.m_eff ? -1 : tile_of(key_at(a.keys, i - 1), a.depth_bits, a.tile0, a.T);
+      i == 0 || i > a.m_eff ? -1 : tile_of(key_in(a, end, i - 1), a.depth_bits, a.tile0, a.T);
   if (i >= a.m_eff) {  // past the list: the tiles after its last entry start at m_eff
     if (V != kK9MemOnly && i == a.m_eff)
       for (int b = max(prev + 1, 0); b < a.T; ++b) a.starts[b] = static_cast<int>(a.m_eff);
     if (i < a.m_pad) a.sorted_gauss[i] = a.P;
     return;
   }
-  const unsigned key = key_at(a.keys, i);
+  const unsigned key = key_in(a, end, i);
   const int t = tile_of(key, a.depth_bits, a.tile0, a.T);
   const bool ranged = t >= 0 && t < a.T;   // a tile of the grid (or band): its length counts
   const int next = ranged && i + 1 < a.m_eff
-                       ? tile_of(key_at(a.keys, i + 1), a.depth_bits, a.tile0, a.T) : a.T;
+                       ? tile_of(key_in(a, end, i + 1), a.depth_bits, a.tile0, a.T) : a.T;
   if constexpr (V == kK9MemOnly) {   // timing only: the loads, and an id made from them
-    a.sorted_gauss[i] = key != kInvalid ? static_cast<int>(__ldg(a.slots + i)) ^ (prev + next)
+    a.sorted_gauss[i] = key != kInvalid ? __ldg(a.slots + i) ^ (prev + next)
                                         : a.P;
     return;
   }
@@ -202,10 +219,11 @@ __global__ void __launch_bounds__(kThreads) bin_ranges_kernel(Args a, long long 
   const int lane = threadIdx.x & 31;
   const long long i0 = j * E;
   const bool hist = V == kK9Hist || a.touched == nullptr;
+  const long long end = list_end(a);
 
   // the group's keys: 16-byte loads where the whole group is in the list
   unsigned key[E];
-  const bool full = i0 + E <= a.m_eff;
+  const bool full = i0 + E <= end;
   if (full && (reinterpret_cast<uintptr_t>(a.keys + i0) & 15) == 0) {
 #pragma unroll
     for (int w = 0; w < E / 4; ++w) {
@@ -217,7 +235,7 @@ __global__ void __launch_bounds__(kThreads) bin_ranges_kernel(Args a, long long 
     }
   } else {
 #pragma unroll
-    for (int e = 0; e < E; ++e) key[e] = i0 + e < a.m_eff ? key_at(a.keys, i0 + e) : kInvalid;
+    for (int e = 0; e < E; ++e) key[e] = key_in(a, end, i0 + e);
   }
   int t[E];
 #pragma unroll
@@ -226,10 +244,10 @@ __global__ void __launch_bounds__(kThreads) bin_ranges_kernel(Args a, long long 
   // after it (the next lane's first); the warp's ends load their own
   int prev = __shfl_up_sync(kAll, t[E - 1], 1);
   int next = __shfl_down_sync(kAll, t[0], 1);
-  if (lane == 0) prev = i0 > 0 && i0 <= a.m_eff ? tile_of(key_at(a.keys, i0 - 1), a.depth_bits,
+  if (lane == 0) prev = i0 > 0 && i0 <= a.m_eff ? tile_of(key_in(a, end, i0 - 1), a.depth_bits,
                                                           a.tile0, a.T) : -1;
   if (lane == 31 || i0 + E >= a.m_eff)
-    next = i0 + E < a.m_eff ? tile_of(key_at(a.keys, i0 + E), a.depth_bits, a.tile0, a.T) : a.T;
+    next = i0 + E < a.m_eff ? tile_of(key_in(a, end, i0 + E), a.depth_bits, a.tile0, a.T) : a.T;
   if (j >= n_threads) return;
 
   // slots of the live entries: 16-byte loads where the whole group is in the
@@ -240,10 +258,12 @@ __global__ void __launch_bounds__(kThreads) bin_ranges_kernel(Args a, long long 
   for (int e = 0; e < E; ++e) any_live |= key[e] != kInvalid;
   if (any_live && full && (reinterpret_cast<uintptr_t>(a.slots + i0) & 15) == 0) {
 #pragma unroll
-    for (int w = 0; w < E / 2; ++w) {
-      const longlong2 s2 = __ldg(reinterpret_cast<const longlong2*>(a.slots + i0) + w);
-      g[2 * w] = key[2 * w] != kInvalid ? remfast(s2.x, a.P, a.magic, a.shift) : a.P;
-      g[2 * w + 1] = key[2 * w + 1] != kInvalid ? remfast(s2.y, a.P, a.magic, a.shift) : a.P;
+    for (int w = 0; w < E / 4; ++w) {
+      const int4 s4 = __ldg(reinterpret_cast<const int4*>(a.slots + i0) + w);
+      g[4 * w] = key[4 * w] != kInvalid ? remfast(s4.x, a.P, a.magic, a.shift) : a.P;
+      g[4 * w + 1] = key[4 * w + 1] != kInvalid ? remfast(s4.y, a.P, a.magic, a.shift) : a.P;
+      g[4 * w + 2] = key[4 * w + 2] != kInvalid ? remfast(s4.z, a.P, a.magic, a.shift) : a.P;
+      g[4 * w + 3] = key[4 * w + 3] != kInvalid ? remfast(s4.w, a.P, a.magic, a.shift) : a.P;
     }
   } else {
 #pragma unroll
@@ -283,7 +303,7 @@ __global__ void __launch_bounds__(kThreads) bin_ranges_kernel(Args a, long long 
 }
 
 // The kernels' arguments, checked; false if they are out of range.
-inline bool make_args(const int* keys, const long long* slots, long long m_eff, long long m_pad,
+inline bool make_args(const int* keys, const int* slots, long long m_eff, long long m_pad,
                       int P, int T, int depth_bits, int tile0, long long magic, int shift,
                       const int* touched, const int* sums, const int* slot_keys,
                       long long n_slot_keys, int* sorted_gauss, int* starts, int* lens, int* cnt,

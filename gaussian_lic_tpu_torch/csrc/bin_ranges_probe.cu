@@ -16,7 +16,7 @@
 
 // The arguments of glic_bin_ranges after the variant; the variants that
 // build the histogram (all but base with touched) need zeros in cnt.
-extern "C" int glic_bin_ranges_probe(int variant, const int* keys, const long long* slots,
+extern "C" int glic_bin_ranges_probe(int variant, const int* keys, const int* slots,
                                      long long m_eff, long long m_pad, int P, int T,
                                      int depth_bits, int tile0, long long magic, int shift,
                                      const int* touched, const int* sums, const int* slot_keys,

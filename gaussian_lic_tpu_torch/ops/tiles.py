@@ -1,5 +1,6 @@
-"""Tile binning and the splat gather: kernels K8 (`bin_keys`), K9
-(`bin_ranges`) and K10 (`gather_splats`) around one stable sort.
+"""Tile binning and the splat gather: kernels K8 (`bin_keys`), K13
+(`sort_live_slots`, the stable sort), K9 (`bin_ranges`) and K10
+(`gather_splats`).
 
 The counterpart of the JAX package's `ops/tiles.py` (one `jax.jit` program
 that XLA fuses around a single `lax.sort`) and of its rasterizer's
@@ -13,27 +14,31 @@ duplicateWithKeys -> radix sort -> identifyTileRanges
     (forward.cu:151-230), are dead. Rects of more than K tiles are truncated.
   * Keys are (tile_id << depth_bits) | truncated-f32-depth, below 2^32; dead
     slots get INVALID_KEY = 0xFFFFFFFF and sort last. K8 writes them as
-    int32 with the top bit flipped (`keys_to_int32`), so `torch.sort` orders
-    them as uint32 on 32 bits (half the radix passes of int64). Slots are
-    enumerated k-major (slot id = k*P + p) and the sort is stable, so ties in
-    the truncated depth keep k-major slot order: the sorted list equals the
-    JAX package's entry for entry.
-  * K9 cuts the list at a static budget `max_total_splats`, maps each entry
-    to its Gaussian (the dead id P past the live entries), writes each
-    tile's [start, len) range where the tile id steps (the searchsorted of
-    every tile) and each Gaussian's surviving entries (K8's count where the
-    budget cuts nothing).
+    int32 with the top bit flipped (`keys_to_int32`), so an int32 sort orders
+    them as uint32 on 32 bits. Slots are enumerated k-major (slot id = k*P +
+    p) and the sort is stable, so ties in the truncated depth keep k-major
+    slot order: the sorted list equals the JAX package's entry for entry.
+    K13 sorts only the live slots, taken in slot order, with int32 slot ids
+    (a radix sort whose length, K8's live count, stays on the device): the
+    stable sort of all P*K keys holds exactly those first, then the dead
+    ones, so its list is that sort's first `num_valid` entries.
+  * K9 cuts the list at a static budget `max_total_splats` (entries past
+    the live count read as dead), maps each entry to its Gaussian (the dead
+    id P past the live entries), writes each tile's [start, len) range where
+    the tile id steps (the searchsorted of every tile) and each Gaussian's
+    surviving entries (K8's count where the budget cuts nothing).
   * K10 gathers the (M_pad, 16) splat rows the blend kernels stream.
 
 Dispatch by the tensors' device, as `ops/blend.py`: CUDA tensors launch the
-kernels (csrc/bin_keys.cu, csrc/bin_ranges.cu, csrc/gather_splats.cu) or
-raise; CPU tensors take the plain versions (`*_plain`: the PyTorch chains
-the port ran before the kernels, and `table[ids.long()]`). `LAUNCHES`
-counts kernel launches. `bin_keys_probe` launches K8's timing variants
-(`K8_VARIANTS`, off the main path; `PROBE_LAUNCHES` counts them),
-`bin_ranges_probe` K9's (`K9_VARIANTS`; `K9_PROBE_LAUNCHES`). Nothing here
-reads back to the host, so a train step that bins stays capturable in a
-CUDA graph.
+kernels (csrc/bin_keys.cu, csrc/sort_live.cu, csrc/bin_ranges.cu,
+csrc/gather_splats.cu) or raise; CPU tensors take the plain versions
+(`*_plain`: the PyTorch chains the port ran before the kernels, the
+compaction and `torch.sort`, and `table[ids.long()]`). `LAUNCHES` counts
+kernel launches (K13's six kernels count once, as "sort_live").
+`bin_keys_probe` launches K8's timing variants (`K8_VARIANTS`, off the main
+path; `PROBE_LAUNCHES` counts them), `bin_ranges_probe` K9's
+(`K9_VARIANTS`; `K9_PROBE_LAUNCHES`). Nothing here reads back to the host,
+so a train step that bins stays capturable in a CUDA graph.
 
 Everything here is bookkeeping without gradients; callers pass detached tensors.
 """
@@ -53,9 +58,17 @@ from gaussian_lic_tpu_torch.ops.projection import (
 
 INVALID_KEY = 0xFFFFFFFF
 KEY_FLIP = 1 << 31         # int32 key = uint32 key - 2^31: the top bit flipped
+DEAD_KEY = INVALID_KEY - KEY_FLIP   # INVALID_KEY in the int32 form: 2^31 - 1
 
-# Launch counts of K8, K9 and K10 (plain-version calls are not counted).
-LAUNCHES = {"bin_keys": 0, "bin_ranges": 0, "gather_splats": 0}
+# Launch counts of K8, K13, K9 and K10 (plain-version calls are not counted).
+LAUNCHES = {"bin_keys": 0, "sort_live": 0, "bin_ranges": 0, "gather_splats": 0}
+# K13's geometry (csrc/sort_live.cu): slots a compaction tile, pairs a tile
+# of a radix pass, and the int32 words of its zeroed scratch before the
+# compaction's 64-bit look-back words (kCompactTile, kSortTile,
+# kCompactStatusWord).
+SORT_LIVE_TILES = (8192, 4096)
+SORT_LIVE_ZERO_WORDS = 1032
+SORT_LIVE_BINS = 256
 # K8's timing variants (csrc/bin_keys.cuh K8Variant), off the main path, by
 # their numbers there: base is K8; rcp takes 1 / t as __frcp_rn, vecload
 # reads the table's columns 0-3 as one 16-byte load, fold keeps the sums on
@@ -334,9 +347,15 @@ def bin_keys_plain(xy, depth, conic, opacity, radius, active, grid: TileGrid, K:
 def bin_ranges_plain(sorted_keys, sorted_slots, m_eff: int, m_pad: int, P: int,
                      num_tiles: int, depth_bits: int, tile0: int = 0):
     """K9's plain version (`bin_ranges`): searchsorted over the sorted tile
-    ids, the Gaussian of every entry and a histogram of the live ones."""
+    ids, the Gaussian of every entry and a histogram of the live ones. A
+    list shorter than m_eff (the live slots alone) reads as dead past its
+    end."""
     dev = sorted_keys.device
     keys = keys_from_int32(sorted_keys[:m_eff])
+    short = m_eff - keys.shape[0]
+    if short > 0:
+        keys = torch.cat([keys, torch.full((short,), INVALID_KEY, dtype=keys.dtype, device=dev)])
+        sorted_slots = torch.cat([sorted_slots[:m_eff], sorted_slots.new_zeros(short)])
     boundaries = tile0 + torch.arange(num_tiles + 1, dtype=torch.int64, device=dev)
     edges = torch.searchsorted(keys >> depth_bits, boundaries, side="left").to(torch.int32)
     # dead entries (INVALID keys past num_valid, plus the M_pad round-up tail)
@@ -347,6 +366,17 @@ def bin_ranges_plain(sorted_keys, sorted_slots, m_eff: int, m_pad: int, P: int,
     cnt = torch.zeros(P + 1, dtype=torch.int32, device=dev).index_add_(
         0, gauss, torch.ones_like(gauss))[:P]
     return sorted_gauss, edges[:-1], edges[1:] - edges[:-1], cnt
+
+
+def sort_live_slots_plain(keys: torch.Tensor):
+    """K13's plain version (`sort_live_slots`): the live slots of K8's int32
+    keys (key != DEAD_KEY) in slot order, then the stable sort of their
+    keys. Returns (keys (n,) int32, slot ids (n,) int32, n () int32): the
+    first n entries of the stable sort of all the keys."""
+    slots = torch.nonzero(keys != DEAD_KEY).reshape(-1)
+    sorted_keys, order = torch.sort(keys[slots], stable=True)
+    return sorted_keys, slots[order].to(torch.int32), torch.tensor(
+        slots.shape[0], dtype=torch.int32, device=keys.device)
 
 
 def gather_splats_plain(table: torch.Tensor, sorted_gauss: torch.Tensor) -> torch.Tensor:
@@ -446,7 +476,7 @@ def _k9(sorted_keys, sorted_slots, m_eff: int, m_pad: int, P: int, num_tiles: in
     if not m_eff <= min(n, sorted_slots.shape[0]) or m_pad < m_eff:
         raise ValueError(f"bin_ranges: m_eff {m_eff} and m_pad {m_pad} against {n} keys")
     _check("sorted_keys", sorted_keys, (n,), torch.int32, dev)
-    _check("sorted_slots", sorted_slots, (sorted_slots.shape[0],), torch.int64, dev)
+    _check("sorted_slots", sorted_slots, (sorted_slots.shape[0],), torch.int32, dev)
     given = [v is not None for v in (slot_keys, touched, sums)]
     if any(given) and not all(given):
         raise ValueError("bin_ranges takes K8's slot_keys, touched and sums together or none")
@@ -486,15 +516,18 @@ def _k9(sorted_keys, sorted_slots, m_eff: int, m_pad: int, P: int, num_tiles: in
 def bin_ranges(sorted_keys, sorted_slots, m_eff: int, m_pad: int, P: int, num_tiles: int,
                depth_bits: int, tile0: int = 0, *, slot_keys=None, touched=None, sums=None):
     """K9 over the first `m_eff` entries of K8's keys as the stable sort left
-    them (`sorted_keys` int32, `sorted_slots` int64 slot ids k*P + p; tile
-    ids are key >> depth_bits - tile0). Returns (sorted_gauss (m_pad,) int32,
-    P for dead entries and the tail; tile_starts (num_tiles,) int32, the
-    searchsorted of each tile; tile_lens (num_tiles,) int32; cnt (P,) int32,
-    the live entries of each Gaussian). With K8's outputs for these keys,
-    `slot_keys` (K*P,) int32, `touched` (P,) and `sums` (2,), K9 takes cnt
-    as the JAX package does (touched where the live slots fit the list, else
-    the survivor compare over slot_keys): no atomics and no zeroed cnt;
-    without them (a list merged from other ranks) it counts the entries."""
+    them (`sorted_keys` int32, `sorted_slots` int32 slot ids k*P + p; tile
+    ids are key >> depth_bits - tile0). With K8's `sums`, the kernel reads
+    only the first sums[1] entries (K13's list) and takes the rest up to
+    m_eff as dead; the plain version takes a list shorter than m_eff as dead
+    past its end. Returns (sorted_gauss (m_pad,) int32, P for dead entries
+    and the tail; tile_starts (num_tiles,) int32, the searchsorted of each
+    tile; tile_lens (num_tiles,) int32; cnt (P,) int32, the live entries of
+    each Gaussian). With K8's outputs for these keys, `slot_keys` (K*P,)
+    int32, `touched` (P,) and `sums` (2,), K9 takes cnt as the JAX package
+    does (touched where the live slots fit the list, else the survivor
+    compare over slot_keys): no atomics and no zeroed cnt; without them (a
+    list merged from other ranks) it counts the entries."""
     dev = sorted_keys.device
     if dev.type == "cpu":
         return bin_ranges_plain(sorted_keys, sorted_slots, m_eff, m_pad, P, num_tiles,
@@ -525,6 +558,42 @@ def bin_ranges_probe(variant, sorted_keys, sorted_slots, m_eff: int, m_pad: int,
         raise ValueError(f"bin_ranges takes CPU or CUDA tensors, got {dev}")
     return _k9(sorted_keys, sorted_slots, m_eff, m_pad, P, num_tiles, depth_bits, tile0,
                slot_keys, touched, sums, variant)
+
+
+def _k13(keys: torch.Tensor):
+    """K13 on a CUDA tensor: a fill and six kernels, none sized by the live
+    count, and nothing read back."""
+    dev = keys.device
+    n = keys.shape[0]
+    _check("keys", keys, (n,), torch.int32, dev)
+    if n >= 1 << 31:
+        raise ValueError(f"sort_live_slots takes fewer than 2^31 slots (int32 slot ids), got {n}")
+    compact_tile, sort_tile = SORT_LIVE_TILES
+    out = torch.empty((2, n), dtype=torch.int32, device=dev)      # keys, slot ids
+    second = torch.empty((2, n), dtype=torch.int32, device=dev)   # the passes' other buffers
+    scratch = torch.zeros(SORT_LIVE_ZERO_WORDS + 2 * -(-n // compact_tile), dtype=torch.int32,
+                          device=dev)
+    words = torch.empty(-(-n // sort_tile) * SORT_LIVE_BINS, dtype=torch.int64, device=dev)
+    from gaussian_lic_tpu_torch import _build
+
+    _launch(_build.load().cdll.glic_sort_live, _ptr(keys), n, _ptr(out[0]), _ptr(out[1]),
+            _ptr(second[0]), _ptr(second[1]), _ptr(scratch), _ptr(words), _stream(dev))
+    LAUNCHES["sort_live"] += 1
+    return out[0], out[1], scratch[0]
+
+
+def sort_live_slots(keys: torch.Tensor):
+    """K13: the stable sort of the live slots of K8's (K*P,) int32 keys,
+    taken in slot order: (keys int32, slot ids int32, n () int32), whose
+    first n entries are the first n of the stable sort of all the keys.
+    CUDA tensors: the kernels, the two lists K*P long (entries from n on
+    hold whatever was there) and n on the device. CPU tensors: the plain
+    version, lists n long."""
+    if keys.device.type == "cpu":
+        return sort_live_slots_plain(keys)
+    if keys.device.type != "cuda":
+        raise ValueError(f"sort_live_slots takes CPU or CUDA tensors, got {keys.device}")
+    return _k13(keys)
 
 
 def gather_splats(table: torch.Tensor, sorted_gauss: torch.Tensor) -> torch.Tensor:
@@ -602,7 +671,7 @@ def bin_gaussians(
     The sorted list is cut at `max_total_splats` entries and padded with dead
     entries (id P) to a multiple of `align`; the padding keeps the list
     length M_pad equal to the JAX package's. K8, the stable sort of its
-    32-bit keys, and K9."""
+    32-bit keys (K13, which sorts only the live slots), and K9."""
     P = xy.shape[0]
     K = max_tiles_per_gaussian
     M = max_total_splats
@@ -615,8 +684,9 @@ def bin_gaussians(
         xy, depth, conic, opacity, radius, active, grid, K, depth_bits,
         band_ty0=band_ty0, band_n_ty=n_ty_local,
     )
-    # stable sort: ties keep slot-id (k-major) order
-    sorted_keys, sorted_slots = torch.sort(keys, stable=True)
+    # the stable sort of the live slots (ties keep slot-id, k-major, order):
+    # the first num_valid entries of the stable sort of all the slots
+    sorted_keys, sorted_slots, _ = sort_live_slots(keys)
 
     truncated, num_valid = sums[0], sums[1]
     budget_lost = torch.clamp_min(num_valid - M, 0)

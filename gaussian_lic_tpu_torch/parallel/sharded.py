@@ -182,8 +182,8 @@ def bin_gaussians_sharded(
     # this band's list (the port's K2 sums with atomics and never reads
     # them; kept for parity with bin_gaussians)
     sorted_gauss, tile_starts, tile_lens, cnt = tiles_ops.bin_ranges(
-        tiles_ops.keys_to_int32(fk), fs, m_eff, M_pad, P, tiles_per_band, depth_bits,
-        tile0=mesh.rank * tiles_per_band)
+        tiles_ops.keys_to_int32(fk), fs.to(torch.int32), m_eff, M_pad, P, tiles_per_band,
+        depth_bits, tile0=mesh.rank * tiles_per_band)
     return (sorted_gauss, tile_starts, tile_lens, cnt,
             present.sum(dtype=torch.int32), budget_lost, truncated)
 

@@ -1,5 +1,5 @@
-"""The binning kernels K8 (`bin_keys`), K9 (`bin_ranges`) and K10
-(`gather_splats`) of ops/tiles.py.
+"""The binning kernels K8 (`bin_keys`), K13 (`sort_live_slots`), K9
+(`bin_ranges`) and K10 (`gather_splats`) of ops/tiles.py.
 
 CPU: the plain versions against the JAX package (`gaussian_lic_tpu.ops.tiles`
 and the `jnp.take` of its rasterizer), exactly (integer bookkeeping and
@@ -7,14 +7,20 @@ copies of floats). Inputs are made with numpy from a seed.
   * The int32 key map keeps the uint32 order: INVALID_KEY last, and a stable
     sort of the int32 keys is the stable sort of the uint32 keys (hypothesis).
   * K8's plain keys are JAX's `compute_slot_keys_kmajor` keys, band and global.
-  * `bin_gaussians` (K8's plain keys, the stable int32 sort, K9's plain
-    ranges) equals JAX's `Binning` field for field: random scenes; leading,
+  * `bin_gaussians` (K8's plain keys, K13's plain sort of the live slots,
+    K9's plain ranges) equals JAX's `Binning` field for field: random scenes; leading,
     inner and trailing empty tiles; a budget below the live entries (K9's
     histogram `cnt` against JAX's survivor compare); m_eff == P K; every band
     of D = 2 and 4; K = 8 and 16; edge rows (NaN opacity, radius 0,
     inactive, rects clamped at every image edge and truncated by K, a
     negative depth whose key spills into the tile field).
   * K10's plain gather equals jnp.take(..., mode="fill") with the dead id P.
+  * K13's plain version (the live slots in slot order, then the stable sort)
+    is the first num_valid entries of the stable sort of all P K keys, and
+    K9's plain version reads the same list from it, at the live count and
+    at a budget cut: heavy depth ties, dead slots interleaved, all dead,
+    all live, P K not a multiple of any block; K13's geometry is the
+    kernel's.
 
 CPU, chip_smoke's helpers: the slot mask K8 evaluates and the warp-slots
 of its two designs; K8's and K9's variant numbers are the kernels'. K9's
@@ -34,6 +40,13 @@ produces (empty tiles, a budget cut, m_eff == P K, bands); `bin_gaussians`
 and the gather captured in a CUDA graph and replayed on new inputs; every
 K9 variant that claims K9's outputs on every case at the budget and at a
 cut, with K8's outputs and without; K9 in a CUDA graph replayed twice.
+K13 against its plain version at both benchmark cells' shapes (2^20 x 16;
+2^21 x 16 with a quarter of the rows dead) and the CPU cases, captured in a
+CUDA graph and replayed at other live counts; `bin_gaussians` on the card,
+with torch.sort made to raise, against the whole sort on the CPU of K8's
+keys (budget cuts included), and captured and replayed at another live
+count across a budget cut; a train step, eager and in a bundle, runs one
+K13 a K8 and no torch.sort.
 
 JAX is imported inside the tests that use it, so the card tests collect on
 a machine without it.
@@ -206,7 +219,7 @@ def case_inputs(name, seed=0):
 @pytest.mark.parametrize("name", list(CASES))
 def test_bin_gaussians_plain_is_jax_binning(name):
     """The port's binning of CPU tensors (K8 plain, the stable sort of its
-    int32 keys, K9 plain) is JAX's Binning field for field."""
+    live int32 keys, K9 plain) is JAX's Binning field for field."""
     d, grid, K, M = case_inputs(name)
     kw = dict(max_tiles_per_gaussian=K, max_total_splats=M, align=256)
     tb = ttiles.bin_gaussians(*(t(d[k]) for k in NAMES), ttiles.TileGrid(*grid), **kw)
@@ -466,6 +479,106 @@ def test_bin_ranges_with_k8_outputs_on_the_cpu(name):
         np.testing.assert_array_equal(n(plain[3]), n(touched))
 
 
+def live_keys(P, K, device, seed, *, dead_rows=0.0, tiles=1280, ties=64, interleaved=False,
+              all_dead=False, all_live=False):
+    """K8-like int32 keys of P Gaussians' K slots, k-major: a live row uses
+    its first slot, and its second in one row of five (~7.5% of K = 16
+    slots, as the benchmark's 1M-row step), each on one of `tiles` tiles
+    with one of `ties` depth keys of 21 bits (heavy ties); `dead_rows` of the
+    rows use none. `interleaved`: each slot live with probability 1/2
+    wherever it lies; `all_dead`, `all_live`: every slot."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    k = torch.arange(K, device=device)[:, None]
+    if all_dead or all_live:
+        live = torch.full((K, P), all_live, dtype=torch.bool, device=device)
+    elif interleaved:
+        live = torch.rand((K, P), generator=g, device=device) < 0.5
+    else:
+        used = 1 + (torch.rand(P, generator=g, device=device) < 0.2).long()
+        used[torch.rand(P, generator=g, device=device) < dead_rows] = 0
+        live = k < used[None]
+    tile = torch.randint(0, tiles, (K, P), generator=g, device=device)
+    depth = torch.randint(0, ties, (K, P), generator=g, device=device) * 32767 % (1 << 21)
+    keys = torch.where(live, (tile << 21) | depth, ttiles.INVALID_KEY)
+    return ttiles.keys_to_int32(keys.reshape(-1))
+
+
+SORT_CASES = {
+    # name: (P, K, live_keys' keywords)
+    "ties": (3000, 8, dict(tiles=4, ties=2)),
+    "interleaved": (5000, 8, dict(interleaved=True)),
+    "all_dead": (4096, 16, dict(all_dead=True)),
+    "all_live": (65537, 16, dict(all_live=True)),
+    "odd_size": (1237, 7, dict(dead_rows=0.3)),
+    "one_slot": (1, 1, {}),
+}
+# the benchmark cells' shapes: fastlivo's 2^20 rows, r3live_indoor's 2^21
+# with a quarter of them dead (K = 16)
+CELL_SORT_CASES = {
+    "fastlivo": (1 << 20, 16, {}),
+    "r3live_indoor": (1 << 21, 16, dict(dead_rows=0.25)),
+}
+
+
+@pytest.mark.parametrize("name", list(SORT_CASES))
+def test_sort_live_slots_plain_is_the_whole_sort(name):
+    """K13's plain version is the first num_valid entries of the stable sort
+    of all P K keys (numpy's stable argsort of the uint32 keys too), with
+    int32 keys, slot ids and count; K9's plain version gives the same
+    outputs on it and on the whole sort at the live count, at a budget cut
+    (half the live entries) and past the live count (the short list read as
+    dead there)."""
+    P, K, kw = SORT_CASES[name]
+    keys = live_keys(P, K, "cpu", seed=len(name), **kw)
+    sk, ss, count = ttiles.sort_live_slots_plain(keys)
+    whole_k, whole_s = torch.sort(keys, stable=True)
+    nv = int((keys != ttiles.DEAD_KEY).sum())
+    assert sk.dtype == ss.dtype == count.dtype == torch.int32 and int(count) == nv
+    assert sk.shape == ss.shape == (nv,)
+    assert torch.equal(sk, whole_k[:nv]) and torch.equal(ss.long(), whole_s[:nv])
+    assert bool((whole_k[nv:] == ttiles.DEAD_KEY).all())
+    np.testing.assert_array_equal(
+        n(ss), np.argsort(n(ttiles.keys_from_int32(keys)), kind="stable")[:nv])
+    for m in sorted({nv, nv // 2, min(nv + 300, P * K)} - {0}):
+        mp = -(-m // 256) * 256
+        got = ttiles.bin_ranges_plain(sk, ss, m, mp, P, 1280, 21)
+        want = ttiles.bin_ranges_plain(whole_k, whole_s.to(torch.int32), m, mp, P, 1280, 21)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), m
+    expect = {"all_dead": nv == 0, "all_live": nv == P * K, "one_slot": nv == 1,
+              "odd_size": (P * K) % 4 and 0 < nv < P * K,
+              "ties": torch.unique(sk).numel() * 100 < nv,
+              "interleaved": 0.4 < nv / (P * K) < 0.6}
+    assert expect[name]
+
+
+def test_sort_live_slots_on_the_cpu_is_the_plain_version():
+    """sort_live_slots on CPU tensors is its plain version and counts no
+    launch; on other devices it raises."""
+    keys = live_keys(1000, 16, "cpu", seed=3)
+    before = dict(ttiles.LAUNCHES)
+    got = ttiles.sort_live_slots(keys)
+    assert all(torch.equal(a, b) for a, b in zip(got, ttiles.sort_live_slots_plain(keys)))
+    assert ttiles.LAUNCHES == before
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ttiles.sort_live_slots(keys.to("meta"))
+
+
+def test_k13_geometry_is_the_kernels():
+    """ops/tiles.py's SORT_LIVE_TILES, SORT_LIVE_ZERO_WORDS and
+    SORT_LIVE_BINS are csrc/sort_live.cu's kCompactTile, kSortTile,
+    kCompactStatusWord and kBins, which size the wrapper's scratch."""
+    import os
+    import re
+
+    from torch_port_helpers import ROOT
+
+    with open(os.path.join(ROOT, "gaussian_lic_tpu_torch", "csrc", "sort_live.cu")) as f:
+        consts = dict(re.findall(r"^constexpr int (k\w+) = (\d+);", f.read(), re.M))
+    assert ttiles.SORT_LIVE_TILES == (int(consts["kCompactTile"]), int(consts["kSortTile"]))
+    assert ttiles.SORT_LIVE_ZERO_WORDS == int(consts["kCompactStatusWord"])
+    assert ttiles.SORT_LIVE_BINS == int(consts["kBins"])
+
+
 # ---------------------------------------------------------------------------
 # card: each kernel against its plain version, bit for bit
 # ---------------------------------------------------------------------------
@@ -621,11 +734,17 @@ def plain_binning(x, grid, K, M, align=256, **kw):
     bits = kw.pop("depth_bits", None) or ttiles.rank_bits_for(n_ty * g.n_tx)
     keys, touched, sums = ttiles.bin_keys_plain(*(x[k] for k in NAMES), g, K, bits,
                                                 band_ty0=kw.get("band_ty0", 0), band_n_ty=n_ty)
-    sk, ss = torch.sort(keys, stable=True)
-    P = x["xy"].shape[0]
+    return binning_of(keys, touched, sums, K, M, n_ty * g.n_tx, bits, align)
+
+
+def binning_of(keys, touched, sums, K, M, T, bits, align=256):
+    """The Binning of K8's outputs by the stable sort of all P K keys (int32
+    slot ids) and K9's plain version, on the tensors' device."""
+    sk, order = torch.sort(keys, stable=True)
+    P = touched.shape[0]
     m_eff = min(M, P * K)
-    ranges = ttiles.bin_ranges_plain(sk, ss, m_eff, -(-m_eff // align) * align, P,
-                                     n_ty * g.n_tx, bits)
+    ranges = ttiles.bin_ranges_plain(sk, order.to(torch.int32), m_eff,
+                                     -(-m_eff // align) * align, P, T, bits)
     lost = torch.clamp_min(sums[1] - M, 0)
     return ttiles.Binning(*ranges, num_valid=sums[1], overflow=sums[0] + lost,
                           budget_lost=lost, truncated=sums[0], tiles_touched=touched)
@@ -634,9 +753,9 @@ def plain_binning(x, grid, K, M, align=256, **kw):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("name", list(CASES) + ["band_2_of_4", "band_3_of_4"])
 def test_k9_k10_on_k8_lists(cuda_device, name):
-    """bin_gaussians on the card (K8, the int32 sort, K9) is the plain
-    composition on the card field for field, and K10 gathers the plain
-    rows, bit for bit; one launch of each."""
+    """bin_gaussians on the card (K8, K13, K9) is the plain composition on
+    the card field for field, and K10 gathers the plain rows, bit for bit;
+    one launch of each."""
     band = {}
     if name.startswith("band"):
         b = int(name.split("_")[1])
@@ -651,7 +770,7 @@ def test_k9_k10_on_k8_lists(cuda_device, name):
     splats = ttiles.gather_splats(x["table"], got.sorted_gauss)
     torch.cuda.synchronize()
     assert {k: ttiles.LAUNCHES[k] - before[k] for k in before} == {
-        "bin_keys": 1, "bin_ranges": 1, "gather_splats": 1}
+        "bin_keys": 1, "sort_live": 1, "bin_ranges": 1, "gather_splats": 1}
     assert_binning_equal(got, plain_binning(x, grid, K, M, **band))
     assert torch.equal(splats, ttiles.gather_splats_plain(x["table"], got.sorted_gauss))
     assert torch.equal(splats, x["table"].index_select(0, got.sorted_gauss))
@@ -674,11 +793,18 @@ def test_k10_edge_ids(cuda_device):
 def test_binning_and_gather_in_a_cuda_graph(cuda_device):
     """bin_gaussians and the gather captured in one CUDA graph and replayed
     on a second scene copied into the captured inputs equal the eager
-    kernels on that scene."""
-    grid, K, M = (256, 128, 32, 32), 8, 2000
+    kernels on that scene: another live count (K13's length, read on the
+    device), with the budget between the two scenes' counts, so one of the
+    two lists is cut; then replayed on the first scene again."""
+    grid, K = (256, 128, 32, 32), 8
     g = ttiles.TileGrid(*grid)
     x = on(cuda_device, scene(np.random.default_rng(1), 1000))
     y = on(cuda_device, scene(np.random.default_rng(2), 1000))
+    x0 = {k: v.clone() for k, v in x.items()}
+    counts = [int(ttiles.bin_keys(*(s[k] for k in NAMES), g, K,
+                                  ttiles.rank_bits_for(g.num_tiles))[2][1]) for s in (x, y)]
+    assert counts[0] != counts[1]
+    M = sum(counts) // 2
 
     def run(s):
         b = ttiles.bin_gaussians(*(s[k] for k in NAMES), g, max_tiles_per_gaussian=K,
@@ -701,18 +827,141 @@ def test_binning_and_gather_in_a_cuda_graph(cuda_device):
     assert_binning_equal(b_static, b_eager)
     assert torch.equal(splats_static, splats_eager)
     assert not torch.equal(first, b_eager.sorted_gauss)   # the replay binned the new scene
+    assert int(b_static.num_valid) == counts[1]
+    assert (int(b_static.budget_lost) > 0) == (counts[1] > M)
+    for k in ("table", "depth", "opacity", "radius", "active"):
+        x[k].copy_(x0[k])
+    graph.replay()
+    torch.cuda.synchronize()
+    b_eager, splats_eager = run(x)
+    assert_binning_equal(b_static, b_eager)
+    assert torch.equal(splats_static, splats_eager)
+    assert int(b_static.num_valid) == counts[0]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", list(CELL_SORT_CASES) + list(SORT_CASES))
+def test_k13_is_its_plain_version(cuda_device, name):
+    """K13 on the card equals sort_live_slots_plain bit for bit (the first
+    count entries of its K*P-long lists, and the count on the device), at
+    both benchmark cells' shapes and the CPU cases, twice in a row (fresh
+    scratch each call); one launch counted a call. At the cells' shapes
+    about 5-8% of the slots are live."""
+    P, K, kw = {**CELL_SORT_CASES, **SORT_CASES}[name]
+    keys = live_keys(P, K, cuda_device, seed=len(name), **kw)
+    want_k, want_s, want_n = ttiles.sort_live_slots_plain(keys)
+    nv = int(want_n)
+    for _ in range(2):
+        before = ttiles.LAUNCHES["sort_live"]
+        sk, ss, count = ttiles.sort_live_slots(keys)
+        torch.cuda.synchronize()
+        assert ttiles.LAUNCHES["sort_live"] == before + 1
+        assert sk.shape == ss.shape == (P * K,) and count.shape == ()
+        assert sk.dtype == ss.dtype == count.dtype == torch.int32
+        assert int(count) == nv
+        assert torch.equal(sk[:nv], want_k) and torch.equal(ss[:nv], want_s)
+    if name in CELL_SORT_CASES:
+        assert 0.04 < nv / (P * K) < 0.08
+
+
+@pytest.mark.requires_cuda
+def test_k13_graph_replays_at_other_live_counts(cuda_device):
+    """K13 captured in a CUDA graph on one list of keys and replayed on
+    others copied into the captured input (fewer live slots, more, none,
+    all): each replay equals the plain version on those keys, the count
+    included; the launch is the same at every replay."""
+    P, K = 20000, 16
+    lists = [live_keys(P, K, cuda_device, seed=1),
+             live_keys(P, K, cuda_device, seed=2, dead_rows=0.6),
+             live_keys(P, K, cuda_device, seed=3, interleaved=True),
+             live_keys(P, K, cuda_device, seed=4, all_dead=True),
+             live_keys(P, K, cuda_device, seed=5, all_live=True)]
+    keys = lists[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ttiles.sort_live_slots(keys)   # loads the kernels outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sk, ss, count = ttiles.sort_live_slots(keys)
+    seen = set()
+    for new in lists[1:] + lists[:1]:
+        keys.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_k, want_s, want_n = ttiles.sort_live_slots_plain(new)
+        nv = int(want_n)
+        seen.add(nv)
+        assert int(count) == nv
+        assert torch.equal(sk[:nv], want_k) and torch.equal(ss[:nv], want_s)
+    assert len(seen) == len(lists) and 0 in seen and P * K in seen
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", list(CASES))
+def test_bin_gaussians_on_the_card_is_the_whole_sort(cuda_device, name, monkeypatch):
+    """bin_gaussians on the card (K8, K13, K9) with torch.sort made to raise
+    equals, field for field, the stable sort of all P K keys (int32 slot
+    ids) and K9's plain version run on the CPU on the card's K8 outputs:
+    with and without a budget cut, m_eff == P K, and empty tiles."""
+    d, grid, K, M = case_inputs(name)
+    x = on(cuda_device, d)
+    g = ttiles.TileGrid(*grid)
+    bits = ttiles.rank_bits_for(g.num_tiles)
+    k8 = ttiles.bin_keys(*(x[k] for k in NAMES), g, K, bits, band_n_ty=g.n_ty)
+
+    def no_sort(*args, **kwargs):
+        raise AssertionError("torch.sort on the card's binning path")
+
+    monkeypatch.setattr(torch, "sort", no_sort)
+    got = ttiles.bin_gaussians(*(x[k] for k in NAMES), g, max_tiles_per_gaussian=K,
+                               max_total_splats=M)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    want = binning_of(*(a.cpu() for a in k8), K, M, g.num_tiles, bits)
+    assert_binning_equal(got, want)
+    assert (int(want.budget_lost) > 0) == name.startswith("overflow")
+
+
+@pytest.mark.requires_cuda
+def test_train_step_sorts_the_live_slots(cuda_device, monkeypatch):
+    """A train step on the card, eagerly and as a 2-step bundle (a CUDA
+    graph), runs one K13 a K8 (LAUNCHES["sort_live"] == LAUNCHES["bin_keys"])
+    and no torch.sort (made to raise)."""
+    from gaussian_lic_tpu_torch.config import Params
+    from gaussian_lic_tpu_torch.engine import trainer
+    from gaussian_lic_tpu_torch.utils.synthetic import make_bench_state
+
+    cfg = Params(width=64, height=64, fx=40.0, fy=40.0, cx=32.0, cy=32.0,
+                 skybox_points_num=0, initial_capacity=2048, max_tiles_per_gaussian=16)
+    intr, gm, kf, opt = make_bench_state(cfg, 2000, cuda_device)
+
+    def no_sort(*args, **kwargs):
+        raise AssertionError("torch.sort in the train step")
+
+    monkeypatch.setattr(torch, "sort", no_sort)
+    ttiles.reset_launches()
+    gm, opt, _ = trainer.train_step(gm, opt, kf, 0, 1, intr=intr, cfg=cfg)
+    torch.cuda.synchronize()
+    assert ttiles.LAUNCHES["sort_live"] == ttiles.LAUNCHES["bin_keys"] == 1
+    bundle = trainer._make_train_bundle(intr, cfg, 2, trainer.BundleGraphs())
+    ttiles.reset_launches()
+    bundle(gm, opt, kf, torch.tensor([1, 0], device=cuda_device), 2)
+    torch.cuda.synchronize()
+    assert ttiles.LAUNCHES["sort_live"] == ttiles.LAUNCHES["bin_keys"] == 2
 
 
 def k9_lists(dev, name):
     """K8's outputs on the card for case `name` and the stable sort of its
-    keys: (keys, touched, sums, sorted keys, sorted slots, P, T, bits, M)."""
+    keys: (keys, touched, sums, sorted keys, int32 slot ids, P, T, bits, M)."""
     d, grid, K, M = case_inputs(name)
     g = ttiles.TileGrid(*grid)
     bits = ttiles.rank_bits_for(g.num_tiles)
     x = on(dev, d)
     keys, touched, sums = ttiles.bin_keys(*(x[k] for k in NAMES), g, K, bits, band_n_ty=g.n_ty)
     sk, ss = torch.sort(keys, stable=True)
-    return keys, touched, sums, sk, ss, x["xy"].shape[0], g.num_tiles, bits, M
+    return keys, touched, sums, sk, ss.to(torch.int32), x["xy"].shape[0], g.num_tiles, bits, M
 
 
 @pytest.mark.requires_cuda

@@ -217,11 +217,11 @@ def test_k6_occupancy_needs_the_card_and_finds_its_bounds(monkeypatch, capsys):
 
 
 def test_ab_train_step_reads_every_kernel_of_the_step():
-    """A --kernels run prints K1, K2, K5, K6, K7, K8, K9, K10, K11 and K12,
-    and K5f and K6f (K5 and K6 with the activations); the tool reads them in
-    the order printed and pairs each with its name (a checkout before K8-K12
-    prints the first five), its child times each of them, and K8-K12 in a
-    CUDA graph of 20 calls (chip_smoke.graph_ms), not eagerly."""
+    """A --kernels run prints K1, K2, K5, K6, K7, K8, K13, K9, K10, K11 and
+    K12, and K5f and K6f (K5 and K6 with the activations); the tool reads
+    them in the order printed and pairs each with its name (a checkout
+    before K8-K12 prints the first five), its child times each of them, and
+    K8-K13 in a CUDA graph of 20 calls (chip_smoke.graph_ms), not eagerly."""
     ab = tool("ab_train_step")
     line = ("[ab] NVIDIA H100 80GB HBM3, 700.00 W: K1 0.6921 ms  K2 1.1694 ms  K5 0.1571 ms  "
             "K6 0.2006 ms  K7 0.5943 ms")
@@ -230,14 +230,14 @@ def test_ab_train_step_reads_every_kernel_of_the_step():
     assert ab._readings(line + "  K8 0.0440 ms  K9 0.0223 ms  K10 0.0768 ms  K11 0.0400 ms  "
                         "K12 0.0300 ms\n", kernels=True) == (
         0.6921, 1.1694, 0.1571, 0.2006, 0.5943, 0.044, 0.0223, 0.0768, 0.04, 0.03)
-    assert ab.KERNELS == ("K1", "K2", "K5", "K6", "K7", "K8", "K9", "K10", "K11", "K12",
-                          "K5f", "K6f")
+    assert ab.KERNELS == ("K1", "K2", "K5", "K6", "K7", "K8", "K13", "K9", "K10", "K11",
+                          "K12", "K5f", "K6f")
     # K5 and K6 with the activations (the parent's ops around them, or the fold)
     assert ab._readings(line + "  K5f 0.1500 ms  K6f 0.1950 ms\n", kernels=True)[-2:] == (
         0.15, 0.195)
     for k in ab.KERNELS:
         assert f'ms["{k}"]' in ab._KERNELS or f'"{k}":' in ab._KERNELS
-    for k in ("K8", "K9", "K10", "K11", "K12"):
+    for k in ("K8", "K13", "K9", "K10", "K11", "K12"):
         assert f'ms["{k}"] = cs.graph_ms(' in ab._KERNELS
 
 
@@ -257,3 +257,22 @@ def test_profile_owners_of_the_loss_kernels(kernel, owner):
     instantiations of K11) their owners, and PyTorch's elementwise kernels
     stay elementwise."""
     assert tool("profile_torch_step").owner(kernel) == owner
+
+
+@pytest.mark.parametrize("kernel", [
+    "glic_k13::radix_compact_live_kernel(int const*, long long, int*, int*, int*, unsigned "
+    "long long*)",
+    "glic_k13::radix_histogram_kernel(int const*, int*)",
+    "glic_k13::radix_onesweep_kernel(int const*, int const*, int*, int*, int*, unsigned long "
+    "long*, int)",
+])
+def test_owners_of_the_live_sort_kernels(kernel):
+    """K13's three kernels are the binning's sort in tools/profile_torch_step.py's
+    owner table and in the benchmark's frozen copy of it (their names hold
+    `radix`, as torch.sort's kernels did), never "other"."""
+    path = os.path.join(ROOT, "benchmark", "harness", "owners.py")
+    spec = importlib.util.spec_from_file_location("bench_owners", path)
+    owners = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(owners)
+    assert owners.owner(kernel) == "sort" and "sort" in owners.STAGES["binning"]
+    assert tool("profile_torch_step").owner(kernel) == "sort"

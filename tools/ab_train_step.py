@@ -17,7 +17,8 @@ bundles and eager (each the mean of the run's two turns). With
 arguments of that train step (`step_scene`): K1 and K2 on its splat list,
 K5 and K6 on its parameters and camera (K6 on K2's (P, 9) output), K7 on
 the six groups with K6's gradients and zero moments (CUDA events, 50
-launches each after a warm-up); K8 on K5's output, K9 on the stable sort
+launches each after a warm-up); K8 on K5's output, K13 on K8's keys (the
+sort of a checkout before K13: `torch.sort`), K9 on the stable sort
 of K8's keys (with K8's keys, touched and sums where the checkout's
 `bin_ranges` takes them, as `bin_gaussians` passes them), K10 on K9's
 list, K11 and K12 on K1's image and the keyframe's, each 20 calls in a
@@ -117,6 +118,11 @@ if hasattr(tiles, "bin_keys"):   # K8, K9 and K10 (a checkout before them has no
              0, g.n_ty)
     k8 = tiles.bin_keys(*kargs)
     sk, ss = torch.sort(k8[0], stable=True)
+    if hasattr(tiles, "sort_live_slots"):   # K13; its K9 takes int32 slot ids
+        ss = ss.to(torch.int32)
+        ms["K13"] = cs.graph_ms(lambda: tiles.sort_live_slots(k8[0]))
+    else:   # the sort of a checkout before K13
+        ms["K13"] = cs.graph_ms(lambda: torch.sort(k8[0], stable=True))
     m_eff = min(M, P * K)
     m_pad = -(-m_eff // CHUNK) * CHUNK
     # K8's outputs, as bin_gaussians passes them, where this checkout's K9
@@ -138,7 +144,7 @@ if hasattr(losses, "ssim_forward"):   # K11 and K12 (a checkout before them has 
     ms["K12"] = cs.graph_ms(lambda: losses.ssim_backward(img, gt, maps, d_sums))
 print(f"[ab] {card_line()}: " + "  ".join(f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
 """
-KERNELS = ("K1", "K2", "K5", "K6", "K7", "K8", "K9", "K10", "K11", "K12", "K5f", "K6f")
+KERNELS = ("K1", "K2", "K5", "K6", "K7", "K8", "K13", "K9", "K10", "K11", "K12", "K5f", "K6f")
 
 
 def main(argv=None) -> int:

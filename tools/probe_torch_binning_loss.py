@@ -119,6 +119,7 @@ def main(argv=None) -> int:
 
     k8 = tiles.bin_keys(*args)
     sk, ss = torch.sort(k8[0], stable=True)
+    ss = ss.to(torch.int32)   # K9's slot ids
     m_eff = min(sc["bin_kw"]["max_total_splats"], P * K)
     m_pad = -(-m_eff // CHUNK) * CHUNK
     k9kw = dict(slot_keys=k8[0], touched=k8[1], sums=k8[2])
