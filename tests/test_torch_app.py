@@ -125,7 +125,8 @@ class TestCli:
                                   "--checkpoint", str(tmp_path / "c2.npz")]) == 0
         text = capsys.readouterr().out
         assert f"resumed from {ckpt}: {int(gm.count)} gaussians" in text
-        assert "aligner: none" in text
+        assert "aligner: none" in text and "===== runtime stats" in text
+        assert "[frame" not in text
         gm2, _, _ = checkpoint.load_checkpoint(str(tmp_path / "c2.npz"), device="cpu")
         assert int(gm2.count) >= int(gm.count)
 
@@ -202,3 +203,35 @@ class TestWatchdog:
         monkeypatch.setattr(run, "Watchdog", lambda: Watchdog(timeout=0.05))
         eng = _StubEngine()
         assert run.run_stream(eng, _frames(6, gap_after=3, gap_s=0.3), verbose=False)["frames"] == 3
+
+
+class TestQuietStream:
+    def test_verbose_false_writes_nothing_and_returns_the_stats(self, capsys):
+        """A demo stream with `verbose=False` writes nothing to stdout (the
+        aligner's kind and the runtime stats are the CLI's to print); the
+        stats come back instead."""
+        from gaussian_lic_tpu_torch.config import load_params
+
+        cfg = load_params(width=128, height=64, fx=60.0, fy=60.0, cx=64.0, cy=32.0,
+                          skybox_points_num=0, initial_capacity=1 << 12, densify_budget=1 << 10,
+                          max_train_keyframes=64, max_iters_per_keyframe=1)
+        frames = list(run._demo_frames(cfg, 10))
+        eng = MappingEngine(cfg, device="cpu")
+        capsys.readouterr()
+        stats = run.run_stream(eng, frames, use_aligner=True, verbose=False)
+        assert capsys.readouterr().out == ""
+        t = eng.timers
+        assert stats == {"frames": 10, "wall_s": stats["wall_s"], "watchdog": False,
+                         "keyframes": 2, "frames_s": 10 / stats["wall_s"],
+                         "optimize_s": t.optimize_steps, "adding_s": t.adding,
+                         "extending_s": t.extending, "compiles": t.compiles}
+        assert eng.kf_count == 2 and t.extending > 0 and t.compiles > 0
+
+    def test_quiet_cli_prints_the_aligner_and_the_stats(self, capsys):
+        """`--quiet` drops the line a keyframe; the CLI still prints the
+        aligner's kind and the runtime stats `run_stream` returns."""
+        assert run.main(["--demo", "--device", "cpu", "--demo-frames", "5", "--max-iters", "1",
+                         "--quiet"]) == 0
+        text = capsys.readouterr().out
+        assert "[stream] aligner: native" in text and "[frame" not in text
+        assert "===== runtime stats" in text and "frames processed      : 5" in text
