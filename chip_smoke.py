@@ -903,6 +903,10 @@ def check_preprocess(sc: dict, tag: str, f64: bool) -> dict:
         f"({int(visible.sum())} of {P} rows visible)")
     if not same:
         raise AssertionError(f"{tag}: K7 differs from the plain loop")
+    in_place = adam_in_place(params, grads, states, visible, lrs, k7, P, tag)
+    if P >= 1 << 20:   # the train step: also as the stream's map, 1.1M live in 2,097,152 rows
+        wide = adam_at_rows(params, grads, states, visible, lrs, STREAM_ROWS, STREAM_LIVE, tag)
+        in_place.update({f"{k}_2m": v for k, v in wide.items()})
 
     nbytes = preprocess_bytes(P, x["sh_rest"].shape[1])
     res = {
@@ -928,7 +932,78 @@ def check_preprocess(sc: dict, tag: str, f64: bool) -> dict:
     log(f"[2c] {tag} K6 variants: " + "  ".join(
         f"{v} {ms:.4f} ms ({ms - base:+.4f})" for v, ms in variants.items())
         + f"; K6 itself {res['preprocess_backward'][1]:.4f} ms")
+    res["sparse_adam_in_place"] = in_place
     return res
+
+
+STREAM_ROWS, STREAM_LIVE = 2_097_152, 1_100_000   # fastlivo.stream's map
+
+
+def adam_in_place(params, grads, states, visible, lrs, want, live: int, tag: str) -> dict:
+    """K7's in-place form (`sparse_adam_update_groups_`, the bundles' step)
+    on copies of the groups, the first `live` rows below the count: the
+    visible rows bit for bit the out-of-place `want`, every other row's bits
+    kept. Then both forms timed in CUDA graphs in turns (in place, out of
+    place, out of place, in place; 20 calls each), and the in-place form's
+    bound: 28 B an element of the visible rows and a mask byte a row below
+    the count."""
+    import torch
+
+    from gaussian_lic_tpu_torch.ops import adam
+
+    count = torch.tensor(live, dtype=torch.int32, device=visible.device)
+    p2 = {n: t.clone() for n, t in params.items()}
+    s2 = {n: adam.AdamState(st.exp_avg.clone(), st.exp_avg_sq.clone())
+          for n, st in states.items()}
+    adam.sparse_adam_update_groups_(p2, grads, s2, visible, lrs, count=count)
+    hidden = ~visible
+    same = all(bit_equal(a[visible], w[visible]) and bit_equal(a[hidden], b[hidden])
+               for n in params
+               for a, w, b in ((p2[n], want[0][n], params[n]),
+                               (s2[n].exp_avg, want[1][n].exp_avg, states[n].exp_avg),
+                               (s2[n].exp_avg_sq, want[1][n].exp_avg_sq, states[n].exp_avg_sq)))
+    P, vis = visible.shape[0], int(visible.sum())
+    log(f"[2c] {tag} K7 in place: {'bit for bit' if same else 'DIFFERS from'} the out-of-place "
+        f"form on the {vis} visible rows, the other rows {'kept' if same else 'or CHANGED'} "
+        f"({live} live of {P} rows)")
+    if not same:
+        raise AssertionError(f"{tag}: K7 in place differs")
+    forms = {"in_place": lambda: adam.sparse_adam_update_groups_(p2, grads, s2, visible, lrs,
+                                                                 count=count),
+             "out_of_place": lambda: adam.sparse_adam_update_groups(params, grads, states,
+                                                                    visible, lrs)}
+    ms = {k: [] for k in forms}
+    for k in ("in_place", "out_of_place", "out_of_place", "in_place"):
+        ms[k].append(graph_ms(forms[k]))
+    floats = sum(t.numel() for t in params.values()) // P
+    nbytes = vis * 28 * floats + live
+    out = dict(in_place_ms=sum(ms["in_place"]) / 2, out_of_place_ms=sum(ms["out_of_place"]) / 2,
+               in_place_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, visible_rows=vis,
+               live_rows=live, rows=P)
+    log(f"[2c] {tag} K7 time in CUDA graphs, in turns: in place {ms['in_place']} ms, out of "
+        f"place {ms['out_of_place']} ms; in-place bound {out['in_place_bound_ms']:.4f} ms "
+        f"({nbytes} bytes: the visible rows), "
+        f"{out['in_place_bound_ms'] / out['in_place_ms']:.1%} of it")
+    return out
+
+
+def adam_at_rows(params, grads, states, visible, lrs, rows: int, live: int, tag: str) -> dict:
+    """`adam_in_place` on the groups tiled to `rows` rows, the visible mask
+    tiled alike and cleared at and past `live` (a map of `live` Gaussians in
+    the rows the engine's doubling leaves)."""
+    from gaussian_lic_tpu_torch.ops import adam
+
+    reps = -(-rows // visible.shape[0])
+
+    def tile(t):
+        return t.repeat((reps,) + (1,) * (t.dim() - 1))[:rows].contiguous()
+
+    p2, g2 = {n: tile(t) for n, t in params.items()}, {n: tile(t) for n, t in grads.items()}
+    s2 = {n: adam.AdamState(tile(st.exp_avg), tile(st.exp_avg_sq)) for n, st in states.items()}
+    v2 = tile(visible)
+    v2[live:] = False
+    want = adam.sparse_adam_update_groups(p2, g2, s2, v2, lrs)
+    return adam_in_place(p2, g2, s2, v2, lrs, want, live, f"{tag} at {rows} rows")
 
 
 def parent_activation_backward(quat, saved, d_act):
@@ -1146,6 +1221,8 @@ def phase_preprocess(scenes) -> list:
                         bound_by="bytes", library_ms=None))
         if parent:
             out[-1]["parent_ms"] = parent[0]
+        if name == "sparse_adam":
+            out[-1].update(step["sparse_adam_in_place"])
         log(f"[2c] {name}: {ms:.4f} ms against a bound of {out[-1]['bound_ms']:.4f} ms "
             f"(bytes), plain {plain_ms:.4f} ms"
             + (f", the parent's path {parent[0]:.4f} ms" if parent else ""))

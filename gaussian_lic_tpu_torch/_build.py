@@ -50,8 +50,9 @@ _SIGNATURES = {
     # variant, then glic_preprocess_backward's arguments
     "glic_preprocess_probe_backward": (_I,) + (_VP,) * 11 + (_LL, _LL, _I, _I, _I) + (_F,) * 8
                                       + (_VP,) * 7,
-    # groups, n_groups, total, visible, b1, 1 - b1, b2, 1 - b2, eps, stream
-    "glic_sparse_adam": (_VP, _I, _LL, _VP) + (_F,) * 5 + (_VP,),
+    # groups, n_groups, rows, visible, count (or null), b1, 1 - b1, b2, 1 - b2, eps,
+    # stream
+    "glic_sparse_adam": (_VP, _I, _LL, _VP, _VP) + (_F,) * 5 + (_VP,),
     # xy, xy_stride, conic, conic_stride, depth, dkey, opacity, radius, active,
     # P, K, depth_bits, n_tx, n_ty, tile_w, tile_h, band_ty0, band_n_ty,
     # opacity threshold, keys, touched, sums, stream

@@ -6,7 +6,8 @@ thread, mapping.cpp:124-200, and gaussian.cpp:499-719):
   * `train_step` — render (tiled rasterizer, CUDA blend kernels on the card)
     -> 0.8*L1 + 0.2*(1-SSIM) (gaussian.cpp:691), plus the erank term when
     `lambda_erank > 0` -> autograd backward -> visibility-masked sparse Adam
-    on all six groups (optim_utils.h; K7, one launch, on the card).
+    on all six groups (optim_utils.h; K7, one launch, on the card; in place
+    at the visible rows inside a bundle's CUDA graph).
   * `extend_step` — densification (extend, gaussian.cpp:499-638): alpha-only
     render of the newest keyframe, project the accumulated LiDAR points,
     per-pixel min-depth dedup on the device with two stable sorts, filter
@@ -112,12 +113,16 @@ def train_step(
     intr: Intrinsics,
     cfg: Params,
     with_grads: bool = False,
+    in_place: bool = False,
 ):
     """One train step on keyframe `idx` -> (gm', opt', metrics). Metrics are
     device tensors (no host sync): loss, n_visible, overflow, budget_lost,
     truncated, and with `with_grads` the raw pre-Adam gradients. `idx` and
     `exp_step` may be 0-d device tensors (a CUDA graph's step); the step
-    reads the host for nothing and writes none of its inputs."""
+    reads the host for nothing and writes none of its inputs. With
+    `in_place` (`_make_train_bundle`'s CUDA graphs, which own their state)
+    sparse Adam updates gm's six groups and their moments in place at the
+    visible rows, and gm' and opt' hold those same tensors."""
     lrs = LearningRates.from_params(cfg)
     cam = kf.camera(intr, idx)
     gt = kf.image(idx).float() / 255.0
@@ -146,10 +151,16 @@ def train_step(
         opacity=lrs.opacity, log_scale=lrs.log_scale, quat=lrs.quat,
     )
     with torch.no_grad():
-        new_trainable, new_opt = adam_ops.sparse_adam_update_groups(
-            {name: trainable[name].detach() for name in PARAM_GROUPS}, grads,
-            {name: opt_state[name] for name in PARAM_GROUPS}, visible, lr_map)
-        gm_new = gm.with_trainable(new_trainable)
+        states = {name: opt_state[name] for name in PARAM_GROUPS}
+        if in_place:
+            adam_ops.sparse_adam_update_groups_(gm.trainable(), grads, states, visible, lr_map,
+                                                count=gm.count)
+            gm_new, new_opt = gm, states
+        else:
+            new_trainable, new_opt = adam_ops.sparse_adam_update_groups(
+                {name: trainable[name].detach() for name in PARAM_GROUPS}, grads, states,
+                visible, lr_map)
+            gm_new = gm.with_trainable(new_trainable)
         if cfg.apply_exposure:
             exp_p, exp_st = adam_ops.dense_adam_update(
                 gm.exposure, grads["exposure"], opt_state["exposure"],
@@ -222,17 +233,20 @@ class BundleGraphs:
     exposure step; every k-step graph of one static shape is captured
     against it and shares one memory pool, and has its own static (k,)
     keyframe ids. Step i of a graph reads ids[i] and es0 + i, and the graph
-    ends by copying its last step's map and moments back into the set, so
-    the state returned after a replay IS the set and the next bundle starts
-    from it with nothing copied. A state that is not the set (after an
-    extend, a growth or a checkpoint load) is copied in first; a new shape,
-    keyframe buffer or config (its splat budget, its sizes) drops the
-    graphs and makes a new set, since all of them are baked in.
+    ends by copying into the set each tensor of its last step's map and
+    moments that is not the set's own: none for `_make_train_bundle`'s step,
+    which updates the set in place, all of them for a step that writes
+    fresh tensors (the sharded step). So the state returned after a replay
+    IS the set and the next bundle starts from it with nothing copied. A
+    state that is not the set (after an extend, a growth or a checkpoint
+    load) is copied in first; a new shape, keyframe buffer or config (its
+    splat budget, its sizes) drops the graphs and makes a new set, since
+    all of them are baked in.
 
     Before the first capture of a set, one step runs eagerly on a side
     stream (a warm-up: it loads the kernels and starts autograd's device
-    thread, which a capture must not do); train_step writes none of its
-    inputs and its outputs are dropped, so the set does not advance.
+    thread, which a capture must not do), on a clone of the set that is
+    then dropped, so the set does not advance.
     The kernels' counters (`KERNEL_LAUNCHES`: K1/K2, K5/K6, K7, K8-K10,
     K11/K12) count the launches whose results the run uses: each graph records the launches
     of its capture (which executes nothing) and adds them at every replay;
@@ -315,19 +329,29 @@ class BundleGraphs:
                 {name: adam_ops.AdamState(S[f"m_{name}"], S[f"v_{name}"])
                  for name in opt_state})
 
+    def _warm_up(self, step: Step, gm_s: GaussianMap, opt_s: dict, kf: KeyframeBuffer,
+                 ids: torch.Tensor) -> None:
+        """One step on a side stream from a clone of the set, dropped after."""
+        dev = gm_s.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side), blend.launches_apart(*KERNEL_LAUNCHES) as warm:
+            gm_w = gm_s.replace(**{f: getattr(gm_s, f).clone() for f in MAP_FIELDS})
+            opt_w = {name: adam_ops.AdamState(st.exp_avg.clone(), st.exp_avg_sq.clone())
+                     for name, st in opt_s.items()}
+            _run_steps(step, gm_w, opt_w, kf, ids, self.state["es0"])
+            del gm_w, opt_w
+        torch.cuda.current_stream(dev).wait_stream(side)
+        for name, n in warm.items():
+            self.warmup_launches[name] += n
+
     def _capture(self, step: Step, k: int, gm: GaussianMap, opt_state: dict,
                  kf: KeyframeBuffer) -> None:
         gm_s, opt_s = self._static(gm, opt_state)
         dev = gm.device
         ids = torch.zeros(k, dtype=torch.int64, device=dev)
         if not self.captured:
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side), blend.launches_apart(*KERNEL_LAUNCHES) as warm:
-                _run_steps(step, gm_s, opt_s, kf, ids[:1], self.state["es0"])
-            torch.cuda.current_stream(dev).wait_stream(side)
-            for name, n in warm.items():
-                self.warmup_launches[name] += n
+            self._warm_up(step, gm_s, opt_s, kf, ids[:1])
         # A CUDA graph destroyed while another is being captured invalidates
         # the capture, and the collector may reach a dead reference cycle
         # that holds one (an engine dropped earlier) at any allocation:
@@ -359,19 +383,22 @@ class BundleGraphs:
 
 
 def _bundle_of(step: Step, cfg: Params, k: int, graphs: Optional[BundleGraphs] = None,
-               mesh=None):
+               mesh=None, graph_step: Optional[Step] = None):
     """The k steps of `step` (made at `cfg`; the sharded step when `mesh` is
     given) as one dispatch: (gm, opt, kf, idxs (k,), es0) -> (gm', opt',
     metrics), step i on keyframe idxs[i] with exposure step es0 + i, metrics
     aggregated over the bundle as `_bundle_metrics` says.
 
     Dispatch by the state's device, as the kernel wrappers do: CUDA tensors
-    run one CUDA graph of the k steps, captured on the first call against
+    run one CUDA graph of the k steps of `graph_step` (`step` when None; it
+    may update the graphs' set in place), captured on the first call against
     the static tensors of `graphs` (shared by an engine's bundles; a
-    private set when None) and replayed; CPU tensors run the k eager steps,
-    which give the same floats as k calls of `step`. A mesh whose group
-    cannot be captured (gloo) raises on CUDA tensors."""
+    private set when None) and replayed; CPU tensors run the k eager steps
+    of `step`, which give the same floats as k calls of it and write none
+    of the caller's tensors. A mesh whose group cannot be captured (gloo)
+    raises on CUDA tensors."""
     graphs = BundleGraphs() if graphs is None else graphs
+    graph_step = step if graph_step is None else graph_step
 
     def train_bundle(gm: GaussianMap, opt_state: dict, kf: KeyframeBuffer, idxs, es0):
         if len(idxs) != k:
@@ -386,7 +413,7 @@ def _bundle_of(step: Step, cfg: Params, k: int, graphs: Optional[BundleGraphs] =
             if "nccl" not in backend:
                 raise ValueError(f"a CUDA graph cannot capture the collectives of a {backend} "
                                  "process group: run CUDA tensors on an NCCL group")
-        return graphs.run(step, cfg, k, gm, opt_state, kf, idxs, es0, mesh=mesh)
+        return graphs.run(graph_step, cfg, k, gm, opt_state, kf, idxs, es0, mesh=mesh)
 
     return train_bundle
 
@@ -394,8 +421,10 @@ def _bundle_of(step: Step, cfg: Params, k: int, graphs: Optional[BundleGraphs] =
 def _make_train_bundle(intr: Intrinsics, cfg: Params, k: int,
                        graphs: Optional[BundleGraphs] = None):
     """k train steps as one dispatch, the JAX package's `_make_train_bundle`
-    (`_bundle_of` of `train_step`)."""
-    return _bundle_of(functools.partial(train_step, intr=intr, cfg=cfg), cfg, k, graphs)
+    (`_bundle_of` of `train_step`; in its CUDA graphs, which own their set,
+    the step that updates the set in place)."""
+    step = functools.partial(train_step, intr=intr, cfg=cfg)
+    return _bundle_of(step, cfg, k, graphs, graph_step=functools.partial(step, in_place=True))
 
 
 @torch.no_grad()
@@ -713,6 +742,9 @@ class MappingEngine:
             ]))
             loss = trace.sync("fetch", float, metrics["loss"])
             updated, max_budget_lost, max_truncated, n_visible = stats
+            # the rows sparse Adam updated against the rows the map holds
+            trace.count("adam.updated_rows", updated)
+            trace.count("adam.rows", len(opt_list) * self.gm.capacity)
             self.last_metrics = {
                 "loss": loss,
                 "n_visible": float(n_visible),

@@ -9,13 +9,17 @@ Parity with adamUpdateCUDA (adam.cu:9-38) / SparseGaussianAdam
 `sparse_adam_update_groups` is kernel K7 (csrc/sparse_adam.cu), the
 counterpart of the JAX package's `sparse_adam_update` over the six groups of
 a train step, which XLA fuses on the TPU: on CUDA tensors one launch
-updates every group, one thread per element, from a table of group
-descriptors (its row is element // width); on CPU tensors it is the loop of
-`sparse_adam_update` over the groups. Each element reads p, g, m, v and its
-row's mask and writes p', m', v' (28 B; ~0.52 ms at 2^20 Gaussians of 59
-floats on an H100): memory bound. The kernel rounds as PyTorch's ops do,
-one float32 rounding each in the plain version's order, so it gives the
-plain version's floats bit for bit. `LAUNCHES` counts its launches.
+updates every group from a table of group descriptors; on CPU tensors it is
+the loop of `sparse_adam_update` over the groups. It writes fresh p', m', v'
+of every row and none of its inputs (28 B an element; ~0.52 ms at 2^20
+Gaussians of 59 floats on an H100): memory bound. `sparse_adam_update_groups_`
+is the same update in place, the train step's inside a bundle's CUDA graph:
+it writes p, m and v at the visible rows below the map's count alone and
+reads no other row's floats, so its bytes follow the visible rows, not the
+map's capacity; on CPU tensors it updates the visible rows by index. The
+kernel rounds as PyTorch's ops do, one float32 rounding each in the plain
+version's order, so both forms give the plain version's floats bit for bit.
+`LAUNCHES` counts its launches.
 """
 
 from __future__ import annotations
@@ -38,8 +42,7 @@ class _Group(ctypes.Structure):
     """One group's descriptor (csrc/sparse_adam.cu, AdamGroup)."""
 
     _fields_ = [(f, ctypes.c_void_p) for f in ("p", "g", "m", "v", "p_out", "m_out", "v_out")]
-    _fields_ += [("offset", ctypes.c_longlong), ("width", ctypes.c_int),
-                 ("neg_lr", ctypes.c_float)]
+    _fields_ += [("width", ctypes.c_int), ("neg_lr", ctypes.c_float)]
 
 
 def reset_launches() -> None:
@@ -58,6 +61,14 @@ class AdamState(NamedTuple):
         return cls(torch.zeros_like(p), torch.zeros_like(p))
 
 
+def _adam_rows(param, grad, exp_avg, exp_avg_sq, lr, b1, b2, eps):
+    """Adam without bias correction on every element -> (param + step, m, v)."""
+    m = b1 * exp_avg + (1.0 - b1) * grad
+    v = b2 * exp_avg_sq + (1.0 - b2) * grad * grad
+    step = -lr * m / (torch.sqrt(v) + eps)
+    return param + step, m, v
+
+
 def sparse_adam_update(
     param: torch.Tensor,
     grad: torch.Tensor,
@@ -70,10 +81,8 @@ def sparse_adam_update(
 ):
     """One masked Adam step on a single (P, ...) tensor. Returns (param, state)."""
     mask = visible.reshape((-1,) + (1,) * (param.dim() - 1))
-    m = b1 * state.exp_avg + (1.0 - b1) * grad
-    v = b2 * state.exp_avg_sq + (1.0 - b2) * grad * grad
-    step = -lr * m / (torch.sqrt(v) + eps)
-    new_param = torch.where(mask, param + step, param)
+    p, m, v = _adam_rows(param, grad, state.exp_avg, state.exp_avg_sq, lr, b1, b2, eps)
+    new_param = torch.where(mask, p, param)
     new_m = torch.where(mask, m, state.exp_avg)
     new_v = torch.where(mask, v, state.exp_avg_sq)
     return new_param, AdamState(new_m, new_v)
@@ -98,6 +107,53 @@ def sparse_adam_update_groups(
         out = {n: sparse_adam_update(params[n], grads[n], states[n], visible, lrs[n],
                                      b1, b2, eps) for n in names}
         return {n: o[0] for n, o in out.items()}, {n: o[1] for n, o in out.items()}
+    new_p = {n: torch.empty_like(params[n]) for n in names}
+    new_s = {n: AdamState(torch.empty_like(params[n]), torch.empty_like(params[n]))
+             for n in names}
+    _k7(params, grads, states, visible, lrs, new_p, new_s, None, b1, b2, eps)
+    return new_p, new_s
+
+
+def sparse_adam_update_groups_(
+    params: Dict[str, torch.Tensor],
+    grads: Dict[str, torch.Tensor],
+    states: Dict[str, AdamState],
+    visible: torch.Tensor,      # (P,) bool mask over the leading axis
+    lrs: Dict[str, float],
+    count: Optional[torch.Tensor] = None,
+    b1: float = BETA1,
+    b2: float = BETA2,
+    eps: float = EPS,
+):
+    """`sparse_adam_update_groups` in place: each group's param and moments
+    get the plain version's floats at the rows `visible` marks, and every
+    other row keeps its bits (K7 reads none of its floats). Returns (params,
+    states), the objects passed in. `count` (the map's 0-d int32 count, on
+    the device) bounds the rows walked: rows at or past it must be
+    invisible. On CPU tensors the visible rows are updated by index."""
+    names = list(params)
+    if visible.device.type == "cpu":
+        rows = visible.nonzero().squeeze(1)
+        if count is not None:
+            rows = rows[rows < count]
+        for n in names:
+            st = states[n]
+            upd = _adam_rows(params[n][rows], grads[n][rows], st.exp_avg[rows],
+                             st.exp_avg_sq[rows], lrs[n], b1, b2, eps)
+            for t, u in zip((params[n], st.exp_avg, st.exp_avg_sq), upd):
+                t.index_copy_(0, rows, u)
+        return params, states
+    if count is not None and (count.dtype != torch.int32 or count.device != visible.device
+                              or count.dim() != 0):
+        raise ValueError(f"count must be a 0-d int32 tensor on {visible.device}")
+    _k7(params, grads, states, visible, lrs, params, states, count, b1, b2, eps)
+    return params, states
+
+
+def _k7(params, grads, states, visible, lrs, out_p, out_s, count, b1, b2, eps) -> None:
+    """One K7 launch over the groups of `params` into `out_p` / `out_s`:
+    in place when they are `params` / `states`, else fresh tensors."""
+    names = list(params)
     if visible.device.type != "cuda":
         raise ValueError(f"sparse Adam takes CPU or CUDA tensors, got {visible.device}")
     if len(names) > MAX_GROUPS:
@@ -109,7 +165,6 @@ def sparse_adam_update_groups(
     from gaussian_lic_tpu_torch.ops.blend import _launch, _ptr, _stream
 
     table = (_Group * MAX_GROUPS)()
-    new_p, new_s, offset = {}, {}, 0
     for i, n in enumerate(names):
         ins = [params[n], grads[n], states[n].exp_avg, states[n].exp_avg_sq]
         for t in ins:
@@ -117,17 +172,15 @@ def sparse_adam_update_groups(
                     or t.shape[0] != P or not t.is_contiguous()):
                 raise ValueError(f"group {n}: p, g, m and v must be contiguous float32 "
                                  f"(P, ...) on {visible.device} with P = {P}")
-        outs = [torch.empty_like(t) for t in ins[:1] + ins[2:]]
-        new_p[n], new_s[n] = outs[0], AdamState(outs[1], outs[2])
-        table[i] = _Group(*(t.data_ptr() for t in ins + outs), offset,
+        outs = [out_p[n], out_s[n].exp_avg, out_s[n].exp_avg_sq]
+        table[i] = _Group(*(t.data_ptr() for t in ins + outs),
                           ins[0].numel() // max(P, 1), -lrs[n])
-        offset += ins[0].numel()
     f = ctypes.c_float
     _launch(_build.load().cdll.glic_sparse_adam, ctypes.cast(table, ctypes.c_void_p),
-            len(names), ctypes.c_longlong(offset), _ptr(visible), f(b1), f(1.0 - b1), f(b2),
-            f(1.0 - b2), f(eps), _stream(visible.device))
+            len(names), ctypes.c_longlong(P), _ptr(visible),
+            ctypes.c_void_p(None if count is None else count.data_ptr()), f(b1), f(1.0 - b1),
+            f(b2), f(1.0 - b2), f(eps), _stream(visible.device))
     LAUNCHES["sparse_adam"] += 1
-    return new_p, new_s
 
 
 def dense_adam_update(

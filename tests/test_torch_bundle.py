@@ -132,6 +132,28 @@ class TestBundleOnTheCPU:
             assert int(m[k]) == int(d[f"bundle_m_{k}"]), k
         assert_params_close(gm, {f: d[f"bundle_{f}"] for f in MAP_FIELDS}, count)
 
+    def test_in_place_step_is_the_step(self, train_golden):
+        """train_step with `in_place` (the step of the engine's CUDA graphs)
+        gives the step's map, moments and metrics bit for bit, in the
+        tensors it was given."""
+        intr, cfg, _, gm0, kf, opt0 = initial_state(train_golden)
+        gm1, opt1, m1 = train_step(gm0, opt0, kf, 1, 1, intr=intr, cfg=cfg)
+        gm = gm0.replace(**{f: getattr(gm0, f).clone() for f in MAP_FIELDS})
+        opt = {k: adam.AdamState(st.exp_avg.clone(), st.exp_avg_sq.clone())
+               for k, st in opt0.items()}
+        gm2, opt2, m2 = train_step(gm, opt, kf, 1, 1, intr=intr, cfg=cfg, in_place=True)
+        for f in MAP_FIELDS + ("count",):
+            assert getattr(gm2, f) is getattr(gm, f), f
+            assert torch.equal(getattr(gm2, f), getattr(gm1, f)), f
+        for name in opt:
+            assert opt2[name].exp_avg is opt[name].exp_avg, name
+            assert opt2[name].exp_avg_sq is opt[name].exp_avg_sq, name
+            assert torch.equal(opt2[name].exp_avg, opt1[name].exp_avg), name
+            assert torch.equal(opt2[name].exp_avg_sq, opt1[name].exp_avg_sq), name
+        for k in ("loss", "n_visible", "budget_lost", "truncated"):
+            assert torch.equal(m2[k], m1[k]), k
+        assert not torch.equal(gm.xyz, gm0.xyz)
+
     def test_rejects_wrong_length(self, train_golden):
         intr, cfg, _, gm, kf, opt = initial_state(train_golden)
         with pytest.raises(ValueError, match="4-step bundle got 3"):
@@ -325,3 +347,78 @@ def test_capture_survives_a_dead_cycle_of_graphs(cuda_device):
     finally:
         gc.enable()
     assert [k for k, _, _ in graphs.captures] == [4, 2] and math.isfinite(float(m["loss"]))
+
+
+def _state_grads(loss, leaves, allow_unused=False):
+    """Gradients made from the leaves alone: unlike K2's float atomics,
+    whose sums change order run to run, they make a step a function of its
+    state, so that a graph and eager steps compare bit for bit."""
+    return tuple(torch.sin(3.0 * leaf.detach()) * 1e-3 for leaf in leaves)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.requires_cuda
+def test_in_place_graph_is_the_eager_steps_bit_for_bit(cuda_device, monkeypatch):
+    """With gradients that are a function of the state, a 4-step graph of
+    the in-place step gives 4 eager out-of-place steps' map, moments and
+    loss bit for bit. Its warm-up (on a clone) leaves the set's floats as
+    they were, the graph ends with nothing to copy into the set (the last
+    step's tensors are the set's), the state it returns is the set, and
+    the caller's state, copied in, is never written."""
+    from gaussian_lic_tpu_torch.utils.synthetic import make_bench_state
+
+    monkeypatch.setattr(torch.autograd, "grad", _state_grads)
+    cfg = Params(width=64, height=64, fx=40.0, fy=40.0, cx=32.0, cy=32.0,
+                 skybox_points_num=0, initial_capacity=2048, max_tiles_per_gaussian=16)
+    intr, gm0, kf, opt0 = make_bench_state(cfg, 2000, cuda_device)
+    start = [_bits(getattr(gm0, f)).clone() for f in MAP_FIELDS]
+    idxs = torch.tensor([2, 0, 1, 1], device=cuda_device)
+    gm, opt = gm0, opt0
+    for i in range(4):
+        gm, opt, m = train_step(gm, opt, kf, int(idxs[i]), 1 + i, intr=intr, cfg=cfg)
+    graphs = trainer.BundleGraphs()
+    warm, stored = [], []
+    real_warm_up, real_store = graphs._warm_up, graphs._store
+
+    def warm_up(step, gm_s, opt_s, kf_, ids):
+        before = [_bits(t).clone() for _, t in graphs._tensors(gm_s, opt_s)]
+        real_warm_up(step, gm_s, opt_s, kf_, ids)
+        torch.cuda.synchronize()
+        warm.append(all(torch.equal(a, _bits(t))
+                        for a, (_, t) in zip(before, graphs._tensors(gm_s, opt_s))))
+
+    def store(gm_, opt_):
+        stored.append([nm for nm, t in graphs._tensors(gm_, opt_) if t is not graphs.state[nm]])
+        real_store(gm_, opt_)
+
+    graphs._warm_up, graphs._store = warm_up, store
+    bundle = _make_train_bundle(intr, cfg, 4, graphs)
+    adam.reset_launches()
+    gm_b, opt_b, mb = bundle(gm0, opt0, kf, idxs, 1)
+    torch.cuda.synchronize()
+    assert warm == [True] and graphs.warmup_launches["sparse_adam"] == 1
+    assert stored == [[]] and adam.LAUNCHES["sparse_adam"] == 4
+
+    def assert_is_eager(gm_x, opt_x, m_x):
+        for f in MAP_FIELDS + ("count",):
+            assert getattr(gm_x, f) is graphs.state[f], f
+            assert torch.equal(_bits(getattr(gm_x, f)), _bits(getattr(gm, f))), f
+        for name in opt:
+            for c, a, b in (("m", opt_x[name].exp_avg, opt[name].exp_avg),
+                            ("v", opt_x[name].exp_avg_sq, opt[name].exp_avg_sq)):
+                assert a is graphs.state[f"{c}_{name}"], name
+                assert torch.equal(_bits(a), _bits(b)), (c, name)
+        assert torch.equal(m_x["loss"], m["loss"])
+        assert int(m_x["n_visible"]) == int(m["n_visible"])
+
+    assert_is_eager(gm_b, opt_b, mb)
+    # the caller's state was copied in and never written: from it again,
+    # the same 4 steps (the whole map copied in first)
+    assert all(torch.equal(a, _bits(getattr(gm0, f))) for a, f in zip(start, MAP_FIELDS))
+    gm_c, opt_c, mc = bundle(gm0, opt0, kf, idxs, 1)
+    torch.cuda.synchronize()
+    assert len(stored) == 2 and "xyz" in stored[1] and len(graphs.captures) == 1
+    assert_is_eager(gm_c, opt_c, mc)

@@ -541,15 +541,24 @@ def test_sharded_graph_bundle_on_the_card(cuda_device, apply_exposure):
         idxs = torch.tensor([2, 0, 1, 1], device=cuda_device)
         step = make_sharded_train_step(intr, cfg, mesh)
         blend.reset_launches()
+
+        def inputs():
+            return [t.clone() for t in list(gs0.trainable().values()) + [gs0.exposure]
+                    + [x for st in os0.values() for x in st]]
+
+        before = inputs()
         g, o = gs0, os0
         for i in range(4):
             g, o, m = step(g, o, kf, int(idxs[i]), 1 + i)
         eager = dict(blend.LAUNCHES)
+        # the sharded step stays out of place: it writes none of its inputs
+        assert all(torch.equal(a, b) for a, b in zip(before, inputs()))
         graphs = BundleGraphs()
         bundle = make_sharded_train_bundle(intr, cfg, mesh, 4, graphs)
         blend.reset_launches()
         gb, ob, mb = bundle(gs0, os0, kf, idxs, 1)
         torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(before, inputs()))
         assert blend.LAUNCHES == eager == {"forward": 4, "forward_no_color": 0, "backward": 4}
         assert graphs.warmup_launches["forward"] == 1 and len(graphs.captures) == 1
         assert float(mb["loss"]) == pytest.approx(float(m["loss"]), rel=1e-4)

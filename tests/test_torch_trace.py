@@ -206,6 +206,21 @@ def test_one_optimize_call_draws_runs_its_bundles_and_fetches_twice(stream):
     assert "bundle.replay" not in names(rec) and rec.counts["bundle.replays"] == 0
 
 
+def test_optimize_counts_the_rows_sparse_adam_updates(stream):
+    """`adam.updated_rows` is the visible rows summed over the call's steps
+    (from the fetch optimize() makes anyway), `adam.rows` the steps times
+    the map's rows: their ratio is the share of rows K7 touches."""
+    eng = stream[0]
+    with recording():
+        mean = eng.optimize()
+    rec = trace.record()
+    steps = min(eng.kf_count, CFG.max_iters_per_keyframe)
+    assert rec.counts["adam.rows"] == steps * eng.gm.capacity
+    assert rec.counts["adam.updated_rows"] == round(mean * steps)
+    assert 0 < rec.counts["adam.updated_rows"] <= steps * int(eng.gm.count)
+    assert rec.counts["host_syncs"] == 3
+
+
 def test_the_extend_counts_the_gaussians_it_adds(stream):
     eng, rec, before = stream
     frames_ = [s for s in rec.spans if s.name == "frame"]
